@@ -1,0 +1,8 @@
+"""ReSiPI reproduction in PyTorch for NVIDIA Hopper (H100).
+
+The port of the JAX package `repro`, module for module: `core/` holds the
+epoch-level simulator and its models, `kernels/` the hand-written CUDA
+kernels with their plain PyTorch versions, `interop` the numpy bridges the
+parity tests use, and `figures` the paper's Figs. 10-12. It imports torch
+and numpy only; entry points run on the card by default (`backend`).
+"""

@@ -1,0 +1,134 @@
+"""Device policy, kernel builds and launch counters for the PyTorch port.
+
+The counterpart of `repro.kernels.resolve_interpret` (the JAX package's
+backend switch). Here the switch is the tensor's device: a wrapper given
+CUDA tensors launches its hand-written Hopper kernel, a wrapper given CPU
+tensors runs the kernel's plain PyTorch version. There is no silent CPU
+fallback anywhere: entry points default to `cuda` and raise when no card is
+present unless the caller asked for `device="cpu"`.
+
+Importing this module turns TF32 off for float32 matrix products and cuDNN
+convolutions, so every float32 product on the card runs in full float32, as
+the reference's `preferred_element_type=jnp.float32` arithmetic does.
+
+Kernels are CUDA C++ sources under `repro_torch/kernels/<name>/csrc/`, built
+at first use by `nvcc` into `build/kernels/` at the repository root (keyed by
+a hash of the source and the flags) and loaded with `ctypes`.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+# Repository root: src/repro_torch/backend.py -> parents[2].
+REPO_ROOT = Path(__file__).resolve().parents[2]
+BUILD_DIR = REPO_ROOT / "build" / "kernels"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+# Per-kernel counters. A wrapper bumps `launches[name]` exactly where it
+# launches its kernel; `builds[name]` counts nvcc runs (a cached library
+# loads without one); `loop_runs` counts runs of the plain interval loop.
+COUNTERS: Dict[str, object] = {"launches": {}, "builds": {}, "loop_runs": 0}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_BUILD_LOGS: Dict[str, str] = {}
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: `None` means the card.
+
+    Raises RuntimeError when CUDA is requested (explicitly or by default)
+    but absent — the port never quietly runs on the CPU.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain PyTorch version "
+            "on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise RuntimeError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    return dev
+
+
+def count_launch(name: str) -> None:
+    launches = COUNTERS["launches"]
+    launches[name] = launches.get(name, 0) + 1
+
+
+def count_loop_run() -> None:
+    COUNTERS["loop_runs"] += 1
+
+
+def reset_counters() -> None:
+    COUNTERS["launches"] = {}
+    COUNTERS["builds"] = {}
+    COUNTERS["loop_runs"] = 0
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = ([str(Path(cuda_home) / "bin" / "nvcc")] if cuda_home else []) \
+        + [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and Path(c).is_file():
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                       "are built from source at first use")
+
+
+def build_library(name: str, source: Path) -> ctypes.CDLL:
+    """Build (once per source+flags hash) and load a kernel's shared library.
+
+    The library lands in `build/kernels/<name>-<hash>.so` with the nvcc
+    `-Xptxas -v` report beside it (`build_log(name)` returns it). The write
+    is atomic (temporary file + rename), so concurrent first uses from
+    several processes at worst build twice.
+    """
+    if name in _LIBS:
+        return _LIBS[name]
+    src = Path(source).read_bytes()
+    key = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()
+                         ).hexdigest()[:16]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib_path = BUILD_DIR / f"{name}-{key}.so"
+    log_path = BUILD_DIR / f"{name}-{key}.log"
+    if not lib_path.exists():
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                                   str(source)],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed to build {name}:\n"
+                                   f"{proc.stdout}\n{proc.stderr}")
+            log_path.write_text(proc.stdout + proc.stderr)
+            os.replace(tmp, lib_path)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        builds = COUNTERS["builds"]
+        builds[name] = builds.get(name, 0) + 1
+    _BUILD_LOGS[name] = log_path.read_text() if log_path.exists() else ""
+    _LIBS[name] = ctypes.CDLL(str(lib_path))
+    return _LIBS[name]
+
+
+def build_log(name: str) -> Optional[str]:
+    """The nvcc/ptxas report of a built library (None before its build)."""
+    return _BUILD_LOGS.get(name)

@@ -1,0 +1,138 @@
+"""Photonic device models for the ReSiPI interposer, on tensors.
+
+Port of `repro.core.photonics` (§3.2): the equal-power-share coupling-ratio
+schedule of the PCMC chain (Eq. 4), interposer power in the three modes of
+the compared architectures, PCM reconfiguration energy, and the
+placement-derived access-waveguide loss (design-time numpy).
+
+Every tensor function takes the gateway chain on the LAST axis, so leading
+axes are independent lanes. Eq. 4 note (as in the reference): kappa_i counts
+*active* writers upstream of PCMC i, which gives exactly P_laser/GT at every
+active writer for any activity pattern.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.constants import (PHOTONIC_POWER, NETWORK,
+                                        NetworkConfig, PhotonicPower)
+
+
+def kappa_schedule(active: torch.Tensor) -> torch.Tensor:
+    """Eq. 4: coupling ratios for the N-1 PCMC chain given activity [..., N].
+
+    kappa[i] = 1/(GT - a_i) if gateway i is active (a_i = active gateways
+    upstream of i), else 0. Returns [..., N-1].
+    """
+    active = active.to(torch.float32)
+    gt = torch.sum(active, dim=-1, keepdim=True)
+    upstream = torch.cumsum(active, dim=-1) - active
+    denom = torch.clamp_min(gt - upstream, 1.0)
+    return torch.where(active[..., :-1] > 0, 1.0 / denom[..., :-1],
+                       torch.zeros_like(denom[..., :-1]))
+
+
+def gateway_access_loss_db(gw_pos: np.ndarray,
+                           cfg: NetworkConfig = NETWORK,
+                           power: PhotonicPower = PHOTONIC_POWER
+                           ) -> np.ndarray:
+    """Per-gateway optical access loss implied by where the gateway sits.
+
+    Distance (hops) from the gateway's router to the nearest chiplet edge x
+    router pitch x waveguide dB/mm. Edge-placed gateways pay 0 dB. Returns
+    [G] float32 dB values (design-time numpy, a verbatim copy).
+    """
+    from repro_torch.core import topology
+
+    pos = np.asarray(gw_pos, np.int32).reshape(-1, 2)
+    if cfg.coords is None:
+        edge_hops = np.minimum.reduce([
+            pos[:, 0], cfg.mesh_x - 1 - pos[:, 0],
+            pos[:, 1], cfg.mesh_y - 1 - pos[:, 1]])
+    else:
+        edge_hops = topology.edge_lut(cfg)[pos[:, 0], pos[:, 1]]
+    return (edge_hops * cfg.router_pitch_mm
+            * power.waveguide_db_per_mm).astype(np.float32)
+
+
+def interposer_power_mw(active: torch.Tensor, wavelengths, *,
+                        n_gateways: int,
+                        power: PhotonicPower = PHOTONIC_POWER,
+                        loss_db=0.0, mode: str = "pcm",
+                        n_chiplets=None) -> dict:
+    """Total photonic interposer power for a given activity state.
+
+    Args:
+      active: [..., N] bool — active gateways (writers+readers co-gated).
+      wavelengths: scalar, [...] per lane, or [..., N] per gateway.
+      n_gateways: static N (chain length).
+      loss_db: optical path loss ([...] per lane or scalar); laser power is
+        scaled by 10^(loss/10).
+      mode: "pcm" (ReSiPI: everything follows the PCM activity mask),
+        "wdm" (PROWAVES: every provisioned gateway stays lit, per-gateway
+        wavelength counts) or "static" (AWGR: everything always on).
+      n_chiplets: chiplet count for the Table 2 controller term (default:
+        the Table 1 system).
+
+    Returns a dict of [...] tensors: laser/tia/tuning/driver/controller/
+    total mW.
+    """
+    active_f = active.to(torch.float32)
+    w = torch.as_tensor(wavelengths, dtype=torch.float32,
+                        device=active.device)
+    if w.dim() < active_f.dim():
+        w = w.unsqueeze(-1)
+    w = torch.broadcast_to(w, active_f.shape)
+    # x * 0.1 for x / 10: the reference's compiled arithmetic.
+    loss_scale = 10.0 ** (torch.as_tensor(loss_db, dtype=torch.float32,
+                                          device=active.device) * 0.1)
+    gw_n = float(n_gateways)
+
+    if mode == "pcm":
+        lit_w = torch.sum(active_f * w, dim=-1)
+        laser = lit_w * power.laser_mw_per_wavelength
+        mods = lit_w
+        filters = lit_w
+    elif mode == "wdm":
+        lit_w = torch.sum(w, dim=-1)
+        laser = lit_w * power.laser_mw_per_wavelength
+        mods = lit_w
+        filters = lit_w
+    elif mode == "static":
+        lit_w = torch.sum(w, dim=-1)
+        laser = lit_w * power.laser_mw_per_wavelength
+        mods = lit_w
+        filters = torch.full_like(lit_w, np.float32(gw_n * gw_n))
+    else:
+        raise ValueError(f"unknown power mode: {mode}")
+
+    tia = filters if mode != "static" else torch.full_like(lit_w, gw_n)
+    tia = tia * power.tia_mw
+    tuning = (mods + filters) * power.tuning_mw_per_mr
+    driver = mods * power.driver_mw
+
+    laser = laser * loss_scale
+    chips = NETWORK.n_chiplets if n_chiplets is None else n_chiplets
+    controller = (power.controller_lgc_uw * chips
+                  + power.controller_inc_uw) / 1000.0
+    total = laser + tia + tuning + driver + controller
+    return {"laser_mw": laser, "tia_mw": tia, "tuning_mw": tuning,
+            "driver_mw": driver,
+            "controller_mw": torch.full_like(total, np.float32(controller)),
+            "total_mw": total}
+
+
+def reconfig_energy_nj(prev_active: torch.Tensor, new_active: torch.Tensor,
+                       power: PhotonicPower = PHOTONIC_POWER
+                       ) -> torch.Tensor:
+    """PCM reconfiguration energy for one epoch boundary ([...] per lane).
+
+    Every PCMC whose kappa changes pays one ~2 nJ PCM state transition;
+    the non-volatile steady state costs nothing.
+    """
+    k_prev = kappa_schedule(prev_active)
+    k_new = kappa_schedule(new_active)
+    switched = torch.sum((torch.abs(k_new - k_prev) > 1e-6)
+                         .to(torch.float32), dim=-1)
+    return switched * power.pcmc_reconfig_nj

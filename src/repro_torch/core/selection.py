@@ -1,0 +1,245 @@
+"""Adaptive gateway selection (§3.4, Fig. 8): design-time tables.
+
+Port of `repro.core.selection`. Routing an inter-chiplet packet takes three
+steps: source router -> source gateway, gateway -> gateway over the
+interposer, destination gateway -> destination router. The selection
+decisions are design-time tables, one per activation level g: routers are
+partitioned into balanced groups of R/g per gateway, each group holding the
+routers nearest to its gateway (Fig. 8 a-d).
+
+The numpy builders are verbatim copies of the reference's (so the tables
+match it bit for bit); `selection_tables_torch` is the memoized
+device-resident view the simulator gathers from.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.backend import resolve_device
+from repro_torch.core import photonics, topology
+from repro_torch.core.constants import NETWORK, NetworkConfig
+
+
+def _validate_positions(pos: np.ndarray, cfg: NetworkConfig,
+                        what: str) -> None:
+    """Reject out-of-bounds or colliding gateway coordinates loudly.
+
+    Small meshes used to make the default edge formulas (`mx - 2`, `my - 2`)
+    underflow into negative or duplicate coordinates *silently*; every
+    placement now funnels through this check before any table is built.
+    Explicit-coords layouts additionally require each coordinate to name an
+    actual router (the dense LUT bounding box has off-layout holes).
+    """
+    bx, by = topology.lut_shape(cfg)
+    oob = ((pos[:, 0] < 0) | (pos[:, 0] >= bx)
+           | (pos[:, 1] < 0) | (pos[:, 1] >= by))
+    if oob.any():
+        bad = [tuple(p) for p in pos[oob]]
+        raise ValueError(
+            f"{what}: gateway coordinates {bad} fall outside the "
+            f"{bx}x{by} chiplet mesh")
+    if cfg.coords is not None:
+        idx = topology.router_index_lut(cfg)
+        hole = idx[pos[:, 0], pos[:, 1]] < 0
+        if hole.any():
+            bad = [tuple(p) for p in pos[hole]]
+            raise ValueError(
+                f"{what}: gateway coordinates {bad} are not routers of the "
+                f"{cfg.coord_model} layout in NetworkConfig.coords")
+    uniq, counts = np.unique(pos, axis=0, return_counts=True)
+    if (counts > 1).any():
+        dup = [tuple(p) for p in uniq[counts > 1]]
+        raise ValueError(
+            f"{what}: gateway coordinates collide at {dup} — each gateway "
+            f"needs its own router on the {cfg.mesh_x}x{cfg.mesh_y} mesh")
+
+
+# Slot count of the default edge-distributed scheme below; placements with
+# more gateways need explicit NetworkConfig.gateway_positions.
+N_DEFAULT_EDGE_SLOTS = 4
+
+
+def default_gateway_positions(cfg: NetworkConfig = NETWORK) -> np.ndarray:
+    """Gateway-attached router coordinates on the chiplet mesh.
+
+    Placement follows the edge-distributed scheme of [29]/Fig. 8d: gateways
+    sit on distinct edges so that consecutive activation levels keep them
+    maximally spread. Activation order is the row order of this array.
+    Raises a clear ValueError on meshes too small to host the scheme
+    (the edge formulas need every sliced slot in-bounds and distinct).
+    Explicit-coords layouts (hex patches etc.) have no fixed edge slots;
+    they use the deterministic boundary max-min-spread generalization in
+    `topology.default_positions`.
+    """
+    if cfg.coords is not None:
+        pos = np.array(topology.default_positions(cfg), dtype=np.int32)
+        _validate_positions(
+            pos, cfg, f"default_gateway_positions on a {cfg.coord_model} "
+                      f"layout")
+        return pos
+    mx, my = cfg.mesh_x, cfg.mesh_y
+    pos = np.array([
+        [1, 0],                 # G1: south edge
+        [mx - 2, my - 1],       # G2: north edge (opposite side for g=2)
+        [0, my - 2],            # G3: west edge
+        [mx - 1, 1],            # G4: east edge
+    ], dtype=np.int32)
+    assert len(pos) == N_DEFAULT_EDGE_SLOTS
+    if cfg.max_gateways_per_chiplet > len(pos):
+        raise ValueError(
+            f"default edge scheme defines {len(pos)} gateway slots but "
+            f"max_gateways_per_chiplet={cfg.max_gateways_per_chiplet}; pass "
+            f"explicit NetworkConfig.gateway_positions for denser placements")
+    pos = pos[: cfg.max_gateways_per_chiplet]
+    _validate_positions(
+        pos, cfg, f"default_gateway_positions on a {mx}x{my} mesh")
+    return pos
+
+
+def resolve_gateway_positions(cfg: NetworkConfig = NETWORK) -> np.ndarray:
+    """The placement the config actually means: explicit or default.
+
+    Explicit `cfg.gateway_positions` are validated (bounds, collisions,
+    enough rows for `max_gateways_per_chiplet`) and sliced to the first
+    `max_gateways_per_chiplet` rows (activation order); None falls back to
+    the edge-distributed default scheme. Everything downstream — selection
+    tables, flit-kernel topology building, access-waveguide loss — goes
+    through this single resolution point.
+    """
+    if cfg.gateway_positions is None:
+        return default_gateway_positions(cfg)
+    pos = np.asarray(cfg.gateway_positions, np.int32).reshape(-1, 2)
+    if len(pos) < cfg.max_gateways_per_chiplet:
+        raise ValueError(
+            f"gateway_positions places {len(pos)} gateways but "
+            f"max_gateways_per_chiplet={cfg.max_gateways_per_chiplet}")
+    _validate_positions(pos, cfg, "gateway_positions")
+    return pos[: cfg.max_gateways_per_chiplet]
+
+
+def _balanced_assignment_from_dist(dist: np.ndarray,
+                                   capacity: int) -> np.ndarray:
+    """Greedy balanced nearest-gateway partition from a [R, G] hop matrix.
+
+    Processes (router, gateway) pairs in (distance, router id, gateway id)
+    order and assigns greedily under a per-gateway capacity of ceil(R/g) —
+    the R_g = R/g_c balance rule of §3.4. The pair ordering is a single
+    vectorized `np.lexsort` (the O(R*G log RG) part); only the inherently
+    sequential capacity-constrained walk remains a Python loop, with an
+    early exit once every router is assigned.
+    """
+    n_r, n_g = dist.shape
+    rr, gg = np.divmod(np.arange(n_r * n_g), n_g)
+    order = np.lexsort((gg, rr, dist.ravel()))     # primary: distance
+    assign = np.full((n_r,), -1, dtype=np.int32)
+    load = np.zeros((n_g,), dtype=np.int32)
+    remaining = n_r
+    for idx in order:
+        r, g = rr[idx], gg[idx]
+        if assign[r] == -1 and load[g] < capacity:
+            assign[r] = g
+            load[g] += 1
+            remaining -= 1
+            if remaining == 0:
+                break
+    # Any leftovers (capacity exhausted by ties) -> least-loaded gateway.
+    left = np.flatnonzero(assign == -1)
+    for r in left:
+        g = int(np.argmin(load))
+        assign[r] = g
+        load[g] += 1
+    return assign
+
+
+@dataclasses.dataclass(frozen=True)
+class SelectionTables:
+    """Design-time tables, one slice per activation level g in 1..G.
+
+    src_map:  [G, R] int  — source gateway index for each router when g
+                            gateways are active (entries < g).
+    dst_map:  [G, R] int  — destination gateway for each destination router.
+    src_hops: [G]  float  — mean router->gateway hops under src_map.
+    dst_hops: [G]  float  — mean gateway->router hops under dst_map.
+    gw_loss_db: [G] float — mean access-waveguide loss (dB) over the active
+                            gateways at each level.
+    gw_pos:   [Gmax, 2]   — gateway coordinates (activation order).
+    """
+    src_map: np.ndarray
+    dst_map: np.ndarray
+    src_hops: np.ndarray
+    dst_hops: np.ndarray
+    gw_loss_db: np.ndarray
+    gw_pos: np.ndarray
+
+    def as_torch(self, device) -> dict:
+        return {k: torch.as_tensor(getattr(self, k), device=device)
+                for k in ("src_map", "dst_map", "src_hops", "dst_hops",
+                          "gw_loss_db")}
+
+
+@functools.lru_cache(maxsize=None)
+def build_selection_tables(cfg: NetworkConfig = NETWORK) -> SelectionTables:
+    """Build (and memoize) the design-time tables for one topology.
+
+    `NetworkConfig` is frozen, so equal configs share one cache entry and
+    the greedy numpy construction runs at most once per topology. The
+    returned arrays must be treated as immutable by callers.
+    """
+    routers = topology.router_coords(cfg)
+    gw_pos = resolve_gateway_positions(cfg)
+    n_r = len(routers)
+    g_max = cfg.max_gateways_per_chiplet
+
+    # One vectorized [R, Gmax] hop matrix feeds every activation level; the
+    # per-level work is the greedy capacity walk plus fancy-indexed means.
+    # pair_hops is the Manhattan closed form on meshes (bit parity) and the
+    # BFS hop matrix on explicit-coords layouts.
+    dist = topology.pair_hops(cfg, routers[:, None, :],
+                              gw_pos[None, :, :])               # [R, Gmax]
+    levels = np.arange(1, g_max + 1)
+    caps = -(-n_r // levels)                                    # ceil(R/g)
+
+    src_map = np.stack([
+        _balanced_assignment_from_dist(dist[:, :g], int(cap))
+        for g, cap in zip(levels, caps)])                       # [Gmax, R]
+    dst_map = src_map.copy()        # step-3 tables share the balance rule
+    hops = np.take_along_axis(dist, src_map.T, axis=1)          # [R, Gmax]
+    src_hops = hops.mean(axis=0).astype(np.float32)
+    dst_hops = src_hops.copy()
+    # Level-g mean access loss: running mean over the first g placed
+    # gateways — the laser must overcome the average lit access waveguide.
+    per_gw_db = photonics.gateway_access_loss_db(gw_pos, cfg)
+    gw_loss_db = (np.cumsum(per_gw_db) / levels).astype(np.float32)
+
+    return SelectionTables(src_map=src_map.astype(np.int32),
+                           dst_map=dst_map.astype(np.int32),
+                           src_hops=src_hops, dst_hops=dst_hops,
+                           gw_loss_db=gw_loss_db, gw_pos=gw_pos)
+
+
+def selection_tables_torch(cfg: NetworkConfig = NETWORK,
+                           device=None) -> dict:
+    """Memoized device-resident view of the tables for `cfg` (the twin of
+    the reference's `selection_tables_jax`): the same dict of tensors for
+    equal (cfg, device), so repeated runs never re-upload. `device=None`
+    means the card (see `backend.resolve_device`)."""
+    return _selection_tables_torch_cached(cfg, str(resolve_device(device)))
+
+
+@functools.lru_cache(maxsize=None)
+def _selection_tables_torch_cached(cfg: NetworkConfig, device: str) -> dict:
+    return build_selection_tables(cfg).as_torch(device)
+
+
+def mean_access_hops(tables: dict, g: torch.Tensor) -> torch.Tensor:
+    """Mean router<->gateway hop count at activation level g (vectorized).
+
+    Levels past the table clamp to its last row, as the reference's gather
+    does for out-of-range indices.
+    """
+    hops = tables["src_hops"]
+    return hops[torch.clamp(g.long(), 1, hops.shape[0]) - 1]

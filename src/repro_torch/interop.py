@@ -1,0 +1,90 @@
+"""numpy in, tensors out: carry the reference's inputs and state across.
+
+This system has no weights. Its "parameters" are traffic traces, the
+`SimState` carry and the selection tables. These helpers take numpy arrays
+(for example the JAX package's outputs after `np.asarray`) and return the
+port's tensors, with the dtypes the reference uses (float32 loads, int32
+gateway counts, bool activity), so the parity tests hand both packages the
+same inputs. `records_to_numpy` goes the other way for comparisons.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.backend import resolve_device
+from repro_torch.core.gateway_controller import ControllerState
+from repro_torch.core.simulator import FAULT_KEYS, SimState
+
+_FLOAT_KEYS = ("ext_load", "mem_load", "int_load", "ext_frac", "t_mask",
+               "dest") + FAULT_KEYS
+
+
+def _tensor(a, dtype, device) -> torch.Tensor:
+    # np.array copies: the tensor never aliases (possibly read-only) input.
+    return torch.as_tensor(np.array(a, dtype=dtype), device=device)
+
+
+def trace_from_numpy(trace: dict, device=None) -> dict:
+    """A trace dict of float32 tensors on `device` (default: the card).
+
+    Keys `ext_load`, `mem_load`, `int_load`, `ext_frac` and, when present,
+    `t_mask`, `dest` and the fault keys convert; `app` and any other key
+    pass through unchanged.
+    """
+    dev = resolve_device(device)
+    out = {}
+    for k, v in trace.items():
+        if k in _FLOAT_KEYS:
+            out[k] = _tensor(v, np.float32, dev)
+        else:
+            out[k] = v
+    return out
+
+
+def state_from_numpy(g, packets_seen, epoch, wavelengths, prev_active,
+                     device=None) -> SimState:
+    """A `SimState` from numpy arrays: g/wavelengths int32, packets_seen
+    float32, epoch int32, prev_active bool (leading lane axes kept)."""
+    dev = resolve_device(device)
+    return SimState(
+        ctl=ControllerState(g=_tensor(g, np.int32, dev),
+                            packets_seen=_tensor(packets_seen, np.float32,
+                                                 dev),
+                            epoch=_tensor(epoch, np.int32, dev)),
+        wavelengths=_tensor(wavelengths, np.int32, dev),
+        prev_active=_tensor(prev_active, np.bool_, dev))
+
+
+def tables_from_numpy(tables, device=None) -> dict:
+    """Selection tables (a `SelectionTables` of either package, or a dict of
+    arrays) as tensors: maps int32, hop and loss columns float32."""
+    dev = resolve_device(device)
+    get = (tables.get if isinstance(tables, dict)
+           else lambda k: getattr(tables, k, None))
+    out = {}
+    for k, dt in (("src_map", np.int32), ("dst_map", np.int32),
+                  ("src_hops", np.float32), ("dst_hops", np.float32),
+                  ("gw_loss_db", np.float32)):
+        v = get(k)
+        if v is not None:
+            out[k] = _tensor(v, dt, dev)
+    return out
+
+
+def records_to_numpy(out):
+    """Recursively turn every tensor of a result (dicts, lists, tuples,
+    dataclasses such as SimState) into numpy arrays."""
+    if isinstance(out, torch.Tensor):
+        return out.detach().cpu().numpy()
+    if isinstance(out, dict):
+        return {k: records_to_numpy(v) for k, v in out.items()}
+    if isinstance(out, (list, tuple)):
+        return type(out)(records_to_numpy(v) for v in out)
+    if isinstance(out, SimState):
+        return {"g": records_to_numpy(out.ctl.g),
+                "packets_seen": records_to_numpy(out.ctl.packets_seen),
+                "epoch": records_to_numpy(out.ctl.epoch),
+                "wavelengths": records_to_numpy(out.wavelengths),
+                "prev_active": records_to_numpy(out.prev_active)}
+    return out

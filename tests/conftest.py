@@ -12,3 +12,9 @@ ROOT = Path(__file__).resolve().parents[1]
 for p in (str(SRC), str(ROOT)):
     if p not in sys.path:
         sys.path.insert(0, p)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the port's hand-written "
+        "kernels); skips without one")

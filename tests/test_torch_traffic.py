@@ -1,0 +1,192 @@
+"""Traffic parity: specs, destination matrices and trace transforms against
+the JAX reference, plus the properties of the port's own generator.
+
+Specs and destination matrices are copies and must match exactly; the
+transforms must give the same arrays on the same reference-made traces.
+The port's generator draws other random bits than `jax.random`, so it is
+held to the distributional contract instead: non-negative loads, a sample
+mean within 5% of `expected_mean_ext_load`, and bit-identical output per
+seed.
+"""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.core import traffic as jtr
+from repro.core.constants import NETWORK as JNET
+from repro_torch import interop
+from repro_torch.core import traffic as ttr
+from repro_torch.core.constants import NETWORK as TNET
+
+
+def _np_trace(tr):
+    return {k: (v if k == "app" else np.asarray(v)) for k, v in tr.items()}
+
+
+def _ref_trace(app="dedup", t=12, seed=0, dest=False):
+    tr = jtr.generate(jtr.ParsecSpec(app, t), jax.random.PRNGKey(seed),
+                      dest=dest)
+    return _np_trace(tr)
+
+
+def _eq(got, want):
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_specs_are_a_faithful_copy():
+    assert ttr.APP_NAMES == jtr.APP_NAMES
+    assert ttr.PERMUTATION_PATTERNS == jtr.PERMUTATION_PATTERNS
+    for app in jtr.APP_NAMES:
+        assert dataclasses.asdict(ttr.PARSEC[app]) == \
+            dataclasses.asdict(jtr.PARSEC[app])
+    for js, ts in zip(jtr.ALL_SYNTHETIC_SPECS, ttr.ALL_SYNTHETIC_SPECS):
+        assert dataclasses.asdict(js) == dataclasses.asdict(ts)
+        assert js.name == ts.name
+        for c in (4, 9, 16):
+            assert ttr.expected_mean_ext_load(
+                ts, TNET.with_topology(n_chiplets=c)) == \
+                jtr.expected_mean_ext_load(js, JNET.with_topology(
+                    n_chiplets=c))
+    for pattern in jtr.PERMUTATION_PATTERNS:
+        for c in (1, 2, 4, 5, 9, 16):
+            _eq(ttr.permutation_destinations(pattern, c),
+                jtr.permutation_destinations(pattern, c))
+    with pytest.raises(ValueError):
+        ttr.ParsecSpec(app="nope")
+    with pytest.raises(ValueError):
+        ttr.UniformSpec(mean_load=-1.0)
+    assert ttr.as_spec("facesim", 7) == ttr.ParsecSpec("facesim", 7)
+
+
+@pytest.mark.parametrize("c", [2, 4, 9])
+def test_destination_matrices_exact(c):
+    jcfg, tcfg = JNET.with_topology(n_chiplets=c), \
+        TNET.with_topology(n_chiplets=c)
+    specs = list(zip(jtr.ALL_SYNTHETIC_SPECS, ttr.ALL_SYNTHETIC_SPECS)) + [
+        (jtr.ParsecSpec(a), ttr.ParsecSpec(a)) for a in jtr.APP_NAMES]
+    for js, ts in specs:
+        want = jtr.destination_matrix(js, jcfg)
+        got = ttr.destination_matrix(ts, tcfg)
+        assert got.dtype == want.dtype
+        _eq(got, want)
+        _eq(ttr.destination_matrix_torch(ts, tcfg, "cpu"), want)
+
+
+def test_pad_slice_chunk_exact():
+    ref = _ref_trace(t=10, dest=True)
+    port = interop.trace_from_numpy(ref, "cpu")
+    want = jtr.pad_trace(ref, 16)
+    got = ttr.pad_trace(port, 16)
+    for k in ("ext_load", "mem_load", "int_load", "t_mask", "dest"):
+        _eq(got[k], want[k])
+    assert ttr.trace_length(got) == jtr.trace_length(want) == 10
+    want_s, got_s = jtr.slice_trace(ref, 3), ttr.slice_trace(port, 3)
+    for k in ("ext_load", "int_load", "dest"):
+        _eq(got_s[k], want_s[k])
+    for size, pad in ((4, False), (4, True), (3, True)):
+        wc = list(jtr.chunk_trace(ref, size, pad=pad))
+        gc = list(ttr.chunk_trace(port, size, pad=pad))
+        assert len(wc) == len(gc)
+        for w, g in zip(wc, gc):
+            assert set(w) == set(g)
+            for k in w:
+                if k != "app":
+                    _eq(g[k], w[k])
+
+
+def test_concat_traces_match():
+    segs = [_ref_trace(a, t, s, dest=True)
+            for a, t, s in (("blackscholes", 6, 1), ("facesim", 4, 2),
+                            ("dedup", 5, 3))]
+    segs[1] = jtr.pad_trace(segs[1], 7)
+    segs = [_np_trace(s) for s in segs]
+    want = jtr.concat_traces(segs)
+    got = ttr.concat_traces([interop.trace_from_numpy(s, "cpu")
+                             for s in segs])
+    for k in ("ext_load", "mem_load", "int_load", "t_mask"):
+        _eq(got[k], want[k])
+    assert got["app"] == want["app"]
+    # ext_frac and dest are load-weighted means: a sum over every interval
+    # and chiplet, whose float32 summation order differs between XLA and
+    # torch, hence 1e-6 rather than bit equality.
+    np.testing.assert_allclose(got["ext_frac"].numpy(),
+                               np.asarray(want["ext_frac"]), rtol=1e-6)
+    np.testing.assert_allclose(got["dest"].numpy(), np.asarray(want["dest"]),
+                               rtol=1e-6, atol=1e-7)
+
+
+def test_validate_trace_rejects_what_the_reference_rejects():
+    good = _ref_trace(t=4)
+    bad_cases = [
+        {k: v for k, v in good.items() if k != "mem_load"},
+        dict(good, ext_load=-good["ext_load"]),
+        dict(good, ext_load=good["ext_load"] * np.nan),
+        dict(good, dest=np.ones((3, 3), np.float32)),
+    ]
+    for bad in bad_cases:
+        with pytest.raises(ValueError):
+            jtr.validate_trace(bad)
+        with pytest.raises(ValueError):
+            ttr.validate_trace(interop.trace_from_numpy(bad, "cpu"))
+    with pytest.raises(TypeError):
+        ttr.validate_trace([1, 2])
+    with pytest.raises(ValueError):
+        ttr.pad_trace(interop.trace_from_numpy(good, "cpu"), 2)
+
+
+SPECS_FOR_CALIBRATION = [
+    ttr.UniformSpec(mean_load=0.03, n_intervals=512),
+    ttr.HotspotSpec(mean_load=0.03, n_intervals=512),
+    ttr.PermutationSpec(pattern="transpose", mean_load=0.03,
+                        n_intervals=512),
+    ttr.PermutationSpec(pattern="tornado", mean_load=0.03, n_intervals=512),
+    ttr.BurstySpec(mean_load=0.03, n_intervals=2048),
+    ttr.ParsecSpec(app="blackscholes", n_intervals=2000),
+    ttr.ParsecSpec(app="dedup", n_intervals=2000),
+]
+
+
+@pytest.mark.parametrize("spec", SPECS_FOR_CALIBRATION,
+                         ids=lambda s: s.name)
+def test_generator_contract(spec):
+    """Non-negative, calibrated within 5% of the analytic mean, and
+    reproducible per generator seed (64 chiplets keep the sample error of
+    the per-chiplet imbalance and on/off chains well under the bound)."""
+    cfg = TNET.with_topology(n_chiplets=64)
+    tr = ttr.generate(spec, 11, cfg, device="cpu")
+    ext = tr["ext_load"]
+    assert ext.dtype == torch.float32 and ext.shape == (spec.n_intervals, 64)
+    for k in ("ext_load", "int_load", "mem_load"):
+        assert bool(torch.all(tr[k] >= 0)) and bool(torch.isfinite(tr[k]).all())
+    assert 0.0 < float(tr["ext_frac"]) <= 1.0
+    want = ttr.expected_mean_ext_load(spec, cfg)
+    got = float(ext.double().mean())
+    assert abs(got - want) <= 0.05 * want, (got, want)
+    again = ttr.generate(spec, torch.Generator().manual_seed(11), cfg,
+                         device="cpu")
+    for k in ("ext_load", "int_load", "mem_load", "ext_frac"):
+        assert torch.equal(tr[k], again[k])
+    other = ttr.generate(spec, 12, cfg, device="cpu")
+    assert not torch.equal(tr["ext_load"], other["ext_load"])
+
+
+def test_generator_entry_points():
+    traces = ttr.all_app_traces(8, seed=3, device="cpu", dest=True)
+    assert list(traces) == ttr.APP_NAMES
+    for app, tr in traces.items():
+        assert tr["app"] == app and tr["ext_load"].shape == (8, 4)
+        _eq(tr["dest"], jtr.destination_matrix(jtr.ParsecSpec(app)))
+    again = ttr.all_app_traces(8, seed=3, device="cpu")
+    assert torch.equal(again["dedup"]["ext_load"],
+                       traces["dedup"]["ext_load"])
+    one = ttr.generate_trace("canneal", 5, 0, device="cpu")
+    assert one["ext_load"].shape == (5, 4)
+    # Permutation self-pairs divert all their load to the local mesh.
+    perm = ttr.generate(ttr.PermutationSpec("transpose", n_intervals=16), 0,
+                        device="cpu")
+    self_paired = ttr.permutation_destinations("transpose", 4) == np.arange(4)
+    assert float(perm["ext_load"][:, self_paired].abs().sum()) == 0.0
