@@ -7,28 +7,39 @@ toolkit (nvcc) and PyTorch built for CUDA:
     python3 chip_smoke.py
 
 It builds every kernel of the port's main path from the sources in the
-checkout, holds each kernel against its plain PyTorch version on the card,
-drives the main path through the entry points a user calls, and measures
-the kernels. Phases (one line per step; any failure exits non-zero):
+checkout (`epoch_step` and `noc_step`, one nvcc each, started together),
+holds each kernel against its plain PyTorch version on the card, drives the
+main path through the entry points a user calls, and measures the kernels.
+Phases (one line per step; any failure exits non-zero):
 
   1. card and build: nvidia-smi name and power limit, build seconds and the
-     ptxas register / spill report;
-  2. kernel against plain on the card at the Table-1 widths, T = 100:
+     ptxas register / spill report of each kernel;
+  2. epoch_step against plain on the card at the Table-1 widths, T = 100:
      clean, destination matrices, a ragged t_mask batch with an all-masked
      lane, a fault frame, and a 64-point sweep over the five kernel knobs
      (rtol = atol = 1e-6, integer g and boolean saturation exact);
+     noc_step against plain (rtol 1e-5, atol 1e-3) on the cases of
+     `kernels/noc_step/cases.py` (the card tests run them at a smaller T):
+     Fig. 13's two topologies at 8192 cycles, a padded topology with
+     garbage in its dead lanes (exactly 0 out), a lane dying mid-run (final occupancy exactly 0), an all-ones
+     valid_mask_t (bitwise the static run), a ragged t_mask, hex_config(2),
+     and a batch of mixed-T runs (bitwise the runs one by one);
   3. the paper through the port's own generator: Fig. 11 (8 PARSEC apps x
-     4 architectures), Fig. 10 (L_m) and Fig. 12 (settle times);
-  4. a full-size DSE: RESIPI `sweep_batch` over 8 PARSEC apps with
+     4 architectures), Fig. 10 (L_m), Fig. 12 (settle times) and Fig. 13
+     (residency maps, arrivals from the threefry twin at seed 5, held to
+     the reference's values);
+  4. two full-size DSEs: RESIPI `sweep_batch` over 8 PARSEC apps with
      destination matrices x a 64 x 64 (l_m x buffer_sat) grid at T = 100
-     (32 768 lanes); then every kernel call of phases 3 and 4 is held
-     against the plain version on its own inputs, and the kernel's time,
-     the plain version's and the entry point's warm host time are taken;
+     (32 768 lanes), and one `noc_run` over 512 flit-level runs (mesh radix
+     {4, 8} x g {1..4} x W {2, 16} x 32 loads, padded to 68 nodes, 8192
+     cycles); then every kernel call of phases 3 and 4 is held against the
+     plain version on its own inputs, and each kernel's time, the plain
+     version's and the epoch entry point's warm host time are taken;
   5. a `kernels` JSON line (launches on the main path, error against plain,
      times and the bound).
 
 Phases 3 and 4 are the main path: the launch counters are zeroed before
-phase 3 and read after the phase-4 entry-point run, before any timing.
+phase 3 and read after the last DSE, before any check or timing.
 The last line is {"ok": true, "device": {...}}. Without a card, or without
 the rest of the repository beside this file, it exits non-zero and prints
 no result.
@@ -37,6 +48,7 @@ from __future__ import annotations
 
 import json
 import re
+from concurrent.futures import ThreadPoolExecutor
 import subprocess
 import sys
 import time
@@ -60,6 +72,21 @@ F32_FLOPS_PER_S = 67e12
 # matrices are on (recv, phi and the destination leg sum) and per gateway
 # slot (old and new Eq. 4 kappas and the switch test).
 OPS_PER_LANE, OPS_PER_CHIPLET, OPS_PER_PAIR, OPS_PER_SLOT = 90, 80, 6, 12
+# noc_step against plain: the in-edge sums run in another order than the
+# plain version's products (ulp noise that accumulates over the cycles);
+# the reference's own bound for this kernel is rtol 1e-4, atol 1e-2.
+NOC_RTOL, NOC_ATOL = 1e-5, 1e-3
+# Float operations of the noc_step kernel per node-cycle, counted from its
+# source: arrivals add, mask, link-rate min, router mask (4); the in-edge
+# sum of send (one add per node on average: every node has one out-edge);
+# space sub and max, want > 0, max with 1e-9, division, min with 1 (6);
+# moved (1); the in-edge sum of moved (1); land: sub, mask mul, add, drain
+# min, sub (5); t_mask freeze of occ, residency and drained (8).
+OPS_PER_NODE_CYCLE = 26
+NOC_CYCLES = 8192
+DSE_RADIX, DSE_G, DSE_W = (4, 8), (1, 2, 3, 4), (2, 16)
+DSE_LOADS = np.linspace(0.02, 0.64, 32)
+DSE_PAD = 8 * 8 + 4                           # mesh radix 8 plus 4 sinks
 
 
 def fail(msg: str) -> None:
@@ -141,6 +168,43 @@ def epoch_work(n, t, c, g, b, dest: bool) -> tuple:
     return read + written, ops
 
 
+def noc_work(prep: dict, t_mask_passed: bool, max_in: int) -> tuple:
+    """(bytes read once + written once, float ops) that one noc_run call
+    must move and compute, from `prepare`'s output, counted from what this
+    call's data needs. Read: arrivals (and the time-varying mask, when
+    given) in live lanes only (static mask != 0: a dead lane's arrivals
+    only ever meet a zero factor), t_mask [B, T] only when the caller
+    passes one, and the mask, drain, buffer and next hop [B, R] and the
+    in-edge lists [B, R, max_in] of every lane (a dead lane's buffer still
+    scales a sender routed into it); written: residency, final occupancy
+    and drained [B, R]. Operations: OPS_PER_NODE_CYCLE per live
+    node-cycle. The kernel itself reads every lane and the all-ones t_mask
+    the wrapper fills in: more than this."""
+    f = 4
+    b, t, r = prep["arrivals"].shape
+    live = int((prep["mask"] != 0).sum())
+    planes = 1 + (prep["mask_t"] is not None)
+    read = (planes * live * t + (b * t if t_mask_passed else 0)
+            + b * r * (4 + max_in)) * f
+    written = 3 * b * r * f
+    return read + written, live * t * OPS_PER_NODE_CYCLE
+
+
+def noc_compare(got, want, what: str) -> float:
+    """Max abs error of (residency, occupancy, drained) at the noc_step
+    tolerance; fails on non-finite values or a miss."""
+    worst = 0.0
+    for name, a, b in zip(("residency", "occupancy", "drained"), got, want):
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            fail(f"{what}: {name} malformed ({tuple(a.shape)})")
+        err = float((a - b).abs().max()) if a.numel() else 0.0
+        if not torch.allclose(a, b, rtol=NOC_RTOL, atol=NOC_ATOL):
+            fail(f"{what}: {name} max abs err {err:g} beyond rtol "
+                 f"{NOC_RTOL} atol {NOC_ATOL}")
+        worst = max(worst, err)
+    return worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -157,8 +221,12 @@ def main() -> int:
     from repro_torch import figures
     from repro_torch.core import simulator as sim_mod
     from repro_torch.core import traffic
+    from repro_torch import random as trandom
     from repro_torch.kernels.epoch_step import ops
     from repro_torch.kernels.epoch_step.ref import epoch_run_reference
+    from repro_torch.kernels.noc_step import cases as noc_cases
+    from repro_torch.kernels.noc_step import ops as nops
+    from repro_torch.kernels.noc_step.ref import reference_noc_run
     from repro_torch.core.simulator import (Arch, SimConfig, epoch_inputs,
                                             sweep_batch)
 
@@ -177,18 +245,22 @@ def main() -> int:
     say("1", f"device {kind} x{count}; torch {torch.__version__} cuda "
              f"{torch.version.cuda}")
     t0 = time.perf_counter()
-    ops.build()
+    with ThreadPoolExecutor(2) as pool:          # one nvcc per source
+        for f in [pool.submit(m.build) for m in (ops, nops)]:
+            f.result()
     build_s = time.perf_counter() - t0
-    log = backend.build_log(ops.NAME) or ""
-    regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
-    spills = [int(a) + int(b) for a, b in re.findall(
-        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
-    if not regs:
-        fail("no ptxas register report in the build log")
-    say("1", f"built {ops.NAME} in {build_s:.2f} s "
-             f"(builds this run: {backend.COUNTERS['builds']}); ptxas: "
-             f"{len(regs)} kernel variants, registers {min(regs)}-"
-             f"{max(regs)}, spill bytes max {max(spills or [0])}")
+    for name in (ops.NAME, nops.NAME):
+        log = backend.build_log(name) or ""
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(a) + int(b) for a, b in re.findall(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+        if not regs:
+            fail(f"no ptxas register report in the {name} build log")
+        say("1", f"built {name}: ptxas {len(regs)} kernel variants, "
+                 f"registers {min(regs)}-{max(regs)}, spill bytes max "
+                 f"{max(spills or [0])}")
+    say("1", f"both kernels built in {build_s:.2f} s, in parallel (builds "
+             f"this run: {backend.COUNTERS['builds']})")
 
     # --- 2. kernel against plain on the card -------------------------------
     rng = np.random.RandomState(2026)
@@ -243,6 +315,20 @@ def main() -> int:
                  f"{xs[0].shape[1]} intervals, kernel == plain "
                  f"(max abs err {err:.3g})")
 
+    noc_err = 0.0
+    for case in noc_cases.kernel_cases(dev, 2048, fig13_cycles=NOC_CYCLES):
+        got = nops.noc_run(*case.args, **case.kwargs)
+        torch.cuda.synchronize()
+        want = reference_noc_run(*case.args, **case.kwargs)
+        err = noc_compare(got, want, f"noc_step {case.name}")
+        try:
+            noc_cases.check_case(case, got, nops.noc_run)
+        except AssertionError as e:
+            fail(str(e))
+        noc_err = max(noc_err, err)
+        say("2", f"noc_step {case.name}: {list(case.args[0].shape)} "
+                 f"arrivals, kernel == plain (max abs err {err:.3g})")
+
     # --- 3. the paper (main path starts here) ------------------------------
     # Every main-path call of the kernel wrapper is kept with its inputs and
     # outputs, and held against the plain version after the main path.
@@ -255,6 +341,15 @@ def main() -> int:
         return out
 
     ops.epoch_run = recorded_epoch_run
+    noc_calls = []
+    kernel_noc_run = nops.noc_run
+
+    def recorded_noc_run(*args, **kw):
+        out = kernel_noc_run(*args, **kw)
+        noc_calls.append((phase, args, kw, out))
+        return out
+
+    nops.noc_run = recorded_noc_run
     phase = "fig11"
     sim_mod.reset_engine_stats()
     traces11 = traffic.all_app_traces(T_INTERVALS, seed=1, device=dev)
@@ -298,6 +393,28 @@ def main() -> int:
         if not np.all(np.isfinite(f12[k])) or len(f12[k]) != 3 * T_INTERVALS:
             fail(f"fig12 {k} malformed")
 
+    phase = "fig13"
+    f13 = figures.fig13_residency(device=dev)
+    say("3", f"fig13 PROWAVES residency max {f13['prowaves_max']:.4f} mean "
+             f"{f13['prowaves_mean']:.4f}, ReSiPI max "
+             f"{f13['resipi_max']:.4f} mean {f13['resipi_mean']:.4f}; max "
+             f"ratio {f13['max_ratio_pro_over_resipi']:.4f}; drained "
+             f"{f13['drained']['prowaves']:.4f} / "
+             f"{f13['drained']['resipi']:.4f}")
+    if not f13["max_ratio_pro_over_resipi"] > 1.0:
+        fail("fig13: PROWAVES' max residency is not above ReSiPI's")
+    # The reference's own Fig. 13 at seed 5 (JAX package on the CPU, same
+    # threefry arrivals): max 1.936 / 0.908, ratio 2.133, drained 6056 /
+    # 6058.
+    for k, v in (("prowaves_max", 1.936), ("resipi_max", 0.908),
+                 ("max_ratio_pro_over_resipi", 2.133)):
+        if abs(f13[k] - v) > 5e-4:
+            fail(f"fig13 {k} {f13[k]:.5f} is not the reference's {v}")
+    for k, v in (("prowaves", 6056.0), ("resipi", 6058.0)):
+        if abs(f13["drained"][k] - v) > 1e-2:
+            fail(f"fig13 drained {k} {f13['drained'][k]} is not the "
+                 f"reference's {v}")
+
     # --- 4. full-size DSE (main path, then timing) -------------------------
     dse_traces = traffic.all_app_traces(T_INTERVALS, seed=11, dest=True,
                                         device=dev)
@@ -314,14 +431,69 @@ def main() -> int:
     dse = sweep_batch(dse_traces, sim, device=dev, **grid)
     torch.cuda.synchronize()
     dse_s = time.perf_counter() - t0
+    dse_mib = torch.cuda.max_memory_allocated() / 2**20
+    # The flit-level DSE: 512 runs in one noc_run launch, each a padded
+    # topology (dead lanes past its routers and sinks) and its own key.
+    phase = "noc-dse"
+    runs = [(radix, g, w, load) for radix in DSE_RADIX for g in DSE_G
+            for w in DSE_W for load in DSE_LOADS]
+    topo = {}
+    for radix, g, w, _ in runs:
+        if (radix, g, w) not in topo:
+            cfg_r = nops.NETWORK.with_topology(mesh_radix=radix)
+            topo[radix, g, w] = nops.build_topology_padded(g, w, cfg_r,
+                                                           pad_to=DSE_PAD)
+    nm, drain, buf, mask = (torch.as_tensor(np.stack(
+        [topo[radix, g, w][i] for radix, g, w, _ in runs]), device=dev)
+        for i in range(4))
+    keys = trandom.split(trandom.prng_key(13, device=dev), len(runs))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    noc_arr = nops.residency_arrivals(
+        keys, [x[3] for x in runs], [x[0] ** 2 for x in runs], NOC_CYCLES,
+        DSE_PAD)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    noc_dse = nops.noc_run(noc_arr, nm, drain, buf, valid_mask=mask)
+    torch.cuda.synchronize()
+    noc_dse_s = time.perf_counter() - t0
+    noc_mib = torch.cuda.max_memory_allocated() / 2**20
     stats = sim_mod.engine_stats()           # main path ends here
     ops.epoch_run = kernel_epoch_run
+    nops.noc_run = kernel_noc_run
+    say("4", f"engine_stats after the main path: {json.dumps(stats)}")
+    noc_launches = stats["kernel_launches"].get(nops.NAME, 0)
+    if noc_launches != 3:
+        fail(f"main path launched noc_step {noc_launches} times, expected 3 "
+             f"(fig13 x2, DSE)")
+    say("4", f"noc DSE: {len(runs)} runs x {NOC_CYCLES} cycles x {DSE_PAD} "
+             f"nodes ({noc_arr.numel() * 4 / 1e9:.3f} GB of arrivals drawn "
+             f"in {gen_s:.3f} s) in {noc_dse_s:.3f} s (entry point, host "
+             f"clock); max memory allocated {noc_mib:.1f} MiB")
+    dead = mask == 0
+    for name, a in zip(("residency", "occupancy", "drained"), noc_dse):
+        if a.shape != (len(runs), DSE_PAD) or not torch.isfinite(a).all():
+            fail(f"noc DSE {name} malformed")
+        if bool((a[dead] != 0).any()):
+            fail(f"noc DSE {name}: a dead lane came out non-zero")
+    injected = noc_arr.sum(dim=(1, 2), dtype=torch.float64)
+    kept = (noc_dse[1].sum(1, dtype=torch.float64)
+            + noc_dse[2].sum(1, dtype=torch.float64))
+    leak = float(((kept - injected).abs() / injected.clamp(min=1)).max())
+    if leak > 1e-4:
+        fail(f"noc DSE: flits not conserved (rel err {leak:.3g})")
+    top = [i for i, x in enumerate(runs) if x[3] == DSE_LOADS[-1]]
+    say("4", f"noc DSE at {DSE_LOADS[-1]:.2f} pkts/cycle, drained per "
+             f"cycle by (radix, g, W): " + ", ".join(
+                 f"{runs[i][:3]} {float(noc_dse[2][i].sum()) / NOC_CYCLES:.3f}"
+                 for i in top[::2]) + f"; flit conservation rel err "
+             f"{leak:.2g}")
     lanes = len(apps) * lm.size
     expected = 2 * len(apps) + 1 + 1 + 1     # fig11, fig10, fig12, DSE
     say("4", f"DSE sweep_batch: {lanes} lanes x {T_INTERVALS} intervals "
              f"in {dse_s:.3f} s (entry point, host clock); max memory "
-             f"allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    say("4", f"engine_stats after the main path: {json.dumps(stats)}")
+             f"allocated {dse_mib:.1f} MiB")
     if stats["epoch_step_launches"] != expected:
         fail(f"main path launched epoch_step {stats['epoch_step_launches']} "
              f"times, expected {expected}")
@@ -364,16 +536,16 @@ def main() -> int:
     plain_ms = time_cuda(
         lambda: epoch_run_reference(state0, xs, sim, tables, **kw), 1)[0]
     n_tr, t_len, c = xs[0].shape
-    nbytes, nops = epoch_work(n_tr, t_len, c, cfg.max_gateways_per_chiplet,
+    nbytes, n_ops = epoch_work(n_tr, t_len, c, cfg.max_gateways_per_chiplet,
                               lanes, dest=True)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / F32_FLOPS_PER_S * 1e3
+    t_ops = n_ops / F32_FLOPS_PER_S * 1e3
     bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
     say("4", f"epoch_step kernel: median {ms:.4f} ms over 5 runs, "
              f"{lanes * T_INTERVALS / (ms * 1e-3):.4g} lane-intervals/s; "
              f"plain version {plain_ms:.2f} ms once; bound {bound_ms:.4f} "
              f"ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
-             f"{nops / 1e9:.2f} GFLOP); card: {card}")
+             f"{n_ops / 1e9:.2f} GFLOP); card: {card}")
     # The same DSE through the entry point again, now warm (host clock).
     warm = []
     for _ in range(3):
@@ -384,6 +556,51 @@ def main() -> int:
     say("4", f"DSE sweep_batch warm: median {np.median(warm):.4f} s of 3 "
              f"(host clock; kernel share {ms * 1e-3 / np.median(warm):.1%})")
 
+    # Every noc_step call of the main path against the plain version on
+    # its own inputs; the DSE's plain run is also the plain time.
+    if [c[0] for c in noc_calls] != ["fig13", "fig13", "noc-dse"]:
+        fail(f"recorded noc_run calls {[c[0] for c in noc_calls]}, expected "
+             f"fig13 x2 and noc-dse")
+    for name, args, kw, got in noc_calls:
+        want = []
+        t_plain = time_cuda(
+            lambda: want.append(reference_noc_run(*args, **kw)), 1)[0]
+        err = noc_compare(got, want[0], f"main path {name}")
+        noc_err = max(noc_err, err)
+        say("4", f"main path noc_step {name} call == plain version on its "
+                 f"own inputs (max abs err {err:.3g}; plain {t_plain:.1f} "
+                 f"ms)")
+    noc_plain_ms = t_plain                                 # the DSE call
+    # Kernel times: median of 5 launches after warm-up, CUDA events, on
+    # inputs prepared once (routing, defaults) as the wrapper prepares them.
+    noc_ms = {}
+    for name, args, kw, _ in noc_calls:
+        arr = args[0] if args[0].dim() == 3 else args[0][None]
+        prep = nops.prepare(arr, *args[1:], **kw)
+        run = lambda: nops.run_prepared(prep)  # noqa: E731
+        time_cuda(run, 2)
+        noc_ms.setdefault(name, []).append(float(np.median(time_cuda(run,
+                                                                     5))))
+    nb, nt, nr = noc_arr.shape            # prep and kw are the DSE call's
+    nbytes, nops_count = noc_work(prep, kw.get("t_mask") is not None,
+                                  nops.MAX_IN_DEGREE)
+    live = int((prep["mask"] != 0).sum())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops_count / F32_FLOPS_PER_S * 1e3
+    noc_bound_ms, noc_bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
+    noc_dse_ms = noc_ms["noc-dse"][0]
+    say("4", f"noc_step kernel, DSE: median {noc_dse_ms:.4f} ms over 5 runs, "
+             f"{nb * nt / (noc_dse_ms * 1e-3):.4g} run-cycles/s; plain "
+             f"version {noc_plain_ms:.2f} ms once; bound {noc_bound_ms:.4f} "
+             f"ms by {noc_bound_by} ({nbytes / 1e9:.3f} GB, "
+             f"{nops_count / 1e9:.2f} GFLOP; {live} live of {nb * nr} "
+             f"node lanes); card: {card}")
+    fig13_ms = " / ".join(f"{x:.4f}" for x in noc_ms["fig13"])
+    say("4", f"noc_step kernel, Fig. 13 (one run of "
+             f"{noc_calls[0][1][0].shape[-2]} cycles per launch): median "
+             f"{fig13_ms} ms (PROWAVES / ReSiPI)")
+    del noc_calls, noc_arr
+
     # --- 5. kernels line ----------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": ops.NAME, "route": "cuda",
@@ -391,8 +608,13 @@ def main() -> int:
         "replaces": "src/repro/kernels/epoch_step/kernel.py:48",
         "launches": stats["epoch_step_launches"],
         "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}]}),
-        flush=True)
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}, {
+        "name": nops.NAME, "route": "cuda",
+        "source": "src/repro_torch/kernels/noc_step/csrc/noc_step.cu",
+        "replaces": "src/repro/kernels/noc_step/kernel.py:32",
+        "launches": noc_launches, "max_abs_err": noc_err, "ms": noc_dse_ms,
+        "plain_ms": noc_plain_ms, "bound_ms": noc_bound_ms,
+        "bound_by": noc_bound_by, "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind,
                                              "count": count}}), flush=True)

@@ -2,7 +2,9 @@
 
 The port of the JAX package `repro`, module for module: `core/` holds the
 epoch-level simulator and its models, `kernels/` the hand-written CUDA
-kernels with their plain PyTorch versions, `interop` the numpy bridges the
-parity tests use, and `figures` the paper's Figs. 10-12. It imports torch
+kernels with their plain PyTorch versions (`epoch_step`, and `noc_step`
+for the Fig. 13 flit-level model), `random` a bit-exact twin of jax's
+threefry PRNG, `interop` the numpy bridges the parity tests use, and
+`figures` the paper's Figs. 10-13. It imports torch
 and numpy only; entry points run on the card by default (`backend`).
 """

@@ -1,10 +1,11 @@
-"""The paper's Figs. 10-12 from the port alone.
+"""The paper's Figs. 10-13 from the port alone.
 
 Counterparts of the reference's `benchmarks/fig10_lm_dse.py`,
-`fig11_main.py` and `fig12_adaptivity.py`. They take traces as arguments
-(made by the port's generator, or by the reference and carried across with
-`interop.trace_from_numpy`) and return the same result dicts, without
-writing files.
+`fig11_main.py`, `fig12_adaptivity.py` and `fig13_residency.py`. Figs.
+10-12 take traces as arguments (made by the port's generator, or by the
+reference and carried across with `interop.trace_from_numpy`); Fig. 13
+draws its arrivals with the threefry twin, so it equals the reference's at
+the same seed. They return the same result dicts, without writing files.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 from repro_torch.core.simulator import (Arch, SimConfig, simulate,
                                         simulate_all_archs, stack_traces,
                                         sweep_batch)
+from repro_torch.kernels.noc_step.ops import simulate_residency
 
 GATEWAY_COUNTS = (1, 2, 3, 4)
 FIG12_SEQUENCE = ("blackscholes", "facesim", "dedup")
@@ -124,4 +126,32 @@ def fig12_adaptivity(trace: dict, per_app: int = 100, *,
         "paper": {"resipi_settle": 3, "prowaves_settle": 5,
                   "max_gateways": 18},
         "max_gateways_used": int(g_total.max()),
+    }
+
+
+def fig13_residency(load: float = 0.10, cycles: int = 8192, seed: int = 5,
+                    *, device=None) -> dict:
+    """Fig. 13: per-router flit residency maps of one chiplet under
+    dedup-class traffic. PROWAVES routes everything through one
+    16-wavelength gateway (port-bound); ReSiPI spreads it over 2 active
+    gateways of 4 wavelengths. The paper shows PROWAVES' gateway router far
+    above every ReSiPI router: a max ratio > 1 reproduces the claim."""
+    pro, pro_drained = simulate_residency(load, g_active=1, wavelengths=16,
+                                          cycles=cycles, seed=seed,
+                                          device=device)
+    res, res_drained = simulate_residency(load, g_active=2, wavelengths=4,
+                                          cycles=cycles, seed=seed,
+                                          device=device)
+    return {
+        "prowaves_residency": pro.tolist(),
+        "resipi_residency": res.tolist(),
+        "prowaves_max": float(pro.max()),
+        "prowaves_mean": float(pro.mean()),
+        "resipi_max": float(res.max()),
+        "resipi_mean": float(res.mean()),
+        "max_ratio_pro_over_resipi": float(pro.max() / max(res.max(), 1e-9)),
+        "drained": {"prowaves": pro_drained, "resipi": res_drained},
+        "note": ("paper Fig. 13 shows the G-router residency in PROWAVES "
+                 "far above every ReSiPI router; ratio > 1 reproduces the "
+                 "congestion-distribution claim"),
     }

@@ -5,7 +5,9 @@ This system has no weights. Its "parameters" are traffic traces, the
 (for example the JAX package's outputs after `np.asarray`) and return the
 port's tensors, with the dtypes the reference uses (float32 loads, int32
 gateway counts, bool activity), so the parity tests hand both packages the
-same inputs. `records_to_numpy` goes the other way for comparisons.
+same inputs. The flit model's inputs (arrivals, routing matrix, drain,
+buffers, masks) go across with `noc_inputs_from_numpy`. `records_to_numpy`
+goes the other way for comparisons.
 """
 from __future__ import annotations
 
@@ -70,6 +72,21 @@ def tables_from_numpy(tables, device=None) -> dict:
         if v is not None:
             out[k] = _tensor(v, dt, dev)
     return out
+
+
+def noc_inputs_from_numpy(arrivals, next_mat, drain_rate, buf_cap, *,
+                          valid_mask=None, valid_mask_t=None, t_mask=None,
+                          device=None) -> dict:
+    """The flit model's inputs as float32 tensors on `device` (default: the
+    card), keyed as `noc_run` takes them: `noc_run(**inputs)`. Masks left
+    None stay out."""
+    dev = resolve_device(device)
+    named = {"arrivals": arrivals, "next_mat": next_mat,
+             "drain_rate": drain_rate, "buf_cap": buf_cap,
+             "valid_mask": valid_mask, "valid_mask_t": valid_mask_t,
+             "t_mask": t_mask}
+    return {k: _tensor(v, np.float32, dev) for k, v in named.items()
+            if v is not None}
 
 
 def records_to_numpy(out):

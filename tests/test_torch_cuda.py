@@ -1,16 +1,23 @@
-"""Card-only tests: the hand-written `epoch_step` CUDA kernel against its
-plain PyTorch version on the same CUDA inputs.
+"""Card-only tests: the hand-written `epoch_step` and `noc_step` CUDA
+kernels against their plain PyTorch versions on the same CUDA inputs.
 
 Marked `cuda`; each test asks the `cuda_device` fixture for the card and
 skips without one. Run them on a machine with a card and nvcc:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The cases are those of `chip_smoke.py` phase 2 at a smaller size: clean,
-destination matrices, a ragged `t_mask` batch with an all-masked lane,
-fault frames, and a sweep over the five kernel knobs. Records and final
-state agree at rtol = atol = 1e-6 (the reference's bound for this kernel),
-integer g and boolean saturation exactly. This file imports no JAX.
+The cases are those of `chip_smoke.py` phase 2 at a smaller size (the
+`noc_step` ones come from the same builder, `kernels/noc_step/cases.py`). For
+`epoch_step`: clean, destination matrices, a ragged `t_mask` batch with an
+all-masked lane, fault frames, and a sweep over the five kernel knobs;
+records and final state agree at rtol = atol = 1e-6 (the reference's bound
+for this kernel), integer g and boolean saturation exactly. For
+`noc_step` (T <= 1024): Fig. 13's two topologies, a padded topology with
+garbage in its dead lanes, a lane dying mid-run, an all-ones
+`valid_mask_t`, a ragged `t_mask`, `hex_config(2)` and a batch of mixed-T
+runs at rtol 1e-5, atol 1e-3 (the in-edge sums run in another order than
+the plain version's products); dead lanes exactly 0, a batch bitwise its
+single runs, and the wrapper's refusals. This file imports no JAX.
 """
 import numpy as np
 import pytest
@@ -20,6 +27,9 @@ from repro_torch.core import simulator as tsim
 from repro_torch.core import traffic
 from repro_torch.kernels.epoch_step import ops
 from repro_torch.kernels.epoch_step.ref import epoch_run_reference
+from repro_torch.kernels.noc_step import cases as noc_cases
+from repro_torch.kernels.noc_step import ops as nops
+from repro_torch.kernels.noc_step.ref import reference_noc_run
 
 pytestmark = pytest.mark.cuda
 
@@ -139,3 +149,61 @@ def test_wrapper_rejects_what_the_kernel_does_not_run(cuda_device):
                                                sim, device=cuda_device)
     with pytest.raises(ValueError, match="RESIPI"):
         ops.epoch_run(state0, xs, sim, tables, **kw)
+
+
+# ---------------------------------------------------------------------------
+# noc_step: the flit-level kernel against its plain version
+# ---------------------------------------------------------------------------
+
+NOC_T = 1024
+NOC_NAMES = [n for n in noc_cases.NAMES if n != "batch-mixed-T"]
+
+
+def _noc_case(name: str, dev, t: int = NOC_T):
+    """One of the shared kernel-against-plain cases (also chip_smoke.py's),
+    at T = `t`."""
+    return noc_cases.kernel_cases(dev, t, names=[name])[0]
+
+
+@pytest.mark.parametrize("case", NOC_NAMES)
+def test_noc_kernel_matches_plain(case, cuda_device):
+    from repro_torch import backend
+
+    c = _noc_case(case, cuda_device)
+    backend.reset_counters()
+    got = nops.noc_run(*c.args, **c.kwargs)
+    torch.cuda.synchronize()
+    assert backend.COUNTERS["launches"] == {"noc_step": 1}
+    want = reference_noc_run(*c.args, **c.kwargs)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-3)
+    noc_cases.check_case(c, got, nops.noc_run)
+
+
+def test_noc_kernel_batch_is_bitwise_the_single_runs(cuda_device):
+    """Runs of mixed T padded with t_mask, mixed topologies padded with
+    dead lanes: one launch matches the plain version and equals the runs
+    one by one, bitwise."""
+    c = _noc_case("batch-mixed-T", cuda_device)
+    got = nops.noc_run(*c.args, **c.kwargs)
+    for a, b in zip(got, reference_noc_run(*c.args, **c.kwargs)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-3)
+    noc_cases.check_case(c, got, nops.noc_run)
+
+
+def test_noc_wrapper_rejects_what_the_kernel_does_not_run(cuda_device):
+    arr, nm, drain, buf = _noc_case("fig13-resipi", cuda_device, 64).args
+    half = nm * 0.5
+    with pytest.raises(ValueError, match="one-hot"):
+        nops.noc_run(arr, half, drain, buf)
+    two = nm.clone()
+    two[0, :2] = 1.0
+    with pytest.raises(ValueError, match="one-hot"):
+        nops.noc_run(arr, two, drain, buf)
+    r = nops.MAX_NODES + 1
+    z = torch.zeros(r, device=cuda_device)
+    with pytest.raises(ValueError, match="up to 128"):
+        nops.noc_run(torch.zeros((8, r), device=cuda_device),
+                     torch.zeros((r, r), device=cuda_device), z, z)
+    with pytest.raises(ValueError, match="cpu"):
+        nops.noc_run(arr, nm.cpu(), drain, buf)

@@ -327,9 +327,16 @@ def test_port_imports_and_runs_with_jax_blocked():
         "import repro_torch.figures, repro_torch.interop\n"
         "import repro_torch.kernels.epoch_step.ops\n"
         "from repro_torch.core import simulator as s, traffic as t\n"
+        "from repro_torch.kernels.noc_step import ops as noc\n"
+        "from repro_torch import random as r\n"
         "tr = t.generate('dedup', 0, device='cpu')\n"
         "out = s.simulate(tr, s.SimConfig(), device='cpu')\n"
         "assert out['records']['g'].shape == (64, 4)\n"
+        "u = r.uniform(r.split(r.prng_key(5, device='cpu'), 2), (3, 4))\n"
+        "assert u.shape == (2, 3, 4)\n"
+        "m, drained = noc.simulate_residency(0.1, 2, 4, cycles=64, "
+        "device='cpu')\n"
+        "assert m.shape == (4, 4) and drained >= 0\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
