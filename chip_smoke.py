@@ -6,14 +6,15 @@ toolkit (nvcc) and PyTorch built for CUDA:
 
     python3 chip_smoke.py
 
-It builds every kernel of the port's main path from the sources in the
-checkout (`epoch_step` and `noc_step`, one nvcc each, started together),
-holds each kernel against its plain PyTorch version on the card, drives the
-main path through the entry points a user calls, and measures the kernels.
-Phases (one line per step; any failure exits non-zero):
+It builds every kernel of the port's main paths from the sources in the
+checkout (`epoch_step`, `noc_step`, `flash_attention` and `ssd_scan`, one
+nvcc each, started together), holds each kernel against its plain PyTorch
+version on the card, drives the main paths through the entry points a user
+calls, and measures the kernels. Phases (one line per step; any failure
+exits non-zero):
 
   1. card and build: nvidia-smi name and power limit, build seconds and the
-     ptxas register / spill report of each kernel;
+     ptxas register / shared memory / spill report of each kernel;
   2. epoch_step against plain on the card at the Table-1 widths, T = 100:
      clean, destination matrices, a ragged t_mask batch with an all-masked
      lane, a fault frame, and a 64-point sweep over the five kernel knobs
@@ -24,6 +25,10 @@ Phases (one line per step; any failure exits non-zero):
      garbage in its dead lanes (exactly 0 out), a lane dying mid-run (final occupancy exactly 0), an all-ones
      valid_mask_t (bitwise the static run), a ragged t_mask, hex_config(2),
      and a batch of mixed-T runs (bitwise the runs one by one);
+     flash_attention and ssd_scan against plain on the cases of
+     `kernels/flash_attention/cases.py` and `kernels/ssd_scan/cases.py`
+     (float32 and bfloat16, causal and not, head dims 16-128, S 1-2048;
+     d_state 16-128, one and two groups, ragged L, initial states);
   3. the paper through the port's own generator: Fig. 11 (8 PARSEC apps x
      4 architectures), Fig. 10 (L_m), Fig. 12 (settle times) and Fig. 13
      (residency maps, arrivals from the threefry twin at seed 5, held to
@@ -35,11 +40,29 @@ Phases (one line per step; any failure exits non-zero):
      cycles); then every kernel call of phases 3 and 4 is held against the
      plain version on its own inputs, and each kernel's time, the plain
      version's and the epoch entry point's warm host time are taken;
-  5. a `kernels` JSON line (launches on the main path, error against plain,
-     times and the bound).
+  5. LLM serving, the second main path, through `get_model(cfg)`,
+     `prefill` and `decode_step`: (a) zamba2-7b at full width and depth
+     (81 layers, 6.75 B parameters drawn on the card from a seeded
+     generator, float32 as the reference keeps them), a batch of 4 prompts
+     x 2048 tokens (max_len 2064), then 16 greedy decode steps; (b)
+     mamba2-130m, 8 x 2048, then 16 steps. Every ssd_scan and
+     flash_attention launch of those runs is held against its plain
+     version on its own inputs (inline), the launches are counted (81 + 13
+     and 24), and the whole prefill's logits against the same prefill with
+     the plain ops (held in float32 compute; in bf16, where rounding noise
+     dominates these random-weight models at full depth, shown beside the
+     bf16 prefill's own distance from float32); then the kernels' and plain
+     versions' times at the
+     main-path shapes, SDPA's for flash, each kernel's bound, prefill and
+     decode tokens/s and peak memory, and (information only) zamba2's
+     decode-vs-prefill consistency;
+  6. a `kernels` JSON line (launches on the main paths, error against
+     plain, times and the bound) for all four kernels.
 
-Phases 3 and 4 are the main path: the launch counters are zeroed before
-phase 3 and read after the last DSE, before any check or timing.
+Phases 3 and 4 are the first main path: the launch counters are zeroed
+before phase 3 and read after the last DSE, before any check or timing.
+Each LLM run of phase 5 is a main path of its own, with the counters zeroed
+just before its prefill and read just after its last decode step.
 The last line is {"ok": true, "device": {...}}. Without a card, or without
 the rest of the repository beside this file, it exits non-zero and prints
 no result.
@@ -87,6 +110,23 @@ NOC_CYCLES = 8192
 DSE_RADIX, DSE_G, DSE_W = (4, 8), (1, 2, 3, 4), (2, 16)
 DSE_LOADS = np.linspace(0.02, 0.64, 32)
 DSE_PAD = 8 * 8 + 4                           # mesh radix 8 plus 4 sinks
+# Dense bf16 tensor-core peak (flash's products are bf16 on the main path;
+# the kernel computes them in float32 on the CUDA cores, but the function's
+# least time is at this rate). SSD's products are float32 by contract and
+# held to F32_FLOPS_PER_S (TF32 keeps too few digits for its 1e-4 bound).
+BF16_FLOPS_PER_S = 989e12
+# LLM serving (phase 5): (arch, batch, prompt tokens, decode steps).
+LLM_RUNS = (("zamba2-7b", 4, 2048, 16), ("mamba2-130m", 8, 2048, 16))
+LLM_SEED = 2026
+# Bound of the whole prefill's logits against the same prefill with the
+# plain ops, in relative RMS, with float32 compute. In bf16 these
+# random-weight models at full depth are dominated by rounding noise: every
+# layer adds some to the residual stream and it persists, so on an H100
+# the plain bf16 prefill lands tens of percent from the float32 one, and
+# two bf16 prefills whose floats differ in the last bits part by about as
+# much (phase 5 prints both); no bf16 bound can hold there. In float32 the
+# kernel and plain prefills part by under 1e-3 at the logits.
+PREFILL_F32_REL_TOL = 5e-3
 
 
 def fail(msg: str) -> None:
@@ -205,6 +245,346 @@ def noc_compare(got, want, what: str) -> float:
     return worst
 
 
+def flash_work(b, s, h, d, in_bytes, causal=True) -> tuple:
+    """(bytes read once + written once, flops) of one attention call:
+    q, k, v read and o written in the inputs' type; two products of
+    2 d flops per (query, key) pair the mask keeps."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return 4 * b * s * h * d * in_bytes, 4 * d * pairs * b * h
+
+
+def ssd_work(b, nc, q, h, p, g, n, in_bytes) -> tuple:
+    """(bytes read once + written once, float ops) of one intra-chunk
+    call. Read: x, B, C (grouped, in their type), dt and a (float32);
+    written: y_intra and the chunk states (float32). Ops per (batch,
+    chunk, head): for each of the Q(Q+1)/2 kept pairs 2P for y plus 5 for
+    the weight (difference, clamp, exp, two products); 2QPN for the state
+    plus QP for x * decay and 4Q for the cumsum and the decay to the end;
+    per (batch, chunk, group) 2N per pair for the C B^T scores."""
+    pairs = q * (q + 1) // 2
+    nbytes = (b * nc * q * h * p + 2 * b * nc * q * g * n) * in_bytes \
+        + (b * nc * q * h + h) * 4 \
+        + (b * nc * q * h * p + b * nc * h * p * n) * 4
+    ops = b * nc * (h * (pairs * (2 * p + 5) + 2 * q * p * n + q * p + 4 * q)
+                    + g * 2 * n * pairs)
+    return nbytes, ops
+
+
+def device_breakdown(fn, label: str, top: int = 6) -> None:
+    """Information: one call of `fn` under torch.profiler; prints its host
+    wall time, the summed device time of its kernels, the device's busy
+    share (kernels run one at a time on one stream) and the kernels that
+    take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = {}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            kernels[e.key] = kernels.get(e.key, 0.0) + us
+    except Exception as e:                   # information only
+        say("5", f"{label}: device breakdown not measured ({e!r})")
+        return
+    busy = sum(kernels.values()) / 1e6
+    if busy <= 0:
+        say("5", f"{label}: device breakdown not measured (the profiler "
+                 f"recorded no device time)")
+        return
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
+    say("5", f"{label}: wall {wall * 1e3:.2f} ms, kernels {busy * 1e3:.2f} "
+             f"ms on the device (busy {busy / wall:.1%}, idle "
+             f"{1 - busy / wall:.1%}; profiled, so slower than untraced); "
+             f"top: " + "; ".join(f"{k[:48]} {v / 1e3:.2f} ms "
+                                  f"({v / 1e6 / busy:.1%})"
+                                  for k, v in ranked))
+
+
+def rel_rms(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b).clamp(min=1e-30))
+
+
+def llm_checked_ops(fops, sops, flash_ref, ssd_ref, errs: dict,
+                    first: dict):
+    """Wrappers for the two kernel ops that hold every call against the
+    plain version on its own inputs right after it (float32 outputs at
+    the cases' bounds; a bf16 attention output at 3e-2), and keep the
+    first call's inputs for timing."""
+    kernel_flash, kernel_intra = fops.flash_attention, sops.ssd_intra_chunk
+
+    def flash(q, k, v, *, causal=True):
+        out = kernel_flash(q, k, v, causal=causal)
+        want = flash_ref(q, k, v, causal=causal)
+        tol = 2e-5 if q.dtype == torch.float32 else 3e-2
+        if not torch.allclose(out.float(), want.float(), rtol=tol, atol=tol):
+            fail(f"main path flash_attention launch {tuple(q.shape)} "
+                 f"differs from plain (max abs err "
+                 f"{float((out.float() - want.float()).abs().max()):.3g})")
+        errs["flash"] = max(errs.get("flash", 0.0), float(
+            (out.float() - want.float()).abs().max()))
+        first.setdefault("flash", (q, k, v, causal))
+        return out
+
+    def intra(x, dt, a, b_in, c_in):
+        out = kernel_intra(x, dt, a, b_in, c_in)
+        want = ssd_ref(x, dt, a, b_in, c_in)
+        tol = 2e-4 if x.shape[2] >= 128 else 1e-4
+        for name, u, w in zip(("y_intra", "states"), out, want):
+            if not torch.allclose(u, w, rtol=tol, atol=tol):
+                fail(f"main path ssd_scan launch {tuple(x.shape)}: {name} "
+                     f"differs from plain (max abs err "
+                     f"{float((u - w).abs().max()):.3g})")
+            errs["ssd"] = max(errs.get("ssd", 0.0),
+                              float((u - w).abs().max()))
+        first.setdefault("ssd", (x, dt, a, b_in, c_in))
+        return out
+
+    return flash, intra
+
+
+def serve_llms(dev, card: str, fops, sops, llm_err: dict) -> list:
+    """Phase 5: the LLM serving main paths (LLM_RUNS), then the two LLM
+    kernels' timings; returns their rows of the `kernels` line."""
+    from repro_torch import backend
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import reference_attention
+    from repro_torch.kernels.ssd_scan.ref import reference_intra_chunk
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as L
+    from repro_torch.models.params import count_params, init_params
+
+    def flash_ref(q, k, v, *, causal=True):
+        return reference_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2),
+                                   causal=causal).transpose(1, 2)
+
+    launches_total: dict = {}
+    timing_inputs: dict = {}
+    for arch, batch, prompt, steps in LLM_RUNS:
+        cfg = get_config(arch)
+        model = get_model(cfg)
+        gen = torch.Generator(device=dev).manual_seed(LLM_SEED)
+        t0 = time.perf_counter()
+        params = init_params(model.spec(), gen, dev)
+        toks = torch.randint(0, cfg.real_vocab, (batch, prompt), device=dev,
+                             generator=gen)
+        torch.cuda.synchronize()
+        say("5", f"{arch}: {count_params(model.spec()) / 1e9:.4g} B "
+                 f"parameters drawn on the card in "
+                 f"{time.perf_counter() - t0:.2f} s (float32, "
+                 f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+                 f"allocated)")
+        max_len = prompt + steps
+        errs: dict = {}
+        first: dict = {}
+        flash, intra = llm_checked_ops(fops, sops, flash_ref,
+                                       reference_intra_chunk, errs, first)
+        kernel_flash, kernel_intra = fops.flash_attention, \
+            sops.ssd_intra_chunk
+        fops.flash_attention, sops.ssd_intra_chunk = flash, intra
+        try:
+            backend.reset_counters()              # main path starts here
+            caches, logits = model.prefill(params, {"tokens": toks},
+                                           max_len)
+            prefill_logits = logits
+            for _ in range(steps):
+                nxt = logits[:, :cfg.real_vocab].argmax(-1, keepdim=True)
+                logits, caches = model.decode_step(params, nxt, caches)
+            torch.cuda.synchronize()
+            launches = dict(backend.COUNTERS["launches"])  # ... ends here
+        finally:
+            fops.flash_attention, sops.ssd_intra_chunk = kernel_flash, \
+                kernel_intra
+        n_flash = cfg.n_layers // cfg.attn_every \
+            if cfg.family == "hybrid" else 0
+        expected = {"ssd_scan": cfg.n_layers}
+        if n_flash:
+            expected["flash_attention"] = n_flash
+        if launches != expected:
+            fail(f"{arch}: main path launched {launches}, expected "
+                 f"{expected}")
+        for k, v in launches.items():
+            launches_total[k] = launches_total.get(k, 0) + v
+        for name in ("flash", "ssd"):
+            llm_err[name] = max(llm_err[name], errs.get(name, 0.0))
+        if prefill_logits.shape != (batch, cfg.vocab) or logits.shape != (
+                batch, cfg.vocab):
+            fail(f"{arch}: logits shape {tuple(logits.shape)}")
+        for what, lg in (("prefill", prefill_logits), ("decode", logits)):
+            if not torch.isfinite(lg.float()).all():
+                fail(f"{arch}: {what} logits not finite")
+        say("5", f"{arch}: prefill {batch} x {prompt} + {steps} greedy "
+                 f"decode steps; launches {launches} (expected); every "
+                 f"launch == plain on its own inputs (max abs err "
+                 + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + ")")
+
+        # The whole prefill against the same prefill with the plain ops, on
+        # the card: held in float32 compute, shown in bf16 beside the bf16
+        # prefill's own distance from float32.
+        del caches
+        got = {(torch.bfloat16, False): prefill_logits.float()}
+        for dtype, plain in ((torch.bfloat16, True), (torch.float32, False),
+                             (torch.float32, True)):
+            L.COMPUTE_DTYPE = dtype
+            if plain:
+                fops.flash_attention, sops.ssd_intra_chunk = flash_ref, \
+                    reference_intra_chunk
+            try:
+                _, lg = model.prefill(params, {"tokens": toks}, max_len)
+            finally:
+                fops.flash_attention, sops.ssd_intra_chunk = kernel_flash, \
+                    kernel_intra
+                L.COMPUTE_DTYPE = torch.bfloat16
+            got[dtype, plain] = lg.float()
+        f32_k, f32_p = got[torch.float32, False], got[torch.float32, True]
+        rel = rel_rms(f32_k, f32_p)
+        if not (torch.isfinite(f32_k).all() and rel <= PREFILL_F32_REL_TOL):
+            fail(f"{arch}: float32 prefill logits vs the plain-op prefill: "
+                 f"relative RMS {rel:.3g} beyond {PREFILL_F32_REL_TOL}")
+        bf_k, bf_p = got[torch.bfloat16, False], got[torch.bfloat16, True]
+        say("5", f"{arch}: prefill logits == plain-op prefill in float32 "
+                 f"compute (relative RMS {rel:.3g}, bound "
+                 f"{PREFILL_F32_REL_TOL}; max abs diff "
+                 f"{float((f32_k - f32_p).abs().max()):.3g} on logits of RMS "
+                 f"{float(f32_p.pow(2).mean().sqrt()):.3g}); in bf16 "
+                 f"(information) kernel vs plain {rel_rms(bf_k, bf_p):.3g}, "
+                 f"the plain bf16 prefill vs float32 "
+                 f"{rel_rms(bf_p, f32_p):.3g}, the kernel bf16 prefill vs "
+                 f"float32 {rel_rms(bf_k, f32_p):.3g}")
+        del got, f32_k, f32_p, bf_k, bf_p
+
+        # Serving speed: prefill and decode on the host clock, synchronized.
+        prefill_s, decode_s = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            caches, logits = model.prefill(params, {"tokens": toks},
+                                           max_len)
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                nxt = logits[:, :cfg.real_vocab].argmax(-1, keepdim=True)
+                logits, caches = model.decode_step(params, nxt, caches)
+            torch.cuda.synchronize()
+            decode_s.append(time.perf_counter() - t0)
+            del caches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        p_s, d_s = float(np.median(prefill_s)), float(np.median(decode_s))
+        say("5", f"{arch}: prefill {batch * prompt / p_s:.6g} tokens/s "
+                 f"({p_s:.4f} s median of 3), decode "
+                 f"{batch * steps / d_s:.6g} tokens/s ({d_s / steps * 1e3:.3f}"
+                 f" ms a step, median of 3 runs of {steps}); peak memory "
+                 f"{peak:.2f} GiB; card: {card}")
+
+        # Where the time goes (information): one prefill, one decode step.
+        caches = None
+
+        def one_prefill():
+            nonlocal caches, logits
+            caches, logits = model.prefill(params, {"tokens": toks},
+                                           max_len)
+
+        def one_step():
+            nonlocal caches, logits
+            nxt = logits[:, :cfg.real_vocab].argmax(-1, keepdim=True)
+            logits, caches = model.decode_step(params, nxt, caches)
+
+        device_breakdown(one_prefill, f"{arch} prefill")
+        device_breakdown(one_step, f"{arch} decode step")
+        del caches
+
+        if cfg.family == "hybrid":
+            # Information only: prefill(S) against prefill(S - 1) and one
+            # decode step (the reference's check, tests/test_models.py).
+            caches, _ = model.prefill(params, {"tokens": toks[:, :-1]},
+                                      max_len)
+            step_logits, _ = model.decode_step(params, toks[:, -1:], caches)
+            diff = step_logits.float() - prefill_logits.float()
+            say("5", f"{arch}: decode-vs-prefill consistency (information): "
+                     f"max abs diff {float(diff.abs().max()):.4g}, relative "
+                     f"RMS {rel_rms(step_logits, prefill_logits):.4g}")
+            del caches
+        timing_inputs.setdefault("flash", first.get("flash"))
+        timing_inputs.setdefault(("ssd", arch), first["ssd"])
+        del params, logits
+        torch.cuda.empty_cache()
+
+    # Kernel times at the main-path shapes: median of 5 launches after
+    # warm-up (CUDA events), the plain version's median of 3, SDPA's.
+    rows = []
+    q, k, v, causal = timing_inputs["flash"]
+    ms = float(np.median(time_cuda(
+        lambda: fops.launch(q, k, v, causal=causal), 7)[2:]))
+    plain_ms = float(np.median(time_cuda(
+        lambda: flash_ref(q, k, v, causal=causal), 3)))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = float(np.median(time_cuda(
+        lambda: sdpa(qt, kt, vt, is_causal=causal), 7)[2:]))
+    b, s_len, h, d = q.shape
+    nbytes, flops = flash_work(b, s_len, h, d, q.element_size(), causal)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    bound_ms, bound_by = max((t_b, "bytes"), (t_o, "operations"))
+    say("5", f"flash_attention kernel at [{b}, {s_len}, {h}, {d}] "
+             f"{q.dtype}, causal: median {ms:.4f} ms; plain {plain_ms:.3f} "
+             f"ms; SDPA {lib_ms:.4f} ms; bound {bound_ms:.4f} ms by "
+             f"{bound_by} ({flops / 1e9:.2f} GFLOP at the bf16 tensor-core "
+             f"peak, {nbytes / 1e9:.3f} GB); card: {card}")
+    rows.append({
+        "name": fops.NAME, "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:30",
+        "launches": launches_total.get(fops.NAME, 0),
+        "max_abs_err": llm_err["flash"], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
+
+    ssd_rows = []
+    for arch, *_ in LLM_RUNS:
+        x, dt, a, b_in, c_in = timing_inputs["ssd", arch]
+        ms = float(np.median(time_cuda(
+            lambda: sops.launch(x, dt, a, b_in, c_in), 7)[2:]))
+        plain_ms = float(np.median(time_cuda(
+            lambda: reference_intra_chunk(x, dt, a, b_in, c_in), 3)))
+        bsz, nc, cq, h, p = x.shape
+        g, n = b_in.shape[3], b_in.shape[4]
+        nbytes, n_ops = ssd_work(bsz, nc, cq, h, p, g, n, x.element_size())
+        t_b = nbytes / HBM_BYTES_PER_S * 1e3
+        t_o = n_ops / F32_FLOPS_PER_S * 1e3
+        bound_ms, bound_by = max((t_b, "bytes"), (t_o, "operations"))
+        say("5", f"ssd_scan kernel, {arch} layer [B {bsz}, NC {nc}, Q {cq}, "
+                 f"H {h}, P {p}, G {g}, N {n}] {x.dtype}: median {ms:.4f} "
+                 f"ms; plain {plain_ms:.3f} ms; no library call; bound "
+                 f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e9:.4f} GB, "
+                 f"{n_ops / 1e9:.3f} GFLOP at the float32 peak); card: "
+                 f"{card}")
+        ssd_rows.append((ms, plain_ms, bound_ms, bound_by))
+    ms, plain_ms, bound_ms, bound_by = ssd_rows[0]      # zamba2-7b's layer
+    rows.append({
+        "name": sops.NAME, "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:29",
+        "launches": launches_total.get(sops.NAME, 0),
+        "max_abs_err": llm_err["ssd"], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -227,6 +607,11 @@ def main() -> int:
     from repro_torch.kernels.noc_step import cases as noc_cases
     from repro_torch.kernels.noc_step import ops as nops
     from repro_torch.kernels.noc_step.ref import reference_noc_run
+    from repro_torch.kernels.flash_attention import cases as flash_cases
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd_scan import cases as ssd_cases
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan.ref import reference_intra_chunk
     from repro_torch.core.simulator import (Arch, SimConfig, epoch_inputs,
                                             sweep_batch)
 
@@ -245,22 +630,29 @@ def main() -> int:
     say("1", f"device {kind} x{count}; torch {torch.__version__} cuda "
              f"{torch.version.cuda}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:          # one nvcc per source
-        for f in [pool.submit(m.build) for m in (ops, nops)]:
+    kernels = (ops, nops, fops, sops)
+    with ThreadPoolExecutor(len(kernels)) as pool:   # one nvcc per source
+        for f in [pool.submit(m.build) for m in kernels]:
             f.result()
     build_s = time.perf_counter() - t0
-    for name in (ops.NAME, nops.NAME):
-        log = backend.build_log(name) or ""
+    for m in kernels:
+        log = backend.build_log(m.NAME) or ""
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+        smem = [int(x) for x in re.findall(r"(\d+) bytes smem", log)]
         spills = [int(a) + int(b) for a, b in re.findall(
             r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
         if not regs:
-            fail(f"no ptxas register report in the {name} build log")
-        say("1", f"built {name}: ptxas {len(regs)} kernel variants, "
-                 f"registers {min(regs)}-{max(regs)}, spill bytes max "
+            fail(f"no ptxas register report in the {m.NAME} build log")
+        say("1", f"built {m.NAME}: ptxas {len(regs)} kernel variants, "
+                 f"registers {min(regs)}-{max(regs)}, static shared memory "
+                 f"max {max(smem or [0])} bytes, spill bytes max "
                  f"{max(spills or [0])}")
-    say("1", f"both kernels built in {build_s:.2f} s, in parallel (builds "
-             f"this run: {backend.COUNTERS['builds']})")
+    say("1", f"all {len(kernels)} kernels built in {build_s:.2f} s, in "
+             f"parallel (builds this run: {backend.COUNTERS['builds']})")
+    smem = sops.build().ssd_scan_smem_bytes
+    say("1", "ssd_scan dynamic shared memory per block: "
+             f"{smem(128, 64, 64)} bytes at zamba2-7b's layer (Q 128, P 64, "
+             f"N 64), {smem(128, 64, 128)} at mamba2-130m's (N 128)")
 
     # --- 2. kernel against plain on the card -------------------------------
     rng = np.random.RandomState(2026)
@@ -328,6 +720,43 @@ def main() -> int:
         noc_err = max(noc_err, err)
         say("2", f"noc_step {case.name}: {list(case.args[0].shape)} "
                  f"arrivals, kernel == plain (max abs err {err:.3g})")
+
+    llm_err = {"flash": 0.0, "ssd": 0.0}
+    for case in flash_cases.kernel_cases(dev):
+        got = fops.flash_attention(*case.args, causal=case.causal)
+        torch.cuda.synchronize()
+        want = flash_cases.plain(case)
+        err = float((got.float() - want.float()).abs().max())
+        if got.dtype != want.dtype or not torch.isfinite(got.float()).all() \
+                or not torch.allclose(got.float(), want.float(),
+                                      rtol=case.tol, atol=case.tol):
+            fail(f"flash_attention {case.name}: max abs err {err:.3g} "
+                 f"beyond {case.tol}")
+        llm_err["flash"] = max(llm_err["flash"], err)
+        say("2", f"flash_attention {case.name}: kernel == plain (max abs "
+                 f"err {err:.3g}, bound {case.tol})")
+    for case in ssd_cases.kernel_cases(dev):
+        y, state = ssd_cases.run_chunked(case)
+        torch.cuda.synchronize()
+        want_y, want_state = ssd_cases.run_chunked(case, plain=True)
+        inputs = ssd_cases.chunked_inputs(case)
+        pairs = [("y", y.float(), want_y.float(), case.y_tol),
+                 ("final state", state, want_state, case.tol)] + [
+            (name, u, w, case.tol) for name, u, w in zip(
+                ("y_intra", "chunk states"), sops.ssd_intra_chunk(*inputs),
+                reference_intra_chunk(*inputs))]
+        errs = []
+        for name, u, w, tol in pairs:
+            err = float((u - w).abs().max())
+            if u.shape != w.shape or not torch.isfinite(u).all() \
+                    or not torch.allclose(u, w, rtol=tol, atol=tol):
+                fail(f"ssd_scan {case.name}: {name} max abs err {err:.3g} "
+                     f"beyond {tol}")
+            errs.append(f"{name} {err:.3g}")
+            if name != "y":
+                llm_err["ssd"] = max(llm_err["ssd"], err)
+        say("2", f"ssd_scan {case.name}: kernel == plain (max abs err "
+                 + ", ".join(errs) + ")")
 
     # --- 3. the paper (main path starts here) ------------------------------
     # Every main-path call of the kernel wrapper is kept with its inputs and
@@ -601,7 +1030,10 @@ def main() -> int:
              f"{fig13_ms} ms (PROWAVES / ReSiPI)")
     del noc_calls, noc_arr
 
-    # --- 5. kernels line ----------------------------------------------------
+    # --- 5. LLM serving (second main path) -----------------------------------
+    llm = serve_llms(dev, card, fops, sops, llm_err)
+
+    # --- 6. kernels line ----------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": ops.NAME, "route": "cuda",
         "source": "src/repro_torch/kernels/epoch_step/csrc/epoch_step.cu",
@@ -614,7 +1046,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/noc_step/kernel.py:32",
         "launches": noc_launches, "max_abs_err": noc_err, "ms": noc_dse_ms,
         "plain_ms": noc_plain_ms, "bound_ms": noc_bound_ms,
-        "bound_by": noc_bound_by, "library_ms": None}]}), flush=True)
+        "bound_by": noc_bound_by, "library_ms": None}] + llm}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind,
                                              "count": count}}), flush=True)

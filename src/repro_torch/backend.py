@@ -24,7 +24,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -38,6 +38,9 @@ BUILD_DIR = REPO_ROOT / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+# The same without --fmad=false, for kernels whose floats feed no discrete
+# decision (flash_attention, ssd_scan): nvcc may contract a*b+c into FMAs.
+NVCC_FLAGS_FMA = tuple(f for f in NVCC_FLAGS if f != "--fmad=false")
 
 # Per-kernel counters. A wrapper bumps `launches[name]` exactly where it
 # launches its kernel; `builds[name]` counts nvcc runs (a cached library
@@ -91,7 +94,8 @@ def _nvcc() -> str:
                        "are built from source at first use")
 
 
-def build_library(name: str, source: Path) -> ctypes.CDLL:
+def build_library(name: str, source: Path,
+                  flags: Tuple[str, ...] = NVCC_FLAGS) -> ctypes.CDLL:
     """Build (once per source+flags hash) and load a kernel's shared library.
 
     The library lands in `build/kernels/<name>-<hash>.so` with the nvcc
@@ -102,7 +106,7 @@ def build_library(name: str, source: Path) -> ctypes.CDLL:
     if name in _LIBS:
         return _LIBS[name]
     src = Path(source).read_bytes()
-    key = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()
+    key = hashlib.sha256(src + "\0".join(flags).encode()
                          ).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = BUILD_DIR / f"{name}-{key}.so"
@@ -111,7 +115,7 @@ def build_library(name: str, source: Path) -> ctypes.CDLL:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         try:
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp,
+            proc = subprocess.run([_nvcc(), *flags, "-o", tmp,
                                    str(source)],
                                   capture_output=True, text=True)
             if proc.returncode != 0:

@@ -8,6 +8,11 @@ gateway counts, bool activity), so the parity tests hand both packages the
 same inputs. The flit model's inputs (arrivals, routing matrix, drain,
 buffers, masks) go across with `noc_inputs_from_numpy`. `records_to_numpy`
 goes the other way for comparisons.
+
+For the LLM serving slice, `params_from_numpy` carries a reference
+parameter tree (nested dicts of numpy arrays, with the stacked layer axes)
+across as float32 tensors with the same keys, and `caches_to_numpy` brings
+a model's serving caches back as numpy, KV caches as dicts.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import torch
 from repro_torch.backend import resolve_device
 from repro_torch.core.gateway_controller import ControllerState
 from repro_torch.core.simulator import FAULT_KEYS, SimState
+from repro_torch.models.layers import KVCache
 
 _FLOAT_KEYS = ("ext_load", "mem_load", "int_load", "ext_frac", "t_mask",
                "dest") + FAULT_KEYS
@@ -105,3 +111,33 @@ def records_to_numpy(out):
                 "wavelengths": records_to_numpy(out.wavelengths),
                 "prev_active": records_to_numpy(out.prev_active)}
     return out
+
+
+def params_from_numpy(tree, device=None):
+    """A reference parameter tree (for example `jax.tree.map(np.asarray,
+    params)`: nested dicts of arrays, the stacked [n_groups, group_len, ...]
+    and [tail, ...] leading axes as they are) as float32 tensors on `device`
+    (default: the card), keys kept."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, dev) for k, v in tree.items()}
+    return _tensor(tree, np.float32, dev)
+
+
+def caches_to_numpy(caches):
+    """A model's serving caches (nested tuples of tensors, KV caches, None)
+    as numpy arrays in the same nesting; a KV cache becomes the dict
+    {"k", "v", "length"}, in the reference's leaf order. bfloat16 entries
+    come back as float32."""
+    if isinstance(caches, KVCache):
+        return {"k": caches_to_numpy(caches.k),
+                "v": caches_to_numpy(caches.v),
+                "length": caches_to_numpy(caches.length)}
+    if isinstance(caches, torch.Tensor):
+        # A copy: decode steps write the KV cache in place.
+        t = caches.detach().cpu()
+        return np.array((t.float() if t.dtype == torch.bfloat16 else t)
+                        .numpy())
+    if isinstance(caches, (list, tuple)):
+        return type(caches)(caches_to_numpy(c) for c in caches)
+    return caches

@@ -1,0 +1,65 @@
+"""The cases that hold the `flash_attention` kernel against its plain
+version, built in one place for every caller.
+
+`chip_smoke.py` runs them on the card at their full size, the card tests
+(`tests/test_torch_cuda.py`) too, and the CPU tests at a small size through
+the plain version. Inputs are drawn from a seeded `torch.Generator` on the
+device, in float32, then cast. The cases cover float32 and bfloat16,
+causal and not, head dims 16 / 64 / 112 / 128, S of 1, 127, 1024 and 2048,
+and B x H from 1 to 128 (the first case is zamba2-7b's prefill shape).
+"""
+from __future__ import annotations
+
+from typing import List, NamedTuple, Sequence, Tuple
+
+import torch
+
+from repro_torch.kernels.flash_attention.ref import reference_attention
+
+# name: (B, S, H, d, dtype, causal)
+SPECS = {
+    "zamba2-bf16-causal-d112-S2048-BH128": (4, 2048, 32, 112, "bf16", True),
+    "f32-causal-d128-S1024-BH2": (1, 1024, 2, 128, "f32", True),
+    "bf16-full-d64-S127-BH64": (4, 127, 16, 64, "bf16", False),
+    "f32-full-d16-S2048-BH1": (1, 2048, 1, 16, "f32", False),
+    "bf16-causal-d16-S1-BH8": (2, 1, 4, 16, "bf16", True),
+    "f32-causal-d112-S127-BH6": (2, 127, 3, 112, "f32", True),
+    "f32-full-d128-S1-BH3": (1, 1, 3, 128, "f32", False),
+    "bf16-full-d112-S1024-BH8": (2, 1024, 4, 112, "bf16", False),
+    "f32-causal-d64-S2048-BH4": (2, 2048, 2, 64, "f32", True),
+    "bf16-causal-d128-S127-BH1": (1, 127, 1, 128, "bf16", True),
+}
+NAMES = tuple(SPECS)
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+# The reference's own bounds for this kernel (tests/test_kernels.py).
+TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+SMALL_S = {1: 1, 127: 33, 1024: 64, 2048: 96}
+
+
+class Case(NamedTuple):
+    name: str
+    args: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]   # q, k, v
+    causal: bool
+    tol: float
+
+
+def kernel_cases(dev, small: bool = False,
+                 names: Sequence[str] = NAMES) -> List[Case]:
+    """The cases named in `names` on `dev`; `small` cuts S and B x H for
+    runs of the plain version on the CPU."""
+    out = []
+    for i, name in enumerate(names):
+        b, s, h, d, dt, causal = SPECS[name]
+        if small:
+            b, s, h = 1, SMALL_S[s], min(h, 2)
+        gen = torch.Generator(device=dev).manual_seed(100 + i)
+        qkv = tuple(torch.randn((b, s, h, d), generator=gen, device=dev)
+                    .to(DTYPES[dt]) for _ in range(3))
+        out.append(Case(name, qkv, causal, TOLERANCE[DTYPES[dt]]))
+    return out
+
+
+def plain(case: Case) -> torch.Tensor:
+    """The plain version of the op on the case's inputs, [B, S, H, d]."""
+    q, k, v = (x.transpose(1, 2) for x in case.args)
+    return reference_attention(q, k, v, causal=case.causal).transpose(1, 2)

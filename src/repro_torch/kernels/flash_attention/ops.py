@@ -1,0 +1,103 @@
+"""Wrapper of the flash-attention kernel: the model's [B, S, H, d] layout.
+
+`flash_attention(q, k, v, causal=...)` stands in for the reference's
+`repro.kernels.flash_attention.ops.flash_attention` and for the model's
+`_flash_attend` on the prefill path. Given CUDA tensors it launches
+`csrc/flash_attention.cu` once, with no padding copies (the kernel masks the
+ragged S edge and takes any head dim up to 128 unpadded; the scale is
+1/sqrt(d)); given CPU tensors it runs the plain version
+(`ref.reference_attention`). There is no fallback: what the kernel does not
+run raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from pathlib import Path
+
+import torch
+
+from repro_torch import backend
+from repro_torch.kernels.flash_attention.ref import reference_attention
+
+NAME = "flash_attention"
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+FLAGS = backend.NVCC_FLAGS_FMA
+MAX_HEAD_DIM = 128
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def build() -> ctypes.CDLL:
+    """Build (or load the cached build of) the kernel library."""
+    lib = backend.build_library(NAME, SOURCE, FLAGS)
+    fn = lib.flash_attention_launch
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 4 + [_I] * 6 + [ctypes.c_float, _I, _P]
+        fn.restype = _I
+    return lib
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    devs = {t.device for t in (q, k, v)}
+    if len(devs) != 1:
+        raise ValueError(f"flash_attention: q, k, v on "
+                         f"{sorted(map(str, devs))}; all must be on one "
+                         f"device")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: q, k, v must be [B, S, H, d] with "
+                         f"k and v alike, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if (q.shape[0], q.shape[2], q.shape[3]) != (k.shape[0], k.shape[2],
+                                                k.shape[3]):
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} differ in batch, heads or head "
+                         f"dim (repeat the kv heads first)")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q [B, Sq, H, d], k and v [B, Skv, H, d] (kv heads repeated to H) ->
+    [B, Sq, H, d] in q's dtype. Causal masking compares indices (query i
+    sees keys 0..i)."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        return reference_attention(qt, kt, vt,
+                                   causal=causal).transpose(1, 2)
+    return launch(q, k, v, causal=causal)
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool = True) -> torch.Tensor:
+    """One kernel launch on CUDA tensors (checked, made contiguous), on the
+    current stream; never synchronizes."""
+    _check(q, k, v)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_attention kernel needs CUDA tensors, got "
+                           f"{q.device}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention kernel takes float32 or bfloat16 "
+                        f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    b, s_q, h, d = q.shape
+    s_kv = k.shape[1]
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention kernel takes head dims up to "
+                         f"{MAX_HEAD_DIM}, got {d}")
+    lib = build()
+    q, k, v = (x.contiguous() for x in (q, k, v))
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    err = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s_q,
+        s_kv, h, d, DTYPES[q.dtype], 1.0 / math.sqrt(d), int(causal),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    backend.count_launch(NAME)
+    return out

@@ -1,0 +1,161 @@
+"""Wrapper of the SSD intra-chunk kernel, and the full chunked scan on top.
+
+`ssd_intra_chunk(x, dt, a, b_in, c_in)` is the counterpart of the
+reference's `ssd_intra_chunk_pallas`: given CUDA tensors it launches
+`csrc/ssd_scan.cu` once for every (batch, chunk, head); given CPU tensors it
+runs the plain version (`ref.reference_intra_chunk`). B and C come grouped
+([..., G, N], head h reading group h // (H / G)) and are never repeated per
+head. There is no fallback: what the kernel does not run raises.
+
+`ssd_chunked(...)` is the counterpart of `ssd_chunked_pallas`
+(`repro.kernels.ssd_scan.ops`): the intra-chunk op, then the inter-chunk
+state recurrence and the inter-chunk output in plain PyTorch.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from repro_torch import backend
+from repro_torch.kernels.ssd_scan.ref import reference_intra_chunk
+
+NAME = "ssd_scan"
+SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
+FLAGS = backend.NVCC_FLAGS_FMA
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 256, 128, 128
+SMEM_LIMIT = 232448           # 227 KB of shared memory per block
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def build() -> ctypes.CDLL:
+    """Build (or load the cached build of) the kernel library."""
+    lib = backend.build_library(NAME, SOURCE, FLAGS)
+    fn = lib.ssd_scan_launch
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 7 + [_I] * 8 + [_P]
+        fn.restype = _I
+        lib.ssd_scan_smem_bytes.argtypes = [_I] * 3
+        lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def _check(x, dt, a, b_in, c_in) -> None:
+    devs = {t.device for t in (x, dt, a, b_in, c_in)}
+    if len(devs) != 1:
+        raise ValueError(f"ssd_scan: inputs on {sorted(map(str, devs))}; all "
+                         f"must be on one device")
+    if x.dim() != 5 or b_in.dim() != 5 or b_in.shape != c_in.shape:
+        raise ValueError(f"ssd_scan: x must be [B, NC, Q, H, P] and b, c "
+                         f"[B, NC, Q, G, N] alike, got {tuple(x.shape)}, "
+                         f"{tuple(b_in.shape)}, {tuple(c_in.shape)}")
+    bsz, nc, q, h, _ = x.shape
+    g = b_in.shape[3]
+    if tuple(dt.shape) != (bsz, nc, q, h) or tuple(a.shape) != (h,) \
+            or tuple(b_in.shape[:3]) != (bsz, nc, q) or h % g:
+        raise ValueError(f"ssd_scan: shapes x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, a {tuple(a.shape)}, b "
+                         f"{tuple(b_in.shape)} do not match (G must divide H)")
+
+
+def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                    b_in: torch.Tensor, c_in: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-chunk SSD compute. x [B, NC, Q, H, P], dt [B, NC, Q, H], a [H],
+    b_in / c_in [B, NC, Q, G, N]. Returns (y_intra [B, NC, Q, H, P],
+    s_chunk [B, NC, H, P, N]), float32."""
+    _check(x, dt, a, b_in, c_in)
+    if x.device.type == "cpu":
+        return reference_intra_chunk(x, dt, a, b_in, c_in)
+    return launch(x, dt, a, b_in, c_in)
+
+
+def launch(x, dt, a, b_in, c_in) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One kernel launch on CUDA tensors (checked, made contiguous; dt as
+    float32; the cumsum of dt * a taken here), on the current stream; never
+    synchronizes."""
+    _check(x, dt, a, b_in, c_in)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"ssd_scan kernel needs CUDA tensors, got "
+                           f"{x.device}")
+    if x.dtype not in DTYPES or b_in.dtype != x.dtype \
+            or c_in.dtype != x.dtype:
+        raise TypeError(f"ssd_scan kernel takes float32 or bfloat16 x, b, c "
+                        f"of one dtype, got {x.dtype}, {b_in.dtype}, "
+                        f"{c_in.dtype}")
+    bsz, nc, q, h, p = x.shape
+    g, n = b_in.shape[3], b_in.shape[4]
+    if q % 32 or q > MAX_CHUNK or p > MAX_HEAD_DIM or n > MAX_STATE:
+        raise ValueError(f"ssd_scan kernel takes chunks that are multiples "
+                         f"of 32 up to {MAX_CHUNK}, head dims up to "
+                         f"{MAX_HEAD_DIM} and states up to {MAX_STATE}; got "
+                         f"Q={q}, P={p}, N={n}")
+    lib = build()
+    smem = lib.ssd_scan_smem_bytes(q, p, n)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"ssd_scan kernel needs {smem} bytes of shared "
+                         f"memory at Q={q}, P={p}, N={n}, past the "
+                         f"{SMEM_LIMIT} limit")
+    # The cumsum of dt * a, taken as the plain version takes it: in
+    # another order it would move every decay weight (see the source).
+    cum = torch.cumsum(dt.float() * a.float(), dim=2).contiguous()
+    x, b_in, c_in = (t.contiguous() for t in (x, b_in, c_in))
+    dt = dt.to(torch.float32).contiguous()
+    y = torch.empty((bsz, nc, q, h, p), dtype=torch.float32, device=x.device)
+    s = torch.empty((bsz, nc, h, p, n), dtype=torch.float32, device=x.device)
+    err = lib.ssd_scan_launch(
+        x.data_ptr(), dt.data_ptr(), cum.data_ptr(), b_in.data_ptr(),
+        c_in.data_ptr(), y.data_ptr(), s.data_ptr(), bsz, nc, q, h, p, g, n,
+        DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
+    backend.count_launch(NAME)
+    return y, s
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                b_in: torch.Tensor, c_in: torch.Tensor, chunk: int,
+                initial_state: Optional[torch.Tensor] = None, *,
+                intra_chunk: Optional[Callable] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan, L a multiple of `chunk` (the model's `ssd_chunked`
+    pads). x [B, L, H, P], dt [B, L, H], a [H], b_in / c_in [B, L, G, N],
+    initial_state [B, H, P, N] or None. Returns (y [B, L, H, P] in x's
+    dtype, final_state [B, H, P, N] float32).
+
+    `intra_chunk` replaces the intra-chunk op (default `ssd_intra_chunk`),
+    for example with the plain version on CUDA tensors to compare."""
+    bsz, l, h, p = x.shape
+    g, n = b_in.shape[2], b_in.shape[3]
+    if l % chunk:
+        raise ValueError(f"ssd_chunked: L={l} is not a multiple of the chunk "
+                         f"{chunk}")
+    nc = l // chunk
+    rep = h // g
+    xr = x.reshape(bsz, nc, chunk, h, p)
+    dtr = dt.reshape(bsz, nc, chunk, h)
+    br = b_in.reshape(bsz, nc, chunk, g, n)
+    cr = c_in.reshape(bsz, nc, chunk, g, n)
+
+    intra = ssd_intra_chunk if intra_chunk is None else intra_chunk
+    y_intra, s_chunk = intra(xr, dtr, a, br, cr)
+
+    cum = torch.cumsum(dtr.float() * a.float(), dim=2)        # [B,NC,Q,H]
+    total_decay = torch.exp(cum[:, :, -1, :])                  # [B,NC,H]
+    state = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
+                         device=x.device)
+             if initial_state is None else initial_state.float())
+    states_in = []
+    for c in range(nc):
+        states_in.append(state)                                # entering
+        state = state * total_decay[:, c, :, None, None] + s_chunk[:, c]
+    states = torch.stack(states_in, dim=1).reshape(bsz, nc, g, rep, p, n)
+    y_inter = torch.einsum("bcqgn,bcgrpn->bcqgrp", cr.float(), states)
+    y_inter = y_inter.reshape(bsz, nc, chunk, h, p) * torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(bsz, l, h, p).to(x.dtype)
+    return y, state

@@ -1,0 +1,239 @@
+"""Decoder model assemblies of the port (from `repro.models.transformer`):
+the pure SSM stack (mamba2) and the hybrid (zamba2), with the reference's
+serving API:
+
+    spec()                                ParamSpec tree
+    prefill(params, batch, max_len)       (caches, last_logits)
+    decode_step(params, tokens, caches)   (logits, caches)
+
+Parameters are dicts of tensors with the reference's stacked leading axes;
+the reference's scans over layers are Python loops over those axes, and the
+per-layer caches come back stacked as the scans stack them. Training
+(`train_loss`, `chunked_cross_entropy`), the dense / MoE / VLM `DecoderLM`
+and the encoder-decoder wait for later slices (ROADMAP.md).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
+from repro_torch.models.params import stack_specs
+
+
+# ---------------------------------------------------------------------------
+# Transformer decoder block (the hybrid's shared attention + MLP block)
+# ---------------------------------------------------------------------------
+
+def _no_moe(cfg: ModelConfig) -> None:
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            "MoE blocks are not ported yet (ROADMAP.md, queue 1, the LLM "
+            "stack)")
+
+
+def block_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    _no_moe(cfg)
+    return {
+        "ln1": L.rmsnorm_spec(cfg.d_model),
+        "attn": L.attention_spec(cfg),
+        "ln2": L.rmsnorm_spec(cfg.d_model),
+        "mlp": L.mlp_spec(cfg),
+    }
+
+
+def block_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
+                positions: torch.Tensor,
+                cache: Optional[L.KVCache] = None,
+                causal: bool = True):
+    _no_moe(cfg)
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    attn_out, new_cache = L.attention(p["attn"], h, cfg,
+                                      positions=positions, causal=causal,
+                                      cache=cache)
+    x = x + attn_out
+    h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + L.mlp(p["mlp"], h, cfg), new_cache, None
+
+
+def _layer(tree: Dict[str, Any], *idx: int) -> Dict[str, Any]:
+    """One layer's parameters out of a stacked tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, *idx) for k, v in tree.items()}
+    return tree[idx]
+
+
+def _stack(per_layer: List[tuple]) -> tuple:
+    """[(state, conv), ...] per layer -> (states [n, ...], convs [n, ...])."""
+    return tuple(torch.stack(parts) for parts in zip(*per_layer))
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+
+
+def _mamba_layer(p_layer, x, cfg: ModelConfig, cache, decode: bool):
+    sstate = cstate = None
+    if cache is not None:
+        sstate, cstate = cache
+    h = L.rmsnorm(p_layer["ln"], x, cfg.norm_eps)
+    y, new_cache = SSM.mamba_block(p_layer["mamba"], h, cfg,
+                                   ssm_state=sstate, conv_state=cstate,
+                                   decode=decode)
+    return x + y, new_cache
+
+
+def _mamba_layer_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    return {"ln": L.rmsnorm_spec(cfg.d_model), "mamba": SSM.mamba_spec(cfg)}
+
+
+# ---------------------------------------------------------------------------
+# Pure SSM stack (mamba2)
+# ---------------------------------------------------------------------------
+
+class SSMLM:
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+
+    def spec(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        return {
+            "embed": L.embed_spec(cfg),
+            "layers": stack_specs(_mamba_layer_spec(cfg), cfg.n_layers),
+            "ln_f": L.rmsnorm_spec(cfg.d_model),
+            "unembed": L.unembed_spec(cfg),
+        }
+
+    def _run_stack(self, params, x, caches, decode=False):
+        new = []
+        for i in range(self.cfg.n_layers):
+            x, c = _mamba_layer(_layer(params["layers"], i), x, self.cfg,
+                                (caches[0][i], caches[1][i]), decode)
+            new.append(c)
+        return x, _stack(new)
+
+    def prefill(self, params, batch, max_len: int):
+        cfg = self.cfg
+        x = L.embed(params["embed"], batch["tokens"])
+        caches = SSM.make_ssm_cache(cfg, x.shape[0], cfg.n_layers, x.device)
+        x, new_caches = self._run_stack(params, x, caches)
+        x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+        logits = L.unembed(params["unembed"], x[:, -1:])[:, 0]
+        return new_caches, logits
+
+    def decode_step(self, params, tokens, caches):
+        """tokens [B, 1] -> (logits [B, V], new caches)."""
+        cfg = self.cfg
+        x = L.embed(params["embed"], tokens)
+        x, new_caches = self._run_stack(params, x, caches, decode=True)
+        x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+        logits = L.unembed(params["unembed"], x)[:, 0]
+        return logits, new_caches
+
+
+# ---------------------------------------------------------------------------
+# Hybrid (zamba2): mamba backbone + weight-shared attention block
+# ---------------------------------------------------------------------------
+
+class HybridLM:
+    """`attn_every` mamba layers per group; one *shared* attention+MLP block
+    (single weight set, reused) applied after each group — the Zamba2
+    architecture. Leftover layers run as a tail group without attention."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        k = cfg.attn_every or 6
+        self.n_groups = cfg.n_layers // k
+        self.group_len = k
+        self.tail = cfg.n_layers - self.n_groups * k
+
+    def spec(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        layer = _mamba_layer_spec(cfg)
+        s = {
+            "embed": L.embed_spec(cfg),
+            "groups": stack_specs(stack_specs(layer, self.group_len, None),
+                                  self.n_groups),
+            "shared": block_spec(cfg),       # ONE weight set, reused
+            "ln_f": L.rmsnorm_spec(cfg.d_model),
+            "unembed": L.unembed_spec(cfg),
+        }
+        if self.tail:
+            s["tail"] = stack_specs(layer, self.tail)
+        return s
+
+    def _run(self, params, x, positions, ssm_caches, kv_caches,
+             decode=False):
+        """ssm_caches: ((states, convs) [G, gl, ...], tail or None);
+        kv_caches: KVCache with a leading [n_groups] axis, written in
+        place. Returns (x, new ssm caches, new kv cache)."""
+        cfg = self.cfg
+        (g_states, g_convs), tail_caches = ssm_caches
+        new_groups, lengths = [], []
+        for g in range(self.n_groups):
+            new = []
+            for i in range(self.group_len):
+                x, c = _mamba_layer(_layer(params["groups"], g, i), x, cfg,
+                                    (g_states[g, i], g_convs[g, i]), decode)
+                new.append(c)
+            new_groups.append(_stack(new))
+            kv = L.KVCache(k=kv_caches.k[g], v=kv_caches.v[g],
+                           length=kv_caches.length[g])
+            x, kv, _ = block_apply(params["shared"], x, cfg,
+                                   positions=positions, cache=kv,
+                                   causal=True)
+            lengths.append(kv.length)
+        new_ssm = _stack(new_groups)
+        new_tail = None
+        if self.tail:
+            new = []
+            for i in range(self.tail):
+                x, c = _mamba_layer(_layer(params["tail"], i), x, cfg,
+                                    (tail_caches[0][i], tail_caches[1][i]),
+                                    decode)
+                new.append(c)
+            new_tail = _stack(new)
+        new_kv = L.KVCache(k=kv_caches.k, v=kv_caches.v,
+                           length=torch.stack(lengths))
+        return x, (new_ssm, new_tail), new_kv
+
+    def _init_caches(self, b: int, max_len: int, device):
+        cfg = self.cfg
+        ssm_g = SSM.make_ssm_cache(cfg, b, self.n_groups * self.group_len,
+                                   device)
+        ssm_g = tuple(a.reshape((self.n_groups, self.group_len)
+                                + a.shape[1:]) for a in ssm_g)
+        ssm_t = (SSM.make_ssm_cache(cfg, b, self.tail, device)
+                 if self.tail else None)
+        kv = L.make_cache(cfg, b, max_len, device, n_layers=self.n_groups)
+        kv.length = torch.zeros((self.n_groups,), dtype=torch.int32,
+                                device=device)
+        return (ssm_g, ssm_t), kv
+
+    def prefill(self, params, batch, max_len: int):
+        cfg = self.cfg
+        x = L.embed(params["embed"], batch["tokens"])
+        b, s, _ = x.shape
+        ssm_caches, kv = self._init_caches(b, max_len, x.device)
+        x, new_ssm, new_kv = self._run(params, x, _positions(b, s, x.device),
+                                       ssm_caches, kv)
+        x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+        logits = L.unembed(params["unembed"], x[:, -1:])[:, 0]
+        return (new_ssm, new_kv), logits
+
+    def decode_step(self, params, tokens, caches):
+        """tokens [B, 1] -> (logits [B, V], new caches). The KV cache is
+        written in place (the returned cache shares its k / v)."""
+        cfg = self.cfg
+        ssm_caches, kv = caches
+        x = L.embed(params["embed"], tokens)
+        b = x.shape[0]
+        pos = kv.length[0].reshape(1, 1).expand(b, 1).to(torch.int32)
+        x, new_ssm, new_kv = self._run(params, x, pos, ssm_caches, kv,
+                                       decode=True)
+        x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+        logits = L.unembed(params["unembed"], x)[:, 0]
+        return logits, (new_ssm, new_kv)

@@ -1,5 +1,6 @@
-"""Card-only tests: the hand-written `epoch_step` and `noc_step` CUDA
-kernels against their plain PyTorch versions on the same CUDA inputs.
+"""Card-only tests: the hand-written `epoch_step`, `noc_step`,
+`flash_attention` and `ssd_scan` CUDA kernels against their plain PyTorch
+versions on the same CUDA inputs.
 
 Marked `cuda`; each test asks the `cuda_device` fixture for the card and
 skips without one. Run them on a machine with a card and nvcc:
@@ -17,7 +18,13 @@ garbage in its dead lanes, a lane dying mid-run, an all-ones
 `valid_mask_t`, a ragged `t_mask`, `hex_config(2)` and a batch of mixed-T
 runs at rtol 1e-5, atol 1e-3 (the in-edge sums run in another order than
 the plain version's products); dead lanes exactly 0, a batch bitwise its
-single runs, and the wrapper's refusals. This file imports no JAX.
+single runs, and the wrapper's refusals. For `flash_attention` and
+`ssd_scan`: the shared cases of `kernels/flash_attention/cases.py` and
+`kernels/ssd_scan/cases.py` (chip_smoke.py's phase 2) at the reference's
+bounds (flash 2e-5 in float32, 3e-2 in bfloat16; SSD float32 outputs 1e-4,
+2e-4 at chunk 128), the wrappers' refusals, and the two smoke models
+served on the card against the same models on the CPU. This file imports
+no JAX.
 """
 import numpy as np
 import pytest
@@ -30,6 +37,11 @@ from repro_torch.kernels.epoch_step.ref import epoch_run_reference
 from repro_torch.kernels.noc_step import cases as noc_cases
 from repro_torch.kernels.noc_step import ops as nops
 from repro_torch.kernels.noc_step.ref import reference_noc_run
+from repro_torch.kernels.flash_attention import cases as flash_cases
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.ssd_scan import cases as ssd_cases
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import reference_intra_chunk
 
 pytestmark = pytest.mark.cuda
 
@@ -207,3 +219,129 @@ def test_noc_wrapper_rejects_what_the_kernel_does_not_run(cuda_device):
                      torch.zeros((r, r), device=cuda_device), z, z)
     with pytest.raises(ValueError, match="cpu"):
         nops.noc_run(arr, nm.cpu(), drain, buf)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention and ssd_scan: the LLM serving kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", flash_cases.NAMES)
+def test_flash_kernel_matches_plain(case, cuda_device):
+    from repro_torch import backend
+
+    c = flash_cases.kernel_cases(cuda_device, names=[case])[0]
+    backend.reset_counters()
+    got = flash_ops.flash_attention(*c.args, causal=c.causal)
+    torch.cuda.synchronize()
+    assert backend.COUNTERS["launches"] == {"flash_attention": 1}
+    want = flash_cases.plain(c)
+    assert got.dtype == want.dtype == c.args[0].dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=c.tol,
+                               atol=c.tol)
+
+
+@pytest.mark.parametrize("case", ssd_cases.NAMES)
+def test_ssd_kernel_matches_plain(case, cuda_device):
+    from repro_torch import backend
+
+    c = ssd_cases.kernel_cases(cuda_device, names=[case])[0]
+    backend.reset_counters()
+    y, state = ssd_cases.run_chunked(c)
+    torch.cuda.synchronize()
+    assert backend.COUNTERS["launches"] == {"ssd_scan": 1}
+    want_y, want_state = ssd_cases.run_chunked(c, plain=True)
+    assert y.dtype == c.args[0].dtype and y.shape == c.args[0].shape
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=c.y_tol,
+                               atol=c.y_tol)
+    torch.testing.assert_close(state, want_state, rtol=c.tol, atol=c.tol)
+    inputs = ssd_cases.chunked_inputs(c)
+    for a, b in zip(ssd_ops.ssd_intra_chunk(*inputs),
+                    reference_intra_chunk(*inputs)):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, b, rtol=c.tol, atol=c.tol)
+
+
+def test_llm_wrappers_reject_what_the_kernels_do_not_run(cuda_device):
+    q, k, v = flash_cases.kernel_cases(
+        cuda_device, names=["f32-causal-d112-S127-BH6"])[0].args
+    wide = torch.zeros((1, 4, 1, 136), device=cuda_device)
+    with pytest.raises(ValueError, match="up to 128"):
+        flash_ops.flash_attention(wide, wide, wide)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_ops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="one device"):
+        flash_ops.flash_attention(q, k.cpu(), v)
+    c = ssd_cases.kernel_cases(cuda_device, names=["N16-G1-f32"])[0]
+    x, dt, a, bb, cc = ssd_cases.chunked_inputs(c)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ssd_ops.ssd_intra_chunk(x.half(), dt, a, bb.half(), cc.half())
+    with pytest.raises(ValueError, match="one device"):
+        ssd_ops.ssd_intra_chunk(x, dt.cpu(), a, bb, cc)
+    with pytest.raises(ValueError, match="multiples of 32"):
+        ssd_ops.ssd_intra_chunk(x[:, :, :16], dt[:, :, :16], a,
+                                bb[:, :, :16], cc[:, :, :16])
+    # Q = 256, P = N = 128: x, B, C and the weight scratch need 428 KB.
+    big = torch.zeros((1, 1, 256, 1, 128), device=cuda_device)
+    dt1 = torch.zeros((1, 1, 256, 1), device=cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_ops.ssd_intra_chunk(big, dt1, a[:1], big, big)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "mamba2-130m"])
+def test_smoke_models_on_the_card_match_the_cpu(arch, cuda_device):
+    """prefill + 3 decode steps of a smoke model, bf16, with the same
+    weights on the card (kernels) and on the CPU (plain versions): logits
+    and caches within 5e-2 in relative RMS (the bf16 bound of
+    tests/test_torch_models.py), launches counted."""
+    from repro_torch import backend, interop
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.models.params import init_params
+
+    cfg = get_smoke_config(arch)
+    model = get_model(cfg)
+    cpu_params = init_params(model.spec(), torch.Generator().manual_seed(0),
+                             "cpu")
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        params = _to(cpu_params, dev)
+        toks = torch.tensor(np.random.RandomState(1).randint(
+            0, cfg.real_vocab, (2, 43)), device=dev)
+        backend.reset_counters()
+        caches, logits = model.prefill(params, {"tokens": toks[:, :40]}, 48)
+        launches = dict(backend.COUNTERS["launches"])
+        out = [(logits, interop.caches_to_numpy(caches))]
+        for i in range(3):
+            logits, caches = model.decode_step(params,
+                                               toks[:, 40 + i:41 + i],
+                                               caches)
+            out.append((logits, interop.caches_to_numpy(caches)))
+        runs[str(dev)] = (out, launches)
+    n_ssd = cfg.n_layers
+    n_flash = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    want_launches = {"ssd_scan": n_ssd}
+    if n_flash:
+        want_launches["flash_attention"] = n_flash
+    assert runs["cpu"][1] == {}
+    assert runs["cuda"][1] == want_launches
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for v in tree.values() for x in leaves(v)]
+        if isinstance(tree, (list, tuple)):
+            return [x for v in tree for x in leaves(v)]
+        return [] if tree is None else [tree]
+
+    for (gl, gc), (cl, cc) in zip(runs["cuda"][0], runs["cpu"][0]):
+        pairs = [(gl.float().cpu().numpy(), cl.float().numpy())] \
+            + list(zip(leaves(gc), leaves(cc)))
+        for u, v in pairs:
+            assert u.shape == v.shape
+            rel = np.linalg.norm(u - v) / max(np.linalg.norm(v), 1e-30)
+            assert rel <= 5e-2, rel
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
