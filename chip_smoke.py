@@ -27,8 +27,11 @@ exits non-zero):
      and a batch of mixed-T runs (bitwise the runs one by one);
      flash_attention and ssd_scan against plain on the cases of
      `kernels/flash_attention/cases.py` and `kernels/ssd_scan/cases.py`
-     (float32 and bfloat16, causal and not, head dims 16-128, S 1-2048;
-     d_state 16-128, one and two groups, ragged L, initial states);
+     (float32 and bfloat16, causal and not, head dims 16-128, S 1-2049;
+     d_state 16-128, chunks 32-128, one and two groups, ragged L, initial
+     states), each through its wrapper, which picks the tensor-core
+     (`wgmma`) or SIMT kernel by dtype and shape; each case prints the
+     kernel that ran (read from the launch counters);
   3. the paper through the port's own generator: Fig. 11 (8 PARSEC apps x
      4 architectures), Fig. 10 (L_m), Fig. 12 (settle times) and Fig. 13
      (residency maps, arrivals from the threefry twin at seed 5, held to
@@ -48,16 +51,19 @@ exits non-zero):
      mamba2-130m, 8 x 2048, then 16 steps. Every ssd_scan and
      flash_attention launch of those runs is held against its plain
      version on its own inputs (inline), the launches are counted (81 + 13
-     and 24), and the whole prefill's logits against the same prefill with
+     and 24, every one of them the tensor-core kernel: the prefill runs in
+     bf16), and the whole prefill's logits against the same prefill with
      the plain ops (held in float32 compute; in bf16, where rounding noise
      dominates these random-weight models at full depth, shown beside the
-     bf16 prefill's own distance from float32); then the kernels' and plain
-     versions' times at the
-     main-path shapes, SDPA's for flash, each kernel's bound, prefill and
+     bf16 prefill's own distance from float32); then the kernels' times at
+     the main-path shapes (the tensor-core kernel, and the SIMT kernel on
+     the same inputs for information), the plain versions', SDPA's for
+     flash, each kernel's bound (SSD's at the tensor-core peak, with its
+     figure at the float32 peak beside it), prefill and
      decode tokens/s and peak memory, and (information only) zamba2's
      decode-vs-prefill consistency;
   6. a `kernels` JSON line (launches on the main paths, error against
-     plain, times and the bound) for all four kernels.
+     plain, times, the bound and the kernel variant) for all four kernels.
 
 Phases 3 and 4 are the first main path: the launch counters are zeroed
 before phase 3 and read after the last DSE, before any check or timing.
@@ -110,10 +116,11 @@ NOC_CYCLES = 8192
 DSE_RADIX, DSE_G, DSE_W = (4, 8), (1, 2, 3, 4), (2, 16)
 DSE_LOADS = np.linspace(0.02, 0.64, 32)
 DSE_PAD = 8 * 8 + 4                           # mesh radix 8 plus 4 sinks
-# Dense bf16 tensor-core peak (flash's products are bf16 on the main path;
-# the kernel computes them in float32 on the CUDA cores, but the function's
-# least time is at this rate). SSD's products are float32 by contract and
-# held to F32_FLOPS_PER_S (TF32 keeps too few digits for its 1e-4 bound).
+# Dense bf16 tensor-core peak. Flash's and SSD's bf16 main-path launches run
+# their products on the tensor cores (SSD's float32 factors split into bf16
+# terms), so their bound is at this rate; SSD's bound at the float32 peak
+# (what its SIMT kernel's arithmetic is held to) is printed beside it, so
+# the row reads the same work whatever implements it.
 BF16_FLOPS_PER_S = 989e12
 # LLM serving (phase 5): (arch, batch, prompt tokens, decode steps).
 LLM_RUNS = (("zamba2-7b", 4, 2048, 16), ("mamba2-130m", 8, 2048, 16))
@@ -311,6 +318,16 @@ def device_breakdown(fn, label: str, top: int = 6) -> None:
                                   for k, v in ranked))
 
 
+def launched_variants(before: dict, after: dict) -> str:
+    """The kernel variants launched between two snapshots of
+    `backend.COUNTERS["variants"]` ("wgmma", "simt", or both)."""
+    ran = sorted({k.split(":")[1] for k, v in after.items()
+                  if v != before.get(k, 0)})
+    if not ran:
+        fail("no kernel variant was launched")
+    return "+".join(ran)
+
+
 def rel_rms(a: torch.Tensor, b: torch.Tensor) -> float:
     a, b = a.double(), b.double()
     return float(torch.linalg.vector_norm(a - b)
@@ -405,6 +422,7 @@ def serve_llms(dev, card: str, fops, sops, llm_err: dict) -> list:
                 logits, caches = model.decode_step(params, nxt, caches)
             torch.cuda.synchronize()
             launches = dict(backend.COUNTERS["launches"])  # ... ends here
+            variants = dict(backend.COUNTERS["variants"])
         finally:
             fops.flash_attention, sops.ssd_intra_chunk = kernel_flash, \
                 kernel_intra
@@ -416,6 +434,11 @@ def serve_llms(dev, card: str, fops, sops, llm_err: dict) -> list:
         if launches != expected:
             fail(f"{arch}: main path launched {launches}, expected "
                  f"{expected}")
+        # Every bf16 launch of the prefill goes through the tensor cores.
+        want_variants = {f"{k}:wgmma": v for k, v in expected.items()}
+        if variants != want_variants:
+            fail(f"{arch}: main path launched the variants {variants}, "
+                 f"expected {want_variants}")
         for k, v in launches.items():
             launches_total[k] = launches_total.get(k, 0) + v
         for name in ("flash", "ssd"):
@@ -427,7 +450,8 @@ def serve_llms(dev, card: str, fops, sops, llm_err: dict) -> list:
             if not torch.isfinite(lg.float()).all():
                 fail(f"{arch}: {what} logits not finite")
         say("5", f"{arch}: prefill {batch} x {prompt} + {steps} greedy "
-                 f"decode steps; launches {launches} (expected); every "
+                 f"decode steps; launches {launches}, variants {variants} "
+                 f"(expected); every "
                  f"launch == plain on its own inputs (max abs err "
                  + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + ")")
 
@@ -525,11 +549,15 @@ def serve_llms(dev, card: str, fops, sops, llm_err: dict) -> list:
         torch.cuda.empty_cache()
 
     # Kernel times at the main-path shapes: median of 5 launches after
-    # warm-up (CUDA events), the plain version's median of 3, SDPA's.
+    # warm-up (CUDA events) of the tensor-core kernel the main path ran and
+    # of the SIMT kernel on the same inputs (information), the plain
+    # version's median of 3, SDPA's.
     rows = []
     q, k, v, causal = timing_inputs["flash"]
     ms = float(np.median(time_cuda(
         lambda: fops.launch(q, k, v, causal=causal), 7)[2:]))
+    simt_ms = float(np.median(time_cuda(
+        lambda: fops.launch(q, k, v, causal=causal, kernel="simt"), 7)[2:]))
     plain_ms = float(np.median(time_cuda(
         lambda: flash_ref(q, k, v, causal=causal), 3)))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -537,51 +565,66 @@ def serve_llms(dev, card: str, fops, sops, llm_err: dict) -> list:
     lib_ms = float(np.median(time_cuda(
         lambda: sdpa(qt, kt, vt, is_causal=causal), 7)[2:]))
     b, s_len, h, d = q.shape
+    variant = fops.variant(q.dtype, d)
     nbytes, flops = flash_work(b, s_len, h, d, q.element_size(), causal)
     t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
     bound_ms, bound_by = max((t_b, "bytes"), (t_o, "operations"))
-    say("5", f"flash_attention kernel at [{b}, {s_len}, {h}, {d}] "
-             f"{q.dtype}, causal: median {ms:.4f} ms; plain {plain_ms:.3f} "
-             f"ms; SDPA {lib_ms:.4f} ms; bound {bound_ms:.4f} ms by "
-             f"{bound_by} ({flops / 1e9:.2f} GFLOP at the bf16 tensor-core "
-             f"peak, {nbytes / 1e9:.3f} GB); card: {card}")
+    say("5", f"flash_attention {variant} kernel at [{b}, {s_len}, {h}, {d}] "
+             f"{q.dtype}, causal: median {ms:.4f} ms (SIMT kernel "
+             f"{simt_ms:.4f} ms); plain {plain_ms:.3f} ms; SDPA "
+             f"{lib_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+             f"({flops / 1e9:.2f} GFLOP at the bf16 tensor-core peak, "
+             f"{nbytes / 1e9:.3f} GB), {bound_ms / ms:.1%} of it; card: "
+             f"{card}")
     rows.append({
-        "name": fops.NAME, "route": "cuda",
+        "name": fops.NAME, "route": "cuda", "variant": variant,
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:30",
         "launches": launches_total.get(fops.NAME, 0),
         "max_abs_err": llm_err["flash"], "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+        "simt_ms": simt_ms})
 
     ssd_rows = []
     for arch, *_ in LLM_RUNS:
         x, dt, a, b_in, c_in = timing_inputs["ssd", arch]
         ms = float(np.median(time_cuda(
             lambda: sops.launch(x, dt, a, b_in, c_in), 7)[2:]))
+        simt_ms = float(np.median(time_cuda(
+            lambda: sops.launch(x, dt, a, b_in, c_in, kernel="simt"),
+            7)[2:]))
         plain_ms = float(np.median(time_cuda(
             lambda: reference_intra_chunk(x, dt, a, b_in, c_in), 3)))
         bsz, nc, cq, h, p = x.shape
         g, n = b_in.shape[3], b_in.shape[4]
+        variant = sops.variant(x.dtype, cq, p, n)
         nbytes, n_ops = ssd_work(bsz, nc, cq, h, p, g, n, x.element_size())
         t_b = nbytes / HBM_BYTES_PER_S * 1e3
-        t_o = n_ops / F32_FLOPS_PER_S * 1e3
-        bound_ms, bound_by = max((t_b, "bytes"), (t_o, "operations"))
-        say("5", f"ssd_scan kernel, {arch} layer [B {bsz}, NC {nc}, Q {cq}, "
-                 f"H {h}, P {p}, G {g}, N {n}] {x.dtype}: median {ms:.4f} "
-                 f"ms; plain {plain_ms:.3f} ms; no library call; bound "
-                 f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e9:.4f} GB, "
-                 f"{n_ops / 1e9:.3f} GFLOP at the float32 peak); card: "
-                 f"{card}")
-        ssd_rows.append((ms, plain_ms, bound_ms, bound_by))
-    ms, plain_ms, bound_ms, bound_by = ssd_rows[0]      # zamba2-7b's layer
+        bound_ms, bound_by = max((t_b, "bytes"),
+                                 (n_ops / BF16_FLOPS_PER_S * 1e3,
+                                  "operations"))
+        f32_bound_ms = max(t_b, n_ops / F32_FLOPS_PER_S * 1e3)
+        say("5", f"ssd_scan {variant} kernel, {arch} layer [B {bsz}, NC "
+                 f"{nc}, Q {cq}, H {h}, P {p}, G {g}, N {n}] {x.dtype}: "
+                 f"median {ms:.4f} ms (SIMT kernel {simt_ms:.4f} ms); plain "
+                 f"{plain_ms:.3f} ms; no library call; bound {bound_ms:.4f} "
+                 f"ms by {bound_by} ({nbytes / 1e9:.4f} GB, "
+                 f"{n_ops / 1e9:.3f} GFLOP at the bf16 tensor-core peak), "
+                 f"{bound_ms / ms:.1%} of it; at the float32 peak "
+                 f"{f32_bound_ms:.4f} ms; card: {card}")
+        ssd_rows.append((ms, plain_ms, bound_ms, bound_by, simt_ms,
+                         f32_bound_ms, variant))
+    ms, plain_ms, bound_ms, bound_by, simt_ms, f32_bound_ms, variant = \
+        ssd_rows[0]                                      # zamba2-7b's layer
     rows.append({
-        "name": sops.NAME, "route": "cuda",
+        "name": sops.NAME, "route": "cuda", "variant": variant,
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:29",
         "launches": launches_total.get(sops.NAME, 0),
         "max_abs_err": llm_err["ssd"], "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "simt_ms": simt_ms, "bound_f32_peak_ms": f32_bound_ms})
     return rows
 
 
@@ -650,9 +693,16 @@ def main() -> int:
     say("1", f"all {len(kernels)} kernels built in {build_s:.2f} s, in "
              f"parallel (builds this run: {backend.COUNTERS['builds']})")
     smem = sops.build().ssd_scan_smem_bytes
-    say("1", "ssd_scan dynamic shared memory per block: "
-             f"{smem(128, 64, 64)} bytes at zamba2-7b's layer (Q 128, P 64, "
-             f"N 64), {smem(128, 64, 128)} at mamba2-130m's (N 128)")
+    for kern, code in (("simt", 0), ("wgmma", 1)):
+        for n in (64, 128):
+            if smem(128, 64, n, code) != sops.smem_bytes(kern, 128, 64, n):
+                fail(f"ssd_scan {kern} shared memory at N {n}: the source "
+                     f"says {smem(128, 64, n, code)}, ops.smem_bytes "
+                     f"{sops.smem_bytes(kern, 128, 64, n)}")
+    say("1", "ssd_scan dynamic shared memory per block (wgmma / simt): "
+             f"{smem(128, 64, 64, 1)} / {smem(128, 64, 64, 0)} bytes at "
+             f"zamba2-7b's layer (Q 128, P 64, N 64), {smem(128, 64, 128, 1)}"
+             f" / {smem(128, 64, 128, 0)} at mamba2-130m's (N 128)")
 
     # --- 2. kernel against plain on the card -------------------------------
     rng = np.random.RandomState(2026)
@@ -723,8 +773,10 @@ def main() -> int:
 
     llm_err = {"flash": 0.0, "ssd": 0.0}
     for case in flash_cases.kernel_cases(dev):
+        before = dict(backend.COUNTERS["variants"])
         got = fops.flash_attention(*case.args, causal=case.causal)
         torch.cuda.synchronize()
+        ran = launched_variants(before, backend.COUNTERS["variants"])
         want = flash_cases.plain(case)
         err = float((got.float() - want.float()).abs().max())
         if got.dtype != want.dtype or not torch.isfinite(got.float()).all() \
@@ -733,11 +785,13 @@ def main() -> int:
             fail(f"flash_attention {case.name}: max abs err {err:.3g} "
                  f"beyond {case.tol}")
         llm_err["flash"] = max(llm_err["flash"], err)
-        say("2", f"flash_attention {case.name}: kernel == plain (max abs "
-                 f"err {err:.3g}, bound {case.tol})")
+        say("2", f"flash_attention {case.name}: {ran} kernel == plain (max "
+                 f"abs err {err:.3g}, bound {case.tol})")
     for case in ssd_cases.kernel_cases(dev):
+        before = dict(backend.COUNTERS["variants"])
         y, state = ssd_cases.run_chunked(case)
         torch.cuda.synchronize()
+        ran = launched_variants(before, backend.COUNTERS["variants"])
         want_y, want_state = ssd_cases.run_chunked(case, plain=True)
         inputs = ssd_cases.chunked_inputs(case)
         pairs = [("y", y.float(), want_y.float(), case.y_tol),
@@ -755,8 +809,8 @@ def main() -> int:
             errs.append(f"{name} {err:.3g}")
             if name != "y":
                 llm_err["ssd"] = max(llm_err["ssd"], err)
-        say("2", f"ssd_scan {case.name}: kernel == plain (max abs err "
-                 + ", ".join(errs) + ")")
+        say("2", f"ssd_scan {case.name}: {ran} kernel == plain (max abs "
+                 f"err " + ", ".join(errs) + ")")
 
     # --- 3. the paper (main path starts here) ------------------------------
     # Every main-path call of the kernel wrapper is kept with its inputs and
@@ -1035,13 +1089,13 @@ def main() -> int:
 
     # --- 6. kernels line ----------------------------------------------------
     print(json.dumps({"kernels": [{
-        "name": ops.NAME, "route": "cuda",
+        "name": ops.NAME, "route": "cuda", "variant": "simt",
         "source": "src/repro_torch/kernels/epoch_step/csrc/epoch_step.cu",
         "replaces": "src/repro/kernels/epoch_step/kernel.py:48",
         "launches": stats["epoch_step_launches"],
         "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}, {
-        "name": nops.NAME, "route": "cuda",
+        "name": nops.NAME, "route": "cuda", "variant": "simt",
         "source": "src/repro_torch/kernels/noc_step/csrc/noc_step.cu",
         "replaces": "src/repro/kernels/noc_step/kernel.py:32",
         "launches": noc_launches, "max_abs_err": noc_err, "ms": noc_dse_ms,

@@ -13,7 +13,9 @@ the reference's `preferred_element_type=jnp.float32` arithmetic does.
 
 Kernels are CUDA C++ sources under `repro_torch/kernels/<name>/csrc/`, built
 at first use by `nvcc` into `build/kernels/` at the repository root (keyed by
-a hash of the source and the flags) and loaded with `ctypes`.
+a hash of every file the source can include: its own `csrc/` directory and
+each `-I` directory of its flags, such as the shared `kernels/hopper/`) and
+loaded with `ctypes`.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -41,11 +43,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # The same without --fmad=false, for kernels whose floats feed no discrete
 # decision (flash_attention, ssd_scan): nvcc may contract a*b+c into FMAs.
 NVCC_FLAGS_FMA = tuple(f for f in NVCC_FLAGS if f != "--fmad=false")
+# Headers shared by the tensor-core kernels (wgmma, cp.async, TMA and
+# mbarrier helpers): a kernel that includes them adds `-I` HOPPER_INCLUDE to
+# its flags.
+HOPPER_INCLUDE = Path(__file__).resolve().parent / "kernels" / "hopper"
+SOURCE_SUFFIXES = (".cu", ".cuh", ".h", ".hpp")
 
 # Per-kernel counters. A wrapper bumps `launches[name]` exactly where it
-# launches its kernel; `builds[name]` counts nvcc runs (a cached library
-# loads without one); `loop_runs` counts runs of the plain interval loop.
-COUNTERS: Dict[str, object] = {"launches": {}, "builds": {}, "loop_runs": 0}
+# launches its kernel, and `variants["name:variant"]` beside it when the op
+# has more than one kernel (for example `flash_attention:wgmma`);
+# `builds[name]` counts nvcc runs (a cached library loads without one);
+# `loop_runs` counts runs of the plain interval loop.
+COUNTERS: Dict[str, object] = {"launches": {}, "variants": {}, "builds": {},
+                               "loop_runs": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _BUILD_LOGS: Dict[str, str] = {}
@@ -68,17 +78,29 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, variant: Optional[str] = None) -> None:
     launches = COUNTERS["launches"]
     launches[name] = launches.get(name, 0) + 1
+    if variant is not None:
+        key = f"{name}:{variant}"
+        variants = COUNTERS["variants"]
+        variants[key] = variants.get(key, 0) + 1
 
 
 def count_loop_run() -> None:
     COUNTERS["loop_runs"] += 1
 
 
+def contiguous_aligned(x: torch.Tensor) -> torch.Tensor:
+    """`x` contiguous with a 16-byte aligned start, as cp.async and TMA
+    copies need: a view that starts mid-allocation is copied once."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def reset_counters() -> None:
     COUNTERS["launches"] = {}
+    COUNTERS["variants"] = {}
     COUNTERS["builds"] = {}
     COUNTERS["loop_runs"] = 0
 
@@ -94,20 +116,51 @@ def _nvcc() -> str:
                        "are built from source at first use")
 
 
+def _include_dirs(flags: Tuple[str, ...]) -> List[Path]:
+    dirs = []
+    for i, f in enumerate(flags):
+        if f == "-I" and i + 1 < len(flags):
+            dirs.append(Path(flags[i + 1]))
+        elif f.startswith("-I") and len(f) > 2:
+            dirs.append(Path(f[2:]))
+    return dirs
+
+
+def build_key(source: Path, flags: Tuple[str, ...]) -> str:
+    """The build cache key of a kernel: a hash of the flags and of every
+    source file the kernel can include, that is every `.cu`, `.cuh`, `.h`
+    and `.hpp` under the source's own directory and under each `-I`
+    directory of the flags (a header edited anywhere there rebuilds)."""
+    h = hashlib.sha256("\0".join(flags).encode())
+    for root in [Path(source).resolve().parent] + _include_dirs(flags):
+        for f in sorted(p for p in root.rglob("*")
+                        if p.is_file() and p.suffix in SOURCE_SUFFIXES):
+            h.update(f"\0{f.relative_to(root)}\0".encode())
+            h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def nvcc_command(nvcc: str, source: Path, flags: Tuple[str, ...],
+                 out: str) -> List[str]:
+    """The nvcc command line: link flags (`-l...`, `-L...`) go after the
+    source, where the linker looks for what it leaves undefined."""
+    link = [f for f in flags if f.startswith(("-l", "-L"))]
+    compile_flags = [f for f in flags if f not in link]
+    return [nvcc, *compile_flags, "-o", out, str(source), *link]
+
+
 def build_library(name: str, source: Path,
                   flags: Tuple[str, ...] = NVCC_FLAGS) -> ctypes.CDLL:
-    """Build (once per source+flags hash) and load a kernel's shared library.
+    """Build (once per `build_key`) and load a kernel's shared library.
 
-    The library lands in `build/kernels/<name>-<hash>.so` with the nvcc
+    The library lands in `build/kernels/<name>-<key>.so` with the nvcc
     `-Xptxas -v` report beside it (`build_log(name)` returns it). The write
     is atomic (temporary file + rename), so concurrent first uses from
     several processes at worst build twice.
     """
     if name in _LIBS:
         return _LIBS[name]
-    src = Path(source).read_bytes()
-    key = hashlib.sha256(src + "\0".join(flags).encode()
-                         ).hexdigest()[:16]
+    key = build_key(source, flags)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = BUILD_DIR / f"{name}-{key}.so"
     log_path = BUILD_DIR / f"{name}-{key}.log"
@@ -115,8 +168,7 @@ def build_library(name: str, source: Path,
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         try:
-            proc = subprocess.run([_nvcc(), *flags, "-o", tmp,
-                                   str(source)],
+            proc = subprocess.run(nvcc_command(_nvcc(), source, flags, tmp),
                                   capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed to build {name}:\n"

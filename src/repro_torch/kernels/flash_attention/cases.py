@@ -5,8 +5,11 @@ version, built in one place for every caller.
 (`tests/test_torch_cuda.py`) too, and the CPU tests at a small size through
 the plain version. Inputs are drawn from a seeded `torch.Generator` on the
 device, in float32, then cast. The cases cover float32 and bfloat16,
-causal and not, head dims 16 / 64 / 112 / 128, S of 1, 127, 1024 and 2048,
-and B x H from 1 to 128 (the first case is zamba2-7b's prefill shape).
+causal and not, head dims 16 / 64 / 112 / 128, S of 1, 127, 1024, 2048 and
+2049 (a causal bf16 S one past a multiple of the 64-row query tile), and
+B x H from 1 to 128 (the first case is zamba2-7b's prefill shape). The
+bfloat16 cases run the tensor-core kernel, the float32 ones the SIMT kernel
+(`ops.variant`).
 """
 from __future__ import annotations
 
@@ -28,12 +31,13 @@ SPECS = {
     "bf16-full-d112-S1024-BH8": (2, 1024, 4, 112, "bf16", False),
     "f32-causal-d64-S2048-BH4": (2, 2048, 2, 64, "f32", True),
     "bf16-causal-d128-S127-BH1": (1, 127, 1, 128, "bf16", True),
+    "bf16-causal-d112-S2049-BH2": (1, 2049, 2, 112, "bf16", True),
 }
 NAMES = tuple(SPECS)
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 # The reference's own bounds for this kernel (tests/test_kernels.py).
 TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
-SMALL_S = {1: 1, 127: 33, 1024: 64, 2048: 96}
+SMALL_S = {1: 1, 127: 33, 1024: 64, 2048: 96, 2049: 97}
 
 
 class Case(NamedTuple):

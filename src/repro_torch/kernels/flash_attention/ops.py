@@ -2,18 +2,23 @@
 
 `flash_attention(q, k, v, causal=...)` stands in for the reference's
 `repro.kernels.flash_attention.ops.flash_attention` and for the model's
-`_flash_attend` on the prefill path. Given CUDA tensors it launches
-`csrc/flash_attention.cu` once, with no padding copies (the kernel masks the
-ragged S edge and takes any head dim up to 128 unpadded; the scale is
-1/sqrt(d)); given CPU tensors it runs the plain version
-(`ref.reference_attention`). There is no fallback: what the kernel does not
-run raises.
+`_flash_attend` on the prefill path. Given CUDA tensors it launches one
+kernel of `csrc/flash_attention.cu` once, with no padding copies (the
+kernels mask the ragged S edge and take head dims up to 128 unpadded; the
+scale is 1/sqrt(d)); given CPU tensors it runs the plain version
+(`ref.reference_attention`). `variant(dtype, d)` picks the kernel from the
+dtype and head dim alone: "wgmma" (the tensor-core kernel) for bfloat16
+with d a multiple of 16, "simt" for the rest. Each launch counts under the
+op's name and under `flash_attention:<variant>`
+(`backend.COUNTERS["variants"]`). There is no fallback: what no kernel
+runs raises, and a kernel that fails to build or launch raises.
 """
 from __future__ import annotations
 
 import ctypes
 import math
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -22,7 +27,7 @@ from repro_torch.kernels.flash_attention.ref import reference_attention
 
 NAME = "flash_attention"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-FLAGS = backend.NVCC_FLAGS_FMA
+FLAGS = backend.NVCC_FLAGS_FMA + ("-I", str(backend.HOPPER_INCLUDE))
 MAX_HEAD_DIM = 128
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -37,7 +42,24 @@ def build() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = [_P] * 4 + [_I] * 6 + [ctypes.c_float, _I, _P]
         fn.restype = _I
+        fn = lib.flash_attention_wgmma_launch
+        fn.argtypes = [_P] * 4 + [_I] * 5 + [ctypes.c_float, _I, _P]
+        fn.restype = _I
     return lib
+
+
+def variant(dtype: torch.dtype, d: int) -> str:
+    """The kernel that runs q, k, v of `dtype` with head dim `d`: "wgmma"
+    for bfloat16 with d a multiple of 16 (the tensor-core kernel), "simt"
+    for float32 and other bfloat16 head dims. Raises for what no kernel
+    takes."""
+    if dtype not in DTYPES:
+        raise TypeError(f"flash_attention kernel takes float32 or bfloat16 "
+                        f"q, k, v of one dtype, got {dtype}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention kernel takes head dims up to "
+                         f"{MAX_HEAD_DIM}, got {d}")
+    return "wgmma" if dtype == torch.bfloat16 and d % 16 == 0 else "simt"
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -71,33 +93,44 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-           causal: bool = True) -> torch.Tensor:
+           causal: bool = True, kernel: Optional[str] = None
+           ) -> torch.Tensor:
     """One kernel launch on CUDA tensors (checked, made contiguous), on the
-    current stream; never synchronizes."""
+    current stream; never synchronizes. `kernel` names the variant to run
+    (default: `variant(q.dtype, d)`); the SIMT kernel takes every shape, so
+    a caller may time it on the inputs of the tensor-core one."""
     _check(q, k, v)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention kernel needs CUDA tensors, got "
                            f"{q.device}")
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16 "
                         f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
     b, s_q, h, d = q.shape
     s_kv = k.shape[1]
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention kernel takes head dims up to "
-                         f"{MAX_HEAD_DIM}, got {d}")
+    chosen = variant(q.dtype, d)
+    kernel = chosen if kernel is None else kernel
+    if kernel not in (chosen, "simt"):
+        raise ValueError(f"flash_attention: the {kernel} kernel does not "
+                         f"take {q.dtype} with head dim {d}")
     lib = build()
-    q, k, v = (x.contiguous() for x in (q, k, v))
+    q, k, v = (backend.contiguous_aligned(x) for x in (q, k, v))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s_q,
-        s_kv, h, d, DTYPES[q.dtype], 1.0 / math.sqrt(d), int(causal),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    scale = 1.0 / math.sqrt(d)
+    if kernel == "wgmma":
+        err = lib.flash_attention_wgmma_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+            s_q, s_kv, h, d, scale, int(causal), stream)
+    else:
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+            s_q, s_kv, h, d, DTYPES[q.dtype], scale, int(causal), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
-    backend.count_launch(NAME)
+        raise RuntimeError(f"flash_attention {kernel} kernel launch failed: "
+                           f"CUDA error {err}")
+    backend.count_launch(NAME, kernel)
     return out

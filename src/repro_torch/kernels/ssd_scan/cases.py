@@ -7,7 +7,11 @@ the plain version. Inputs are drawn from a seeded `torch.Generator` on the
 device. The cases cover d_state N of 16, 64 and 128, one and two groups,
 float32 and bfloat16 inputs, chunk-ragged sequence lengths (padded by the
 model's `ssd_chunked`) and nonzero initial states; two of them have the
-head counts and widths of zamba2-7b and mamba2-130m.
+head counts and widths of zamba2-7b and mamba2-130m. The bfloat16 cases with
+chunks of 64 or 128, P = 64 and N of 32-128 run the tensor-core kernel
+(`ops.variant`), among them a head count per group (10) that is not a
+multiple of its 8-head tiles and a chunk of 64; the rest run the SIMT
+kernel.
 
 A case is run through `models.ssm.ssd_chunked` (the kernel op on CUDA
 tensors, or the plain intra-chunk version with `plain=True`) and, on its
@@ -32,6 +36,9 @@ SPECS = {
     "N128-G2-f32-init": (1, 256, 4, 32, 2, 128, 64, "f32", True),
     "N16-G2-bf16-ragged-init": (3, 77, 6, 16, 2, 16, 32, "bf16", True),
     "P128-N128-Q64-f32": (1, 128, 2, 128, 1, 128, 64, "f32", False),
+    "H20-G2-N32-bf16-ragged-init": (2, 300, 20, 64, 2, 32, 128, "bf16",
+                                    True),
+    "Q64-N128-bf16": (2, 256, 6, 64, 1, 128, 64, "bf16", False),
 }
 NAMES = tuple(SPECS)
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}

@@ -22,9 +22,12 @@ single runs, and the wrapper's refusals. For `flash_attention` and
 `ssd_scan`: the shared cases of `kernels/flash_attention/cases.py` and
 `kernels/ssd_scan/cases.py` (chip_smoke.py's phase 2) at the reference's
 bounds (flash 2e-5 in float32, 3e-2 in bfloat16; SSD float32 outputs 1e-4,
-2e-4 at chunk 128), the wrappers' refusals, and the two smoke models
-served on the card against the same models on the CPU. This file imports
-no JAX.
+2e-4 at chunk 128), each launch counted once under the kernel variant that
+`ops.variant` picks (the tensor-core kernel for the bf16 cases it takes,
+among them a causal S of 2049, 10 heads a group and a chunk of 64; the
+SIMT kernel for the rest); the SIMT kernel forced on the tensor-core
+kernel's inputs; the wrappers' refusals, and the two smoke models served on
+the card against the same models on the CPU. This file imports no JAX.
 """
 import numpy as np
 import pytest
@@ -234,6 +237,8 @@ def test_flash_kernel_matches_plain(case, cuda_device):
     got = flash_ops.flash_attention(*c.args, causal=c.causal)
     torch.cuda.synchronize()
     assert backend.COUNTERS["launches"] == {"flash_attention": 1}
+    kernel = flash_ops.variant(c.args[0].dtype, c.args[0].shape[3])
+    assert backend.COUNTERS["variants"] == {f"flash_attention:{kernel}": 1}
     want = flash_cases.plain(c)
     assert got.dtype == want.dtype == c.args[0].dtype
     torch.testing.assert_close(got.float(), want.float(), rtol=c.tol,
@@ -249,6 +254,9 @@ def test_ssd_kernel_matches_plain(case, cuda_device):
     y, state = ssd_cases.run_chunked(c)
     torch.cuda.synchronize()
     assert backend.COUNTERS["launches"] == {"ssd_scan": 1}
+    x, _, _, bb, _ = c.args
+    kernel = ssd_ops.variant(x.dtype, c.chunk, x.shape[3], bb.shape[3])
+    assert backend.COUNTERS["variants"] == {f"ssd_scan:{kernel}": 1}
     want_y, want_state = ssd_cases.run_chunked(c, plain=True)
     assert y.dtype == c.args[0].dtype and y.shape == c.args[0].shape
     torch.testing.assert_close(y.float(), want_y.float(), rtol=c.y_tol,
@@ -259,6 +267,60 @@ def test_ssd_kernel_matches_plain(case, cuda_device):
                     reference_intra_chunk(*inputs)):
         assert a.dtype == torch.float32
         torch.testing.assert_close(a, b, rtol=c.tol, atol=c.tol)
+
+
+@pytest.mark.parametrize("op", ["flash", "ssd"])
+def test_simt_kernel_runs_the_tensor_core_kernels_inputs(op, cuda_device):
+    """`launch(kernel="simt")` (what chip_smoke.py times beside the
+    tensor-core kernel) matches the plain version on a bf16 case the
+    wrapper sends to the tensor cores; an unknown kernel name raises."""
+    from repro_torch import backend
+
+    backend.reset_counters()
+    if op == "flash":
+        c = flash_cases.kernel_cases(
+            cuda_device, names=["bf16-causal-d112-S2049-BH2"])[0]
+        got = flash_ops.launch(*c.args, causal=c.causal, kernel="simt")
+        torch.testing.assert_close(got.float(), flash_cases.plain(c).float(),
+                                   rtol=c.tol, atol=c.tol)
+        with pytest.raises(ValueError, match="does not take"):
+            flash_ops.launch(*c.args, kernel="mma")
+        assert backend.COUNTERS["variants"] == {"flash_attention:simt": 1}
+        return
+    c = ssd_cases.kernel_cases(cuda_device,
+                               names=["H20-G2-N32-bf16-ragged-init"])[0]
+    inputs = ssd_cases.chunked_inputs(c)
+    for a, b in zip(ssd_ops.launch(*inputs, kernel="simt"),
+                    reference_intra_chunk(*inputs)):
+        torch.testing.assert_close(a, b, rtol=c.tol, atol=c.tol)
+    with pytest.raises(ValueError, match="does not take"):
+        ssd_ops.launch(*inputs, kernel="mma")
+    assert backend.COUNTERS["variants"] == {"ssd_scan:simt": 1}
+
+
+def test_ssd_tensor_core_kernel_reads_projection_slices(cuda_device):
+    """x, B and C cut from one projection row, as the model's Mamba2 block
+    cuts them (tokens a projection row apart): the tensor-core kernel reads
+    them in place and matches the plain version."""
+    from repro_torch import backend
+
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    bsz, nc, q, h, p, g, n = 2, 3, 128, 10, 64, 1, 64
+    proj = (torch.randn((bsz, nc * q, h * p + 2 * g * n + 24),
+                        generator=gen, device=cuda_device) * 0.5
+            ).to(torch.bfloat16)
+    xs, bs, cs, _ = torch.split(proj, [h * p, g * n, g * n, 24], dim=-1)
+    x = xs.reshape(bsz, nc, q, h, p)
+    bb, cc = (t.reshape(bsz, nc, q, g, n) for t in (bs, cs))
+    dt = torch.nn.functional.softplus(
+        torch.randn((bsz, nc, q, h), generator=gen, device=cuda_device))
+    a = -torch.exp(torch.randn((h,), generator=gen, device=cuda_device) * .3)
+    assert not x.is_contiguous() and ssd_ops._token_strided(x) is x
+    backend.reset_counters()
+    got = ssd_ops.ssd_intra_chunk(x, dt, a, bb, cc)
+    assert backend.COUNTERS["variants"] == {"ssd_scan:wgmma": 1}
+    for u, w in zip(got, reference_intra_chunk(x, dt, a, bb, cc)):
+        torch.testing.assert_close(u, w, rtol=2e-4, atol=2e-4)
 
 
 def test_llm_wrappers_reject_what_the_kernels_do_not_run(cuda_device):
