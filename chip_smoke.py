@@ -14,15 +14,20 @@ calls, and measures the kernels. Phases (one line per step; any failure
 exits non-zero):
 
   1. card and build: nvidia-smi name and power limit, build seconds and the
-     ptxas register / shared memory / spill report of each kernel;
-  2. epoch_step against plain on the card at the Table-1 widths, T = 100:
-     clean, destination matrices, a ragged t_mask batch with an all-masked
-     lane, a fault frame, and a 64-point sweep over the five kernel knobs
-     (rtol = atol = 1e-6, integer g and boolean saturation exact);
-     noc_step against plain (rtol 1e-5, atol 1e-3) on the cases of
-     `kernels/noc_step/cases.py` (the card tests run them at a smaller T):
-     Fig. 13's two topologies at 8192 cycles, a padded topology with
-     garbage in its dead lanes (exactly 0 out), a lane dying mid-run (final occupancy exactly 0), an all-ones
+     ptxas register / shared memory / spill report of each kernel, and per
+     design of the two simulator kernels (epoch_step "split" and "warp",
+     noc_step "node" and "warp"), naming any instantiation that spills;
+  2. epoch_step against plain on the card at the Table-1 widths, T = 100,
+     both designs on each case (the wrapper runs "split"; "warp" is forced
+     on the same inputs): clean, destination matrices, a ragged t_mask
+     batch with an all-masked lane, a fault frame, and a 64-point sweep
+     over the five kernel knobs (rtol = atol = 1e-6, integer g and boolean
+     saturation exact); noc_step against plain (rtol 1e-5, atol 1e-3) on
+     the cases of `kernels/noc_step/cases.py` (the card tests run them at a
+     smaller T), the "node" kernel the wrapper runs and the "warp" kernel
+     bit for bit equal on each: Fig. 13's two topologies at 8192 cycles, a
+     padded topology with garbage in its dead lanes (exactly 0 out), a
+     lane dying mid-run (final occupancy exactly 0), an all-ones
      valid_mask_t (bitwise the static run), a ragged t_mask, hex_config(2),
      and a batch of mixed-T runs (bitwise the runs one by one);
      flash_attention and ssd_scan against plain on the cases of
@@ -40,9 +45,21 @@ exits non-zero):
      destination matrices x a 64 x 64 (l_m x buffer_sat) grid at T = 100
      (32 768 lanes), and one `noc_run` over 512 flit-level runs (mesh radix
      {4, 8} x g {1..4} x W {2, 16} x 32 loads, padded to 68 nodes, 8192
-     cycles); then every kernel call of phases 3 and 4 is held against the
-     plain version on its own inputs, and each kernel's time, the plain
-     version's and the epoch entry point's warm host time are taken;
+     cycles); then the main path's kernel variants are read (19
+     epoch_step:split, 3 noc_step:node), every kernel call of phases 3 and
+     4 is held against the plain version on its own inputs and each
+     noc_step call against the warp kernel bit for bit; both designs of
+     each simulator kernel are timed on the same inputs, per launch shape
+     (epoch_step on one call of each of its launch shapes: the DSE, Fig.
+     10, a RESIPI and a RESIPI_ALL lane of Fig. 11 and Fig. 12, device time
+     by CUDA-graph replays and the wrapper call; noc_step on the DSE and
+     both Fig. 13 calls, in turns), each beside its bound, with the plain
+     versions' time, the epoch entry point's warm host time, its host
+     stages and its profiled device breakdown, and a per-cycle probe of
+     noc_step: nodes a thread, traffic load, and two A/B builds of its
+     source (NOC_AB: the node kernel without, the warp kernel with the
+     zero-numerator guard on its division, built beside the kernels in
+     phase 1 and held bitwise to them);
   5. LLM serving, the second main path, through `get_model(cfg)`,
      `prefill` and `decode_step`: (a) zamba2-7b at full width and depth
      (81 layers, 6.75 B parameters drawn on the card from a seeded
@@ -63,7 +80,10 @@ exits non-zero):
      decode tokens/s and peak memory, and (information only) zamba2's
      decode-vs-prefill consistency;
   6. a `kernels` JSON line (launches on the main paths, error against
-     plain, times, the bound and the kernel variant) for all four kernels.
+     plain, times, the bound and the kernel variant that ran) for all four
+     kernels; the simulator kernels' entries add the first design's time
+     in the same run (`warp_ms`) and the times per launch shape
+     (`shapes`).
 
 Phases 3 and 4 are the first main path: the launch counters are zeroed
 before phase 3 and read after the last DSE, before any check or timing.
@@ -75,6 +95,7 @@ no result.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import re
 from concurrent.futures import ThreadPoolExecutor
@@ -113,6 +134,15 @@ NOC_RTOL, NOC_ATOL = 1e-5, 1e-3
 # min, sub (5); t_mask freeze of occ, residency and drained (8).
 OPS_PER_NODE_CYCLE = 26
 NOC_CYCLES = 8192
+# A/B builds of noc_step.cu for the per-cycle breakdown: the node kernel
+# without its zero-numerator guard on space / want, the warp kernel with
+# it; each is the checked-out source with one expression replaced (both
+# stay bitwise equal to the kernels as built).
+NOC_AB = {
+    "node-unguarded": ("fminf(1.f, fdiv_guarded(space, fmaxf(want, 1e-9f)))",
+                       "fminf(1.f, space / fmaxf(want, 1e-9f))"),
+    "warp-guarded": ("fminf(1.f, space / fmaxf(want, 1e-9f))",
+                     "fminf(1.f, fdiv_guarded(space, fmaxf(want, 1e-9f)))")}
 DSE_RADIX, DSE_G, DSE_W = (4, 8), (1, 2, 3, 4), (2, 16)
 DSE_LOADS = np.linspace(0.02, 0.64, 32)
 DSE_PAD = 8 * 8 + 4                           # mesh radix 8 plus 4 sinks
@@ -156,6 +186,50 @@ def time_cuda(fn, reps: int) -> list:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return times
+
+
+def time_graph(fn, reps: int = 5) -> float:
+    """Median device milliseconds of `fn`'s launches alone: `fn` captured
+    once into a CUDA graph (after a warm-up call), the graph replayed
+    `reps` times between CUDA events. Unlike `time_cuda` around the call,
+    no host work of the wrapper (argument checks, allocations) sits between
+    the events, so a launch shorter than its wrapper's host time is timed
+    as the device runs it."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    return float(np.median(time_cuda(graph.replay, reps)))
+
+
+def ptxas_entries(log: str) -> list:
+    """(entry function, registers, spill bytes stored + loaded) for each
+    kernel of a `ptxas -v` report."""
+    out = []
+    for part in log.split("Compiling entry function")[1:]:
+        name = part.split("'")[1]
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", part)
+        out.append((name, int(regs.group(1)) if regs else -1,
+                    int(spill.group(1)) + int(spill.group(2)) if spill
+                    else 0))
+    return out
+
+
+def template_args(mangled: str) -> str:
+    """The integer and bool template arguments of a mangled kernel name,
+    in order ("4,1,0,1" for <4, true, false, true>)."""
+    m = re.search(r"_kernelI(.*?)EEv", mangled)
+    return ",".join(re.findall(r"L[ib](\d+)E", m.group(1) + "E")) if m \
+        else "?"
 
 
 def compare(got, want, what: str) -> float:
@@ -252,6 +326,119 @@ def noc_compare(got, want, what: str) -> float:
     return worst
 
 
+def noc_bitwise(node, warp, what: str) -> None:
+    """The node kernel's (residency, occupancy, drained) must be the warp
+    kernel's bit for bit: the same products summed in the same order."""
+    for name, a, b in zip(("residency", "occupancy", "drained"), node, warp):
+        if not torch.equal(a, b):
+            fail(f"{what}: node kernel {name} differs from the warp kernel "
+                 f"(max abs {float((a - b).abs().max()):.3g}; must be 0)")
+
+
+def sweep_host_stages(sim_mod, ops, traces, sim, dev, grid) -> dict:
+    """Information: host-clock milliseconds of the stages of one warm
+    `sweep_batch` call, as `simulator._run` runs them, each stage ended by
+    a synchronize (median of 3): stacking the traces, `epoch_inputs`, the
+    kernel wrapper's launch, `_reassemble`, the summaries."""
+    names = ("stack_traces", "epoch_inputs", "launch", "_reassemble",
+             "summaries")
+    stages = {k: [] for k in names}
+    for _ in range(3):
+        marks = [time.perf_counter()]
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        batch = sim_mod.stack_traces(list(traces), pad=True)
+        mark()
+        state0, xs, tables, kw = sim_mod.epoch_inputs(
+            batch, sim, device=dev, faults=False, **grid)
+        mark()
+        out = ops.launch(state0.ctl.g, xs, sim, tables, **kw)
+        mark()
+        _, recs = ops._reassemble(state0, out, xs, sim, kw["faulted"])
+        mark()
+        sim_mod._summary_from_sums(sim_mod._record_sums(
+            recs, xs[4][kw["lane_trace"]]), sim.cfg.n_chiplets)
+        mark()
+        for name, a, b in zip(names, marks, marks[1:]):
+            stages[name].append((b - a) * 1e3)
+    return {k: float(np.median(v)) for k, v in stages.items()}
+
+
+def build_noc_ab(backend, nops, name: str):
+    """Build the NOC_AB variant `name` of noc_step.cu into build/ab/<name>
+    and return its library (bind it with `nops.build()`'s argtypes)."""
+    src = nops.SOURCE.read_text()
+    old, new = NOC_AB[name]
+    if src.count(old) != 1:
+        fail(f"noc_step.cu holds {src.count(old)} copies of the A/B "
+             f"expression {old!r}, expected 1")
+    where = backend.BUILD_DIR.parent / "ab" / name
+    where.mkdir(parents=True, exist_ok=True)
+    (where / "noc_step.cu").write_text(src.replace(old, new))
+    return backend.build_library(f"noc_step-{name}", where / "noc_step.cu")
+
+
+def noc_cycle_probe(nops, prep: dict, runs: list, ab_libs: dict,
+                    card: str) -> None:
+    """Information: what one simulated cycle costs each noc_step design,
+    from slices of the DSE's prepared inputs (CUDA events, median of 5),
+    with the A/B builds beside (NOC_AB: node without, warp with the
+    zero-numerator guard; each held bitwise to its kernel). (a) The DSE's
+    256 radix-4 runs (at most 20 live nodes) at the DSE's 68-node width
+    and cut to 20 nodes: the warp kernel then runs 3 and 1 nodes a thread
+    on the same live work; the node kernel is the same either way. (b) One
+    radix-8 run (g 4, W 16) at the lowest and at the highest DSE load: how
+    the cost of a cycle depends on the traffic. (c) The whole DSE."""
+    def sub(idx, width):
+        out = {"link_rate": prep["link_rate"], "mask_t": None,
+               "t_mask": prep["t_mask"][idx].contiguous(),
+               "r_active": prep["r_active"][idx].contiguous(),
+               "in_src": prep["in_src"][idx][:, :width].contiguous()}
+        for k in ("arrivals", "mask", "next_hop", "drain", "buf"):
+            out[k] = prep[k][idx][..., :width].contiguous()
+        return out
+
+    dev = prep["arrivals"].device
+    radix4 = torch.tensor([i for i, x in enumerate(runs) if x[0] == 4],
+                          device=dev)
+    lo, hi = (runs.index((8, 4, 16, load))
+              for load in (DSE_LOADS[0], DSE_LOADS[-1]))
+    probes = {"256 radix-4 runs at 68 nodes": sub(radix4, DSE_PAD),
+              "256 radix-4 runs cut to 20 nodes": sub(radix4, 20),
+              f"1 radix-8 run at {DSE_LOADS[0]:.2f} pkts/cycle":
+                  sub(torch.tensor([lo], device=dev), DSE_PAD),
+              f"1 radix-8 run at {DSE_LOADS[-1]:.2f} pkts/cycle":
+                  sub(torch.tensor([hi], device=dev), DSE_PAD),
+              f"the DSE ({len(runs)} runs)": prep}
+    kernel_build = nops.build
+    designs = (("node", "node", kernel_build()),
+               ("warp", "warp", kernel_build()),
+               ("node-unguarded", "node", ab_libs["node-unguarded"]),
+               ("warp-guarded", "warp", ab_libs["warp-guarded"]))
+    for label, p in probes.items():
+        cyc = p["arrivals"].shape[1]
+        got, outs = {}, {}
+        for name, kern, lib in designs:
+            nops.build = lambda: lib                 # noqa: B023
+            try:
+                run = lambda: nops.run_prepared(p, kernel=kern)  # noqa
+                outs[name] = run()
+                time_cuda(run, 2)
+                got[name] = float(np.median(time_cuda(run, 5)))
+            finally:
+                nops.build = kernel_build
+        noc_bitwise(outs["node-unguarded"], outs["node"], label + " (A/B)")
+        noc_bitwise(outs["warp-guarded"], outs["warp"], label + " (A/B)")
+        say("4", f"noc_step cycle probe, {label}: " + ", ".join(
+            f"{name} {got[name]:.4f} ms ({got[name] * 1e6 / cyc:.1f} ns a "
+            f"cycle)" for name, _, _ in designs)
+            + f"; warp runs {-(-p['arrivals'].shape[2] // 32)} node(s) a "
+              f"thread; card: {card}")
+
+
 def flash_work(b, s, h, d, in_bytes, causal=True) -> tuple:
     """(bytes read once + written once, flops) of one attention call:
     q, k, v read and o written in the inputs' type; two products of
@@ -277,11 +464,12 @@ def ssd_work(b, nc, q, h, p, g, n, in_bytes) -> tuple:
     return nbytes, ops
 
 
-def device_breakdown(fn, label: str, top: int = 6) -> None:
+def device_breakdown(fn, label: str, top: int = 6, phase: str = "5"):
     """Information: one call of `fn` under torch.profiler; prints its host
     wall time, the summed device time of its kernels, the device's busy
     share (kernels run one at a time on one stream) and the kernels that
-    take the most device time."""
+    take the most device time. Returns (wall seconds, {kernel: device
+    microseconds}), or None when the profiler recorded no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -302,20 +490,21 @@ def device_breakdown(fn, label: str, top: int = 6) -> None:
                 us = e.self_cuda_time_total
             kernels[e.key] = kernels.get(e.key, 0.0) + us
     except Exception as e:                   # information only
-        say("5", f"{label}: device breakdown not measured ({e!r})")
-        return
+        say(phase, f"{label}: device breakdown not measured ({e!r})")
+        return None
     busy = sum(kernels.values()) / 1e6
     if busy <= 0:
-        say("5", f"{label}: device breakdown not measured (the profiler "
-                 f"recorded no device time)")
-        return
+        say(phase, f"{label}: device breakdown not measured (the profiler "
+                   f"recorded no device time)")
+        return None
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
-    say("5", f"{label}: wall {wall * 1e3:.2f} ms, kernels {busy * 1e3:.2f} "
+    say(phase, f"{label}: wall {wall * 1e3:.2f} ms, kernels {busy * 1e3:.2f} "
              f"ms on the device (busy {busy / wall:.1%}, idle "
              f"{1 - busy / wall:.1%}; profiled, so slower than untraced); "
-             f"top: " + "; ".join(f"{k[:48]} {v / 1e3:.2f} ms "
+             f"top: " + "; ".join(f"{k[:48]} {v / 1e3:.3f} ms "
                                   f"({v / 1e6 / busy:.1%})"
                                   for k, v in ranked))
+    return wall, kernels
 
 
 def launched_variants(before: dict, after: dict) -> str:
@@ -674,10 +863,17 @@ def main() -> int:
              f"{torch.version.cuda}")
     t0 = time.perf_counter()
     kernels = (ops, nops, fops, sops)
-    with ThreadPoolExecutor(len(kernels)) as pool:   # one nvcc per source
+    with ThreadPoolExecutor(len(kernels) + len(NOC_AB)) as pool:
+        # one nvcc per source, the A/B variants of noc_step.cu among them
+        ab = {name: pool.submit(build_noc_ab, backend, nops, name)
+              for name in NOC_AB}
         for f in [pool.submit(m.build) for m in kernels]:
             f.result()
+        noc_ab_libs = {name: f.result() for name, f in ab.items()}
     build_s = time.perf_counter() - t0
+    for lib in noc_ab_libs.values():
+        lib.noc_step_launch.argtypes = nops.build().noc_step_launch.argtypes
+        lib.noc_step_launch.restype = ctypes.c_int
     for m in kernels:
         log = backend.build_log(m.NAME) or ""
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
@@ -690,8 +886,27 @@ def main() -> int:
                  f"registers {min(regs)}-{max(regs)}, static shared memory "
                  f"max {max(smem or [0])} bytes, spill bytes max "
                  f"{max(spills or [0])}")
-    say("1", f"all {len(kernels)} kernels built in {build_s:.2f} s, in "
-             f"parallel (builds this run: {backend.COUNTERS['builds']})")
+    say("1", f"all {len(kernels)} kernels (and {len(NOC_AB)} A/B builds of "
+             f"noc_step.cu) built in {build_s:.2f} s, in parallel (builds "
+             f"this run: {backend.COUNTERS['builds']})")
+    for m, designs in ((ops, (("split", "epoch_recurrence_kernel"),
+                              ("split", "epoch_metrics_kernel"),
+                              ("warp", "epoch_step_kernel"))),
+                       (nops, (("node", "noc_node_kernel"),
+                               ("warp", "noc_step_kernel")))):
+        entries = ptxas_entries(backend.build_log(m.NAME) or "")
+        for design, kname in designs:
+            got = [(template_args(e), r, sp) for e, r, sp in entries
+                   if kname in e]
+            if not got:
+                fail(f"no ptxas report for {m.NAME}'s {kname}")
+            spilled = [f"<{a}> {sp} bytes" for a, _, sp in got if sp]
+            say("1", f"{m.NAME} {design}: {kname} x{len(got)} "
+                     f"instantiations, registers {min(r for _, r, _ in got)}-"
+                     f"{max(r for _, r, _ in got)}, spill bytes max "
+                     f"{max(sp for _, _, sp in got)}"
+                     + (f" (spilling: {', '.join(spilled)})" if spilled
+                        else ""))
     smem = sops.build().ssd_scan_smem_bytes
     for kern, code in (("simt", 0), ("wgmma", 1)):
         for n in (64, 128):
@@ -738,14 +953,27 @@ def main() -> int:
         sim = SimConfig().with_arch(arch)
         state0, xs, tables, kw = epoch_inputs(traces, sim, device=dev,
                                               **grid)
+        before = dict(backend.COUNTERS["variants"])
         got_state, got = ops.epoch_run(state0, xs, sim, tables, **kw)
         torch.cuda.synchronize()
+        ran = launched_variants(before, backend.COUNTERS["variants"])
+        if ran != "split":
+            fail(f"epoch_step {name}: the {ran} kernel ran, not split")
         want_state, want = epoch_run_reference(state0, xs, sim, tables,
                                                **kw)
         torch.cuda.synchronize()
         err = compare(got, want, name)
         err = max(err, compare(state_fields(got_state),
                                state_fields(want_state), name + " state"))
+        # The first design ("warp") on the same inputs, held alike.
+        warp_state, warp = ops._reassemble(
+            state0, ops.launch(state0.ctl.g, xs, sim, tables, kernel="warp",
+                               **kw), xs, sim, kw["faulted"])
+        torch.cuda.synchronize()
+        warp_err = max(compare(warp, want, name + " (warp kernel)"),
+                       compare(state_fields(warp_state),
+                               state_fields(want_state),
+                               name + " state (warp kernel)"))
         if name.startswith("ragged"):
             # The all-masked lane returns its input carry untouched.
             lane = state_fields(got_state)
@@ -754,13 +982,17 @@ def main() -> int:
                     fail(f"all-masked lane changed its carry ({k})")
         max_err = max(max_err, err)
         say("2", f"{name}: {int(kw['lane_trace'].shape[0])} lanes x "
-                 f"{xs[0].shape[1]} intervals, kernel == plain "
-                 f"(max abs err {err:.3g})")
+                 f"{xs[0].shape[1]} intervals, {ran} kernel == plain "
+                 f"(max abs err {err:.3g}; warp kernel {warp_err:.3g})")
 
     noc_err = 0.0
     for case in noc_cases.kernel_cases(dev, 2048, fig13_cycles=NOC_CYCLES):
+        before = dict(backend.COUNTERS["variants"])
         got = nops.noc_run(*case.args, **case.kwargs)
         torch.cuda.synchronize()
+        ran = launched_variants(before, backend.COUNTERS["variants"])
+        if ran != "node":
+            fail(f"noc_step {case.name}: the {ran} kernel ran, not node")
         want = reference_noc_run(*case.args, **case.kwargs)
         err = noc_compare(got, want, f"noc_step {case.name}")
         try:
@@ -768,8 +1000,15 @@ def main() -> int:
         except AssertionError as e:
             fail(str(e))
         noc_err = max(noc_err, err)
+        batched = case.args[0].dim() == 3
+        warp = nops.run_prepared(nops.prepare(
+            case.args[0] if batched else case.args[0][None], *case.args[1:],
+            **case.kwargs), kernel="warp")
+        noc_bitwise(got if batched else tuple(o[None] for o in got), warp,
+                    f"noc_step {case.name}")
         say("2", f"noc_step {case.name}: {list(case.args[0].shape)} "
-                 f"arrivals, kernel == plain (max abs err {err:.3g})")
+                 f"arrivals, {ran} kernel == plain (max abs err {err:.3g}) "
+                 f"and == warp kernel bitwise")
 
     llm_err = {"flash": 0.0, "ssd": 0.0}
     for case in flash_cases.kernel_cases(dev):
@@ -943,6 +1182,7 @@ def main() -> int:
     noc_dse_s = time.perf_counter() - t0
     noc_mib = torch.cuda.max_memory_allocated() / 2**20
     stats = sim_mod.engine_stats()           # main path ends here
+    variants = dict(backend.COUNTERS["variants"])
     ops.epoch_run = kernel_epoch_run
     nops.noc_run = kernel_noc_run
     say("4", f"engine_stats after the main path: {json.dumps(stats)}")
@@ -980,6 +1220,12 @@ def main() -> int:
     if stats["epoch_step_launches"] != expected:
         fail(f"main path launched epoch_step {stats['epoch_step_launches']} "
              f"times, expected {expected}")
+    want_variants = {f"{ops.NAME}:split": expected,
+                     f"{nops.NAME}:node": noc_launches}
+    if variants != want_variants:
+        fail(f"main path kernel variants {variants}, expected "
+             f"{want_variants}")
+    say("4", f"main path kernel variants: {json.dumps(variants)}")
     summ = dse["summary"]
     if dse["records"]["g"].shape != (len(apps), lm.size, T_INTERVALS,
                                      cfg.n_chiplets):
@@ -1006,30 +1252,64 @@ def main() -> int:
     say("4", "main-path kernel calls == plain version on their own inputs: "
              + ", ".join(f"{k} {n} call(s) max abs err {e:.3g}"
                          for k, (n, e) in checked.items()))
-    _, state0, xs, sim, tables, kw, _ = calls[-1]        # the DSE call
-    if kw["lane_trace"].shape[0] != lanes:
+    dse_call = calls[-1]
+    if dse_call[5]["lane_trace"].shape[0] != lanes:
         fail("the last main-path kernel call is not the DSE")
+    # One call of each launch shape of the main path (Fig. 11's 16 calls
+    # are 8 apps x RESIPI and RESIPI_ALL, whose split runs only the metrics
+    # launch).
+    shape_calls = {
+        "dse": dse_call,
+        "fig10": next(c for c in calls if c[0] == "fig10"),
+        "fig11-resipi": next(c for c in calls
+                             if c[0] == "fig11" and c[3].arch == Arch.RESIPI),
+        "fig11-resipi_all": next(c for c in calls if c[0] == "fig11"
+                                 and c[3].arch == Arch.RESIPI_ALL),
+        "fig12": next(c for c in calls if c[0] == "fig12")}
     del calls
 
-    # Kernel time: median of 5 launches after warm-up, CUDA events.
-    g0 = state0.ctl.g
-    run = lambda: ops.launch(g0, xs, sim, tables, **kw)  # noqa: E731
-    time_cuda(run, 2)
-    ms = float(np.median(time_cuda(run, 5)))
+    # Kernel times per launch shape, both designs on the same inputs: the
+    # device time of the launch(es) alone (CUDA-graph replays, median of 5)
+    # and the wrapper call around them (CUDA events, median of 5).
+    epoch_shapes = {}
+    for label, (_, state0, xs, csim, tables, kw, _) in shape_calls.items():
+        row = {}
+        for kern in ("split", "warp"):
+            run = lambda: ops.launch(state0.ctl.g, xs, csim, tables,  # noqa
+                                     kernel=kern, **kw)
+            row[f"{kern}_ms"] = time_graph(run)
+            time_cuda(run, 2)
+            row[f"{kern}_call_ms"] = float(np.median(time_cuda(run, 5)))
+        n_tr, t_len, c = xs[0].shape
+        n_lanes = int(kw["lane_trace"].shape[0])
+        nbytes, n_ops = epoch_work(n_tr, t_len, c,
+                                   cfg.max_gateways_per_chiplet, n_lanes,
+                                   dest=kw["dest"] is not None)
+        bound, by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                        (n_ops / F32_FLOPS_PER_S * 1e3, "operations"))
+        epoch_shapes[label] = dict(row, lanes=n_lanes, intervals=t_len,
+                                   bound_ms=bound, bound_by=by)
+        say("4", f"epoch_step {label} launch ({n_lanes} lane(s) x {t_len} "
+                 f"intervals): split {row['split_ms']:.4f} ms, warp "
+                 f"{row['warp_ms']:.4f} ms (device: CUDA-graph replays, "
+                 f"median of 5; split "
+                 f"{'faster' if row['split_ms'] < row['warp_ms'] else 'NOT faster'}"
+                 f"); wrapper call split {row['split_call_ms']:.4f} / warp "
+                 f"{row['warp_call_ms']:.4f} ms; bound {bound:.4f} ms by {by} "
+                 f"({nbytes / 1e6:.2f} MB, {n_ops / 1e9:.3f} GFLOP); card: "
+                 f"{card}")
+    _, state0, xs, sim, tables, kw, _ = dse_call
+    ms, warp_ms = epoch_shapes["dse"]["split_ms"], epoch_shapes["dse"]["warp_ms"]
+    bound_ms, bound_by = (epoch_shapes["dse"]["bound_ms"],
+                          epoch_shapes["dse"]["bound_by"])
     plain_ms = time_cuda(
         lambda: epoch_run_reference(state0, xs, sim, tables, **kw), 1)[0]
-    n_tr, t_len, c = xs[0].shape
-    nbytes, n_ops = epoch_work(n_tr, t_len, c, cfg.max_gateways_per_chiplet,
-                              lanes, dest=True)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_FLOPS_PER_S * 1e3
-    bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
-    say("4", f"epoch_step kernel: median {ms:.4f} ms over 5 runs, "
-             f"{lanes * T_INTERVALS / (ms * 1e-3):.4g} lane-intervals/s; "
-             f"plain version {plain_ms:.2f} ms once; bound {bound_ms:.4f} "
-             f"ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
-             f"{n_ops / 1e9:.2f} GFLOP); card: {card}")
-    # The same DSE through the entry point again, now warm (host clock).
+    say("4", f"epoch_step split kernel, DSE: {ms:.4f} ms, "
+             f"{lanes * T_INTERVALS / (ms * 1e-3):.4g} lane-intervals/s, "
+             f"{bound_ms / ms:.1%} of its bound; warp kernel {warp_ms:.4f} "
+             f"ms; plain version {plain_ms:.2f} ms once; card: {card}")
+    # The same DSE through the entry point again, now warm (host clock),
+    # then once under the profiler: what sets its pace besides the kernel.
     warm = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -1038,70 +1318,115 @@ def main() -> int:
         warm.append(time.perf_counter() - t0)
     say("4", f"DSE sweep_batch warm: median {np.median(warm):.4f} s of 3 "
              f"(host clock; kernel share {ms * 1e-3 / np.median(warm):.1%})")
+    stages = sweep_host_stages(sim_mod, ops, dse_traces, sim, dev, grid)
+    say("4", "DSE sweep_batch warm, host stages (each ended by a "
+             "synchronize; median of 3): " + ", ".join(
+                 f"{k} {v:.3f} ms" for k, v in stages.items()))
+    prof = device_breakdown(lambda: sweep_batch(dse_traces, sim, device=dev,
+                                                **grid),
+                            "DSE sweep_batch warm", top=8, phase="4")
+    if prof is not None:
+        wall, kern_us = prof
+        mine = sum(v for k, v in kern_us.items() if "epoch_" in k) / 1e6
+        say("4", f"DSE sweep_batch warm, profiled: the epoch_step kernels "
+                 f"{mine * 1e3:.4f} ms on the device = {mine / wall:.1%} of "
+                 f"the call's wall time; the other "
+                 f"{len(kern_us) - sum('epoch_' in k for k in kern_us)} "
+                 f"kernels {(sum(kern_us.values()) / 1e6 - mine) * 1e3:.4f} "
+                 f"ms; host-side rest {(wall - sum(kern_us.values()) / 1e6) * 1e3:.4f} ms")
 
     # Every noc_step call of the main path against the plain version on
-    # its own inputs; the DSE's plain run is also the plain time.
+    # its own inputs (the DSE's plain run is also the plain time) and
+    # against the warp kernel, bit for bit.
     if [c[0] for c in noc_calls] != ["fig13", "fig13", "noc-dse"]:
         fail(f"recorded noc_run calls {[c[0] for c in noc_calls]}, expected "
              f"fig13 x2 and noc-dse")
-    for name, args, kw, got in noc_calls:
+    noc_labels = ("fig13-prowaves", "fig13-resipi", "dse")
+    noc_preps, noc_kw = {}, {}
+    for label, (name, args, kw, got) in zip(noc_labels, noc_calls):
         want = []
         t_plain = time_cuda(
             lambda: want.append(reference_noc_run(*args, **kw)), 1)[0]
         err = noc_compare(got, want[0], f"main path {name}")
         noc_err = max(noc_err, err)
-        say("4", f"main path noc_step {name} call == plain version on its "
+        batched = args[0].dim() == 3
+        prep = nops.prepare(args[0] if batched else args[0][None], *args[1:],
+                            **kw)
+        noc_bitwise(got if batched else tuple(o[None] for o in got),
+                    nops.run_prepared(prep, kernel="warp"),
+                    f"main path {label}")
+        noc_preps[label], noc_kw[label] = prep, kw
+        say("4", f"main path noc_step {label} call == plain version on its "
                  f"own inputs (max abs err {err:.3g}; plain {t_plain:.1f} "
-                 f"ms)")
+                 f"ms) and == warp kernel bitwise")
     noc_plain_ms = t_plain                                 # the DSE call
     # Kernel times: median of 5 launches after warm-up, CUDA events, on
-    # inputs prepared once (routing, defaults) as the wrapper prepares them.
-    noc_ms = {}
-    for name, args, kw, _ in noc_calls:
-        arr = args[0] if args[0].dim() == 3 else args[0][None]
-        prep = nops.prepare(arr, *args[1:], **kw)
-        run = lambda: nops.run_prepared(prep)  # noqa: E731
-        time_cuda(run, 2)
-        noc_ms.setdefault(name, []).append(float(np.median(time_cuda(run,
-                                                                     5))))
-    nb, nt, nr = noc_arr.shape            # prep and kw are the DSE call's
-    nbytes, nops_count = noc_work(prep, kw.get("t_mask") is not None,
-                                  nops.MAX_IN_DEGREE)
+    # inputs prepared once (routing, defaults) as the wrapper prepares them,
+    # both designs in turns.
+    noc_shapes = {}
+    for label, prep in noc_preps.items():
+        row = {}
+        for kern in ("node", "warp", "node", "warp"):
+            run = lambda: nops.run_prepared(prep, kernel=kern)  # noqa: E731
+            time_cuda(run, 2)
+            row.setdefault(kern, []).append(float(np.median(time_cuda(run, 5))))
+        b_runs, t_cyc, _ = prep["arrivals"].shape
+        nbytes, n_ops = noc_work(prep, noc_kw[label].get("t_mask")
+                                 is not None, nops.MAX_IN_DEGREE)
+        bound, by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                        (n_ops / F32_FLOPS_PER_S * 1e3, "operations"))
+        noc_shapes[label] = {"runs": b_runs, "cycles": t_cyc,
+                             "ms": row["node"][0], "warp_ms": row["warp"][0],
+                             "ms_again": row["node"][1],
+                             "warp_ms_again": row["warp"][1],
+                             "bound_ms": bound, "bound_by": by}
+        say("4", f"noc_step {label} launch ({b_runs} run(s) x {t_cyc} "
+                 f"cycles): node {row['node'][0]:.4f} ms (again "
+                 f"{row['node'][1]:.4f}), warp {row['warp'][0]:.4f} ms (again "
+                 f"{row['warp'][1]:.4f}) (CUDA events, median of 5 each); "
+                 f"bound {bound:.4f} ms by {by}; card: {card}")
+    prep = noc_preps["dse"]
+    nb, nt, nr = prep["arrivals"].shape
+    nbytes, nops_count = noc_work(prep, noc_kw["dse"].get("t_mask")
+                                  is not None, nops.MAX_IN_DEGREE)
     live = int((prep["mask"] != 0).sum())
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops_count / F32_FLOPS_PER_S * 1e3
-    noc_bound_ms, noc_bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
-    noc_dse_ms = noc_ms["noc-dse"][0]
-    say("4", f"noc_step kernel, DSE: median {noc_dse_ms:.4f} ms over 5 runs, "
-             f"{nb * nt / (noc_dse_ms * 1e-3):.4g} run-cycles/s; plain "
-             f"version {noc_plain_ms:.2f} ms once; bound {noc_bound_ms:.4f} "
-             f"ms by {noc_bound_by} ({nbytes / 1e9:.3f} GB, "
+    noc_bound_ms = noc_shapes["dse"]["bound_ms"]
+    noc_bound_by = noc_shapes["dse"]["bound_by"]
+    noc_dse_ms = noc_shapes["dse"]["ms"]
+    say("4", f"noc_step node kernel, DSE: {noc_dse_ms:.4f} ms, "
+             f"{nb * nt / (noc_dse_ms * 1e-3):.4g} run-cycles/s; warp kernel "
+             f"{noc_shapes['dse']['warp_ms']:.4f} ms; plain version "
+             f"{noc_plain_ms:.2f} ms once; bound {noc_bound_ms:.4f} ms by "
+             f"{noc_bound_by} ({nbytes / 1e9:.3f} GB, "
              f"{nops_count / 1e9:.2f} GFLOP; {live} live of {nb * nr} "
              f"node lanes); card: {card}")
-    fig13_ms = " / ".join(f"{x:.4f}" for x in noc_ms["fig13"])
-    say("4", f"noc_step kernel, Fig. 13 (one run of "
-             f"{noc_calls[0][1][0].shape[-2]} cycles per launch): median "
-             f"{fig13_ms} ms (PROWAVES / ReSiPI)")
-    del noc_calls, noc_arr
+    noc_cycle_probe(nops, prep, runs, noc_ab_libs, card)
+    del noc_calls, noc_arr, noc_preps, noc_kw, prep
 
     # --- 5. LLM serving (second main path) -----------------------------------
     llm = serve_llms(dev, card, fops, sops, llm_err)
 
     # --- 6. kernels line ----------------------------------------------------
+    def ran(name):
+        return "+".join(sorted(k.split(":")[1] for k in variants
+                               if k.startswith(name + ":")))
+
     print(json.dumps({"kernels": [{
-        "name": ops.NAME, "route": "cuda", "variant": "simt",
+        "name": ops.NAME, "route": "cuda", "variant": ran(ops.NAME),
         "source": "src/repro_torch/kernels/epoch_step/csrc/epoch_step.cu",
         "replaces": "src/repro/kernels/epoch_step/kernel.py:48",
         "launches": stats["epoch_step_launches"],
         "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}, {
-        "name": nops.NAME, "route": "cuda", "variant": "simt",
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "warp_ms": warp_ms, "shapes": epoch_shapes}, {
+        "name": nops.NAME, "route": "cuda", "variant": ran(nops.NAME),
         "source": "src/repro_torch/kernels/noc_step/csrc/noc_step.cu",
         "replaces": "src/repro/kernels/noc_step/kernel.py:32",
         "launches": noc_launches, "max_abs_err": noc_err, "ms": noc_dse_ms,
         "plain_ms": noc_plain_ms, "bound_ms": noc_bound_ms,
-        "bound_by": noc_bound_by, "library_ms": None}] + llm}),
-        flush=True)
+        "bound_by": noc_bound_by, "library_ms": None,
+        "warp_ms": noc_shapes["dse"]["warp_ms"], "shapes": noc_shapes}]
+        + llm}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind,
                                              "count": count}}), flush=True)

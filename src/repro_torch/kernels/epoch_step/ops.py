@@ -5,10 +5,18 @@ and out.
 loop (`ref.epoch_run_reference`, i.e. `simulator._loop`) on the
 configurations the kernel supports — RESIPI / RESIPI_ALL, unpadded
 topology, at least one memory gateway, optional destination matrices and
-fault frames. Given CUDA tensors it launches `csrc/epoch_step.cu` once for
-all B lanes and T intervals and rebuilds the exact record dict and final
+fault frames. Given CUDA tensors it runs `csrc/epoch_step.cu` once for all
+B lanes and T intervals and rebuilds the exact record dict and final
 `SimState` the loop produces; given CPU tensors it runs the plain version.
 There is no fallback: an unsupported configuration on CUDA tensors raises.
+
+`variant(c, faulted, dest)` picks the kernel from the chiplet count alone:
+"split" (C <= 16: the controller recurrence, one thread per lane and
+chiplet, then the interval metrics, one thread per lane and interval) or
+"warp" (the first design, one warp per lane, C <= 128). Each call counts one `epoch_step`
+launch, and one under `epoch_step:<variant>`
+(`backend.COUNTERS["variants"]`), whether the variant takes one kernel
+launch or two.
 
 Port of `repro.kernels.epoch_step.ops.epoch_run_pallas`.
 """
@@ -29,7 +37,9 @@ from repro_torch.kernels.epoch_step.ref import epoch_run_reference
 
 NAME = "epoch_step"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "epoch_step.cu"
-MAX_CHIPLETS = 128            # kMaxChipletsPerThread * 32 in the source
+MAX_CHIPLETS = 128            # "warp": kMaxChipletsPerThread * 32
+SPLIT_MAX_CHIPLETS = 16       # "split": kMaxSplitChiplets in the source
+KERNELS = {"split": 0, "warp": 1}
 (COL_LATENCY, COL_POWER, COL_LASER, COL_RECONFIG, COL_MEAN_INTER,
  COL_SATURATED, COL_FAILED) = range(7)
 
@@ -53,9 +63,20 @@ def build() -> ctypes.CDLL:
     lib = backend.build_library(NAME, SOURCE)
     fn = lib.epoch_step_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 18 + [_I] * 8 + [_F] * 16 + [_P]
+        fn.argtypes = [_P] * 19 + [_I] * 9 + [_F] * 16 + [_P]
         fn.restype = _I
     return lib
+
+
+def variant(c: int, faulted: bool, dest: bool) -> str:
+    """The kernel that runs C chiplets (with or without fault frames and
+    destination matrices, which every variant takes): "split" for
+    C <= 16, "warp" up to 128. Raises beyond."""
+    del faulted, dest                  # both variants take both
+    if not 1 <= c <= MAX_CHIPLETS:
+        raise ValueError(f"epoch_step kernel supports 1 to {MAX_CHIPLETS} "
+                         f"chiplets, got {c}")
+    return "split" if c <= SPLIT_MAX_CHIPLETS else "warp"
 
 
 def _check_supported(sim, xs, faulted: bool) -> None:
@@ -116,12 +137,15 @@ def epoch_run(state, xs: tuple, sim, tables: dict, *,
 def launch(g0: torch.Tensor, xs: tuple, sim, tables: dict, *,
            dest: Optional[torch.Tensor] = None, faulted: bool = False,
            lane_trace: Optional[torch.Tensor] = None,
-           knobs: Optional[Dict[str, torch.Tensor]] = None) -> dict:
-    """Launch the kernel once on CUDA tensors (arguments as `epoch_run`,
+           knobs: Optional[Dict[str, torch.Tensor]] = None,
+           kernel: Optional[str] = None) -> dict:
+    """Run the kernel once on CUDA tensors (arguments as `epoch_run`,
     `g0` [B, C] the initial gateway counts) and return its raw outputs:
-    scal [B, T, n_cols(faulted)], g_eff / g_des / gw_load [B, T, C] (g_des only when
-    faulted), g_final [B, C], plus the int32 lane_trace and the knobs used.
-    Runs on the current stream; never synchronizes."""
+    scal [B, T, n_cols(faulted)], g_eff / g_des / gw_load [B, T, C] (g_des
+    only when faulted), g_final [B, C], plus the int32 lane_trace and the
+    knobs used. `kernel` names the variant (default `variant(...)`; tests
+    and timing force the other on the same inputs). Runs on the current
+    stream; never synchronizes."""
     from repro_torch.core.simulator import Arch, default_knobs
 
     dev = xs[0].device
@@ -129,6 +153,13 @@ def launch(g0: torch.Tensor, xs: tuple, sim, tables: dict, *,
         raise RuntimeError(f"epoch_step kernel needs CUDA tensors, got "
                            f"{dev}")
     _check_supported(sim, xs, faulted)
+    c_count = xs[0].shape[2]
+    chosen = variant(c_count, faulted, dest is not None)
+    kernel = chosen if kernel is None else kernel
+    if kernel not in KERNELS or (kernel == "split"
+                                 and c_count > SPLIT_MAX_CHIPLETS):
+        raise ValueError(f"epoch_step: the {kernel} kernel does not take "
+                         f"{c_count} chiplets")
     lib = build()
 
     ext, mem, intra, _ext_frac, t_mask = (_f32(a) for a in xs[:5])
@@ -171,6 +202,11 @@ def launch(g0: torch.Tensor, xs: tuple, sim, tables: dict, *,
            "gw_load": torch.empty((b, t, c), **f32),
            "g_final": torch.empty((b, c), **f32),
            "lane_trace": lane_trace, "knobs": knobs}
+    use_controller = sim.arch == Arch.RESIPI
+    # The split's controller recurrence hands g after each interval to the
+    # metrics launch through this scratch.
+    g_step = torch.empty((b, t, c), **f32) \
+        if kernel == "split" and use_controller else None
     noc = sim.noc
     pwr = PHOTONIC_POWER
     consts = (
@@ -191,13 +227,14 @@ def launch(g0: torch.Tensor, xs: tuple, sim, tables: dict, *,
         _ptr(lane_trace), _ptr(params), _ptr(g0), _ptr(srch), _ptr(gwdb),
         _ptr(dmat), _ptr(gw_ok), _ptr(stuck_on), _ptr(out["scal"]),
         _ptr(out["g_eff"]), _ptr(out["g_des"]), _ptr(out["gw_load"]),
-        _ptr(out["g_final"]), b, t, c, g_slots, cfg.memory_gateways,
-        int(dmat is not None), int(faulted), int(sim.arch == Arch.RESIPI),
-        *consts, torch.cuda.current_stream(dev).cuda_stream)
+        _ptr(out["g_final"]), _ptr(g_step), b, t, c, g_slots,
+        cfg.memory_gateways, int(dmat is not None), int(faulted),
+        int(use_controller), KERNELS[kernel], *consts,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"epoch_step kernel launch failed: CUDA error "
-                           f"{err}")
-    backend.count_launch(NAME)
+        raise RuntimeError(f"epoch_step {kernel} kernel launch failed: CUDA "
+                           f"error {err}")
+    backend.count_launch(NAME, kernel)
     return out
 
 

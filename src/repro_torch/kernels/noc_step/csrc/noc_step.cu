@@ -13,22 +13,41 @@
 //
 // What bounds it: the arrivals [B, T, R] are the only large input, read
 // once (the 512-run x 8192-cycle DSE needs ~0.21 ms of them at 3.35 TB/s in
-// its live lanes; this kernel reads every lane, ~0.35 ms' worth), but in
-// practice the serial T-cycle chain inside a run bounds it: each
-// cycle is a dependent chain of three warp exchanges through shared memory
-// and one IEEE division. The TPU kernel walked time chunks on a sequential
-// grid and did three [1,R]@[R,R] MXU products per cycle over a 128-lane pad.
-// Here the parallel axis is the run: one WARP runs one run for all T cycles,
-// thread j owns nodes j, j+32, j+64, j+96 (R <= 128) and keeps their
-// occupancy, residency, drained total, drain, buffer, static mask, next hop
-// and in-edge list in registers; nothing carries between blocks. The
-// one-hot products become a next-hop gather (scale_src = scale_dst[next])
-// and per-destination sums over the in-edge list (sources in ascending
-// order), read from shared memory after a __syncwarp. Arrivals (and the
-// time-varying mask and t_mask) do not depend on the state, so each warp
-// prefetches them kDepth cycles ahead into registers: one coalesced row per
-// cycle per run. Many runs fill the card; a single run is pure chain
-// latency.
+// its live lanes), but the serial T-cycle chain inside a run sets the time:
+// a DSE of a few hundred runs gives each SM a handful of runs, so a launch
+// lasts as long as its slowest run's chain of cycles. The TPU kernel walked
+// time chunks on a sequential grid and did three [1,R]@[R,R] MXU products
+// per cycle over a 128-lane pad. Here the one-hot products become a
+// next-hop gather (scale_src = scale_dst[next]) and per-destination sums
+// over the in-edge list (sources in ascending order), and nothing carries
+// between blocks. Arrivals (and the time-varying mask and t_mask) do not
+// depend on the state, so they are loaded several cycles ahead into
+// registers: one coalesced row per cycle per run.
+//
+// Two designs live here; the wrapper picks one (ops.run_prepared).
+//
+// "node" (the main path): one BLOCK per run, one node per thread, over
+// w = ceil(R_active / 32) warps, R_active being the run's active prefix
+// (one past its highest node that is live or routed; the wrapper computes
+// it). Nodes past the prefix come out exactly 0 without being simulated.
+// Two exchanges a cycle: (a) each node publishes send; (b) each destination
+// reads its in-edge senders' send into registers, forms want, space and
+// scale, and publishes scale; (c) each sender gathers scale[next hop] for
+// its own moved, and each destination forms inflow = sum_k send_k * scale
+// from the values it already holds. With one-hot routing every sender s
+// into j has scale_src[s] = scale[j], so inflow is the same products summed
+// in the same order as a third exchange of moved would give: bitwise the
+// "warp" design's result. When w = 1 the exchanges are warp shuffles (no
+// shared memory, no barrier); when w > 1 they go through shared memory
+// between named barriers over the run's 32 w threads. Inputs are loaded a
+// chunk of kNodeDepth cycles ahead. The space / want division guards a zero
+// numerator (a full buffer), which would otherwise take the division's slow
+// path: congested runs fill buffers every cycle.
+//
+// "warp" (the first design, kept as the yardstick the node design is held
+// to bitwise and timed against): one WARP per run, thread j owns nodes j,
+// j+32, j+64, j+96 (R <= 128) for all T cycles, three exchanges a cycle
+// through shared memory after __syncwarp (send, scale, moved).
 //
 // Numerics: build with --fmad=false. Every float is computed op for op as
 // the plain PyTorch version computes it (IEEE division, min/max, masks and
@@ -36,9 +55,9 @@
 // bitwise the static run and a batch of runs is bitwise the runs one by one;
 // against the plain version only the order of the in-edge sums may differ.
 //
-// The launch runs on the caller's stream, never synchronizes and allocates
-// nothing: the wrapper (ops.py) derives next_hop / in_src from the one-hot
-// routing matrix and allocates the outputs.
+// A launch runs on the caller's stream, never synchronizes and allocates
+// nothing: the wrapper (ops.py) derives next_hop / in_src and the active
+// prefix from the one-hot routing matrix and allocates the outputs.
 
 #include <cuda_runtime.h>
 
@@ -51,6 +70,16 @@ constexpr int kMaxNodesPerThread = 4;           // R <= 128
 constexpr int kMaxNodes = 32 * kMaxNodesPerThread;
 constexpr int kMaxInDegree = 6;                 // hex neighbors; MAX_IN_DEGREE
 constexpr int kDepth = 4;                       // cycles prefetched ahead
+
+// space / want with IEEE rounding; a zero numerator over a positive divisor
+// (a full buffer) returns the numerator itself, which is the quotient bit
+// for bit, without entering the division: the hardware sequence sends a
+// zero numerator down its slow path, and congested runs fill buffers every
+// cycle. The "node" kernel divides through it.
+__device__ __forceinline__ float fdiv_guarded(float a, float b) {
+  if (a == 0.f && b > 0.f) return a;
+  return a / b;
+}
 
 // Inputs of cycles [t0, t0 + kDepth) of run b into registers (zero past T).
 template <int kPer, bool kTv>
@@ -208,24 +237,216 @@ cudaError_t launch(const float* arrivals, const float* t_mask,
   return cudaGetLastError();
 }
 
+// --- "node": one block per run, one node per thread ------------------------
+
+constexpr int kNodeDepth = 4;                   // cycles of inputs in flight
+
+// Barrier 1 over the run's n_threads (a multiple of 32): the block's other
+// warps, past the run's active prefix, have left.
+__device__ __forceinline__ void run_barrier(int n_threads) {
+  asm volatile("bar.sync 1, %0;" :: "r"(n_threads) : "memory");
+}
+
+// Inputs of cycles [t0, t0 + kNodeDepth) for node n into registers (zero
+// past T, and for a node past the active prefix).
+template <bool kTv>
+__device__ __forceinline__ void load_node_cycles(
+    const float* __restrict__ arrivals, const float* __restrict__ t_mask,
+    const float* __restrict__ mask_t, size_t row0, int t0, int T, int R,
+    int n, bool live, float (&arr)[kNodeDepth], float (&tm)[kNodeDepth],
+    float (&mt)[kNodeDepth]) {
+#pragma unroll
+  for (int j = 0; j < kNodeDepth; ++j) {
+    const int t = t0 + j;
+    const bool in_t = t < T;
+    const size_t at = (row0 + t) * R + n;
+    tm[j] = in_t ? __ldg(t_mask + row0 + t) : 0.f;
+    arr[j] = in_t && live ? __ldg(arrivals + at) : 0.f;
+    mt[j] = kTv && in_t && live ? __ldg(mask_t + at) : 0.f;
+  }
+}
+
+// The whole run for node n (< r_act: simulated; otherwise a dead node that
+// only keeps the run's barriers company and ends at exactly 0).
+template <bool kTv, bool kMulti>
+__device__ __forceinline__ void node_run(
+    const float* __restrict__ arrivals, const float* __restrict__ t_mask,
+    const float* __restrict__ mask, const float* __restrict__ mask_t,
+    const int* __restrict__ next_hop, const int* __restrict__ in_src,
+    const float* __restrict__ drain, const float* __restrict__ buf,
+    float* __restrict__ resid_out, float* __restrict__ occ_out,
+    float* __restrict__ drained_out, int b, int n, int r_act, int n_threads,
+    int T, int R, float link_rate, float* s_send, float* s_scale) {
+  const bool live = n < r_act;
+  const size_t at = static_cast<size_t>(b) * R + n;
+  const float dr = live ? drain[at] : 0.f;
+  const float bf = live ? buf[at] : 0.f;
+  const float ms = live ? mask[at] : 0.f;
+  const int nh = live ? next_hop[at] : -1;
+  const float is_router = nh >= 0 ? 1.f : 0.f;
+  int src[kMaxInDegree];
+#pragma unroll
+  for (int k = 0; k < kMaxInDegree; ++k)
+    src[k] = live ? in_src[at * kMaxInDegree + k] : -1;
+
+  // Per-cycle inputs of the next kNodeDepth cycles, loaded one chunk
+  // ahead: one coalesced row per cycle per run.
+  const size_t row0 = static_cast<size_t>(b) * T;
+  float arr[kNodeDepth], tm[kNodeDepth], mt[kNodeDepth];
+  float arr_next[kNodeDepth], tm_next[kNodeDepth], mt_next[kNodeDepth];
+  load_node_cycles<kTv>(arrivals, t_mask, mask_t, row0, 0, T, R, n, live,
+                        arr, tm, mt);
+  float occ = 0.f, resid = 0.f, drained = 0.f;
+  for (int t0 = 0; t0 < T; t0 += kNodeDepth) {
+    load_node_cycles<kTv>(arrivals, t_mask, mask_t, row0, t0 + kNodeDepth, T,
+                          R, n, live, arr_next, tm_next, mt_next);
+#pragma unroll
+    for (int j = 0; j < kNodeDepth; ++j) {
+      if (t0 + j >= T) break;                   // uniform over the run
+      const float a = arr[j], tmv = tm[j];
+      const float m = kTv ? mt[j] : ms;
+
+      // (a) arrivals, masks; publish send.
+      const float occ1 = (occ + a) * m;
+      const float send = fminf(occ1, link_rate) * is_router;
+      float sv[kMaxInDegree];
+      if constexpr (!kMulti) {       // one warp: exchange by shuffles
+#pragma unroll
+        for (int k = 0; k < kMaxInDegree; ++k) {
+          const float v = __shfl_sync(0xffffffffu, send, src[k] & 31);
+          sv[k] = src[k] >= 0 ? v : 0.f;
+        }
+      } else {
+        s_send[n] = send;
+        run_barrier(n_threads);
+#pragma unroll
+        for (int k = 0; k < kMaxInDegree; ++k)
+          sv[k] = src[k] >= 0 ? s_send[src[k]] : 0.f;
+      }
+      // (b) inflow_want = send @ next_mat over the in-edges, kept; publish
+      // scale_dst.
+      float want = 0.f;
+#pragma unroll
+      for (int k = 0; k < kMaxInDegree; ++k)
+        if (src[k] >= 0) want += sv[k];
+      const float space = fmaxf(bf - occ1, 0.f);
+      const float scale = want > 0.f
+          ? fminf(1.f, fdiv_guarded(space, fmaxf(want, 1e-9f))) : 0.f;
+      float scale_nh;
+      if constexpr (!kMulti) {
+        scale_nh = __shfl_sync(0xffffffffu, scale, nh & 31);
+      } else {
+        s_scale[n] = scale;
+        run_barrier(n_threads);
+        scale_nh = s_scale[nh >= 0 ? nh : 0];
+      }
+      // (c) moved = send * scale_dst[next]; inflow = moved @ next_mat, whose
+      // every term is an in-edge sender's send times this node's scale.
+      const float scale_src = nh >= 0 ? scale_nh : 0.f;
+      const float moved = send * scale_src;
+      float inflow = 0.f;
+#pragma unroll
+      for (int k = 0; k < kMaxInDegree; ++k)
+        if (src[k] >= 0) inflow += sv[k] * scale;
+      float o = occ1 - moved + inflow * m;
+      const float sunk = fminf(o, dr);
+      o = o - sunk;
+      occ = tmv * o + (1.f - tmv) * occ;
+      resid = resid + tmv * o;
+      drained = drained + tmv * sunk;
+    }
+#pragma unroll
+    for (int j = 0; j < kNodeDepth; ++j) {
+      arr[j] = arr_next[j];
+      tm[j] = tm_next[j];
+      mt[j] = mt_next[j];
+    }
+  }
+  if (n < R) {
+    resid_out[at] = resid;
+    occ_out[at] = occ;
+    drained_out[at] = drained;
+  }
+}
+
+template <bool kTv>
+__global__ void __launch_bounds__(kMaxNodes) noc_node_kernel(
+    const float* __restrict__ arrivals, const float* __restrict__ t_mask,
+    const float* __restrict__ mask, const float* __restrict__ mask_t,
+    const int* __restrict__ next_hop, const int* __restrict__ in_src,
+    const float* __restrict__ drain, const float* __restrict__ buf,
+    const int* __restrict__ r_active, float* __restrict__ resid_out,
+    float* __restrict__ occ_out, float* __restrict__ drained_out, int T,
+    int R, float link_rate) {
+  __shared__ float s_send[kMaxNodes];
+  __shared__ float s_scale[kMaxNodes];
+  const int b = blockIdx.x;
+  const int n = threadIdx.x;
+  const int r_act = min(max(r_active[b], 0), R);
+  const int warps = (r_act + 31) / 32;
+  if (n >= 32 * warps) {               // whole warps past the active prefix
+    if (n < R) {
+      const size_t at = static_cast<size_t>(b) * R + n;
+      resid_out[at] = occ_out[at] = drained_out[at] = 0.f;
+    }
+    return;
+  }
+  if (warps == 1)
+    node_run<kTv, false>(arrivals, t_mask, mask, mask_t, next_hop, in_src,
+                         drain, buf, resid_out, occ_out, drained_out, b, n,
+                         r_act, 32, T, R, link_rate, s_send, s_scale);
+  else
+    node_run<kTv, true>(arrivals, t_mask, mask, mask_t, next_hop, in_src,
+                        drain, buf, resid_out, occ_out, drained_out, b, n,
+                        r_act, 32 * warps, T, R, link_rate, s_send, s_scale);
+}
+
+template <bool kTv>
+cudaError_t launch_node(const float* arrivals, const float* t_mask,
+                        const float* mask, const float* mask_t,
+                        const int* next_hop, const int* in_src,
+                        const float* drain, const float* buf,
+                        const int* r_active, float* resid, float* occ,
+                        float* drained, int B, int T, int R, float link_rate,
+                        cudaStream_t stream) {
+  const dim3 block(32 * ((R + 31) / 32));
+  noc_node_kernel<kTv><<<B, block, 0, stream>>>(
+      arrivals, t_mask, mask, mask_t, next_hop, in_src, drain, buf, r_active,
+      resid, occ, drained, T, R, link_rate);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // arrivals [B, T, R], t_mask [B, T], mask [B, R], mask_t [B, T, R] or null
 // (the static mask ANDed in), next_hop [B, R], in_src [B, R, max_in], drain
-// and buf [B, R] -> resid, occ, drained [B, R]. Returns a cudaError_t.
+// and buf [B, R], r_active [B] (the active prefix; "node" only) -> resid,
+// occ, drained [B, R]. kernel: 0 = "node", 1 = "warp". Returns a
+// cudaError_t.
 extern "C" int noc_step_launch(
     const float* arrivals, const float* t_mask, const float* mask,
     const float* mask_t, const int* next_hop, const int* in_src,
-    const float* drain, const float* buf, float* resid, float* occ,
-    float* drained, int B, int T, int R, int max_in, float link_rate,
-    void* stream) {
-  if (B < 1 || T < 0 || R < 1 || R > kMaxNodes || max_in != kMaxInDegree)
+    const float* drain, const float* buf, const int* r_active, float* resid,
+    float* occ, float* drained, int B, int T, int R, int max_in, int kernel,
+    float link_rate, void* stream) {
+  if (B < 1 || T < 0 || R < 1 || R > kMaxNodes || max_in != kMaxInDegree
+      || (kernel != 0 && kernel != 1) || (kernel == 0 && r_active == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool tv = mask_t != nullptr;
+  if (kernel == 0) {
+    const cudaError_t err = tv
+        ? launch_node<true>(arrivals, t_mask, mask, mask_t, next_hop, in_src,
+                            drain, buf, r_active, resid, occ, drained, B, T,
+                            R, link_rate, s)
+        : launch_node<false>(arrivals, t_mask, mask, mask_t, next_hop,
+                             in_src, drain, buf, r_active, resid, occ,
+                             drained, B, T, R, link_rate, s);
+    return static_cast<int>(err);
+  }
 #define NOC_STEP_ARGS                                                       \
   arrivals, t_mask, mask, mask_t, next_hop, in_src, drain, buf, resid, occ, \
       drained, B, T, R, link_rate, s
-  const bool tv = mask_t != nullptr;
   const int per = (R + 31) / 32;
   cudaError_t err;
   switch (per * 2 + (tv ? 1 : 0)) {

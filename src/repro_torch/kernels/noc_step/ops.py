@@ -8,7 +8,11 @@ Bernoulli packet arrivals with the threefry twin (`repro_torch.random`, so
 the port's arrivals equal the reference's at the same seed), and runs
 `noc_run`. Given CUDA tensors `noc_run` launches `csrc/noc_step.cu` once for
 all B runs of a batch; given CPU tensors it runs the plain version
-(`ref.reference_noc_run`). There is no fallback.
+(`ref.reference_noc_run`). There is no fallback. The kernel that runs is
+"node" (one block per run, one node per thread over the run's active
+prefix); `run_prepared(p, kernel="warp")` runs the first design, one warp
+per run, on the same inputs. Each launch counts under `noc_step` and under
+`noc_step:<kernel>` (`backend.COUNTERS["variants"]`).
 
 `build_topology_padded` and the dead-lane `valid_mask` are the contract for
 batching many topologies through one kernel shape: B runs of mixed mesh
@@ -35,7 +39,8 @@ from repro_torch.kernels.noc_step.ref import reference_noc_run
 
 NAME = "noc_step"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "noc_step.cu"
-MAX_NODES = 128               # kMaxNodesPerThread * 32 in the source
+MAX_NODES = 128               # kMaxNodes in the source
+KERNELS = {"node": 0, "warp": 1}
 # kMaxInDegree in the source: a node receives from at most one neighbor per
 # adjacency direction (6 on hex layouts, 4 on meshes; a sink from 1).
 MAX_IN_DEGREE = max(len(v) for v in topology.NEIGHBOR_OFFSETS.values())
@@ -155,7 +160,7 @@ def build() -> ctypes.CDLL:
     lib = backend.build_library(NAME, SOURCE)
     fn = lib.noc_step_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 11 + [_I] * 4 + [_F, _P]
+        fn.argtypes = [_P] * 12 + [_I] * 5 + [_F, _P]
         fn.restype = _I
     return lib
 
@@ -192,6 +197,21 @@ def routing(next_mat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
                         dtype=torch.int32, device=nmat.device)
     in_src[..., :k] = torch.where(srcs < r, srcs, -1)
     return next_hop.contiguous(), in_src.contiguous()
+
+
+def active_prefix(mask: torch.Tensor, next_hop: torch.Tensor,
+                  in_src: torch.Tensor) -> torch.Tensor:
+    """R_active per run [B] int32: one past the highest node that is live
+    in the static mask [B, R] or routed (a next hop [B, R] or an in-edge
+    [B, R, k] of its own; every node routed into has one), 0 for a run
+    with none. The "node" kernel simulates that prefix only: a node past
+    it holds no flits, receives none and sinks none, so it ends at exactly
+    0 (the dead-lane contract). Torch ops on the routing's device; no host
+    synchronisation."""
+    r = mask.shape[-1]
+    live = (mask != 0) | (next_hop >= 0) | (in_src >= 0).any(dim=-1)
+    pos = torch.arange(1, r + 1, dtype=torch.int32, device=mask.device)
+    return torch.where(live, pos, 0).amax(dim=-1).to(torch.int32)
 
 
 def noc_run(arrivals: torch.Tensor, next_mat: torch.Tensor,
@@ -231,9 +251,10 @@ def prepare(arrivals: torch.Tensor, next_mat: torch.Tensor,
     """The kernel's inputs for CUDA tensors (arrivals [B, T, R], the rest
     as `noc_run`), checked and laid out: contiguous float32 [B, ...] arrays
     with the defaults materialized as the reference's wrapper does
-    (all-ones masks), the static mask ANDed into `valid_mask_t`, and the
-    routing as next_hop / in_src. The one-hot check reads next_mat back to
-    the host; nothing else synchronizes."""
+    (all-ones masks), the static mask ANDed into `valid_mask_t`, the
+    routing as next_hop / in_src, and each run's active prefix
+    (`active_prefix`). The one-hot check reads next_mat back to the host;
+    nothing else synchronizes."""
     dev = arrivals.device
     if dev.type != "cuda":
         raise RuntimeError(f"noc_step kernel needs CUDA tensors, got {dev}")
@@ -269,13 +290,20 @@ def prepare(arrivals: torch.Tensor, next_mat: torch.Tensor,
             else per_run(valid_mask_t, (b, t, r)) * mask[:, None, :],
             "next_hop": next_hop, "in_src": in_src,
             "drain": per_run(drain_rate, (b, r)),
-            "buf": per_run(buf_cap, (b, r)), "link_rate": float(link_rate)}
+            "buf": per_run(buf_cap, (b, r)),
+            "r_active": active_prefix(mask, next_hop, in_src),
+            "link_rate": float(link_rate)}
 
 
-def run_prepared(p: dict):
+def run_prepared(p: dict, kernel: Optional[str] = None):
     """One kernel launch on `prepare`'s output, on the current stream
     (never synchronizes); returns (residency, final_occupancy, drained)
-    [B, R]."""
+    [B, R]. `kernel` is "node" (the default) or "warp" (the first design,
+    which tests and timing run on the same inputs)."""
+    kernel = "node" if kernel is None else kernel
+    if kernel not in KERNELS:
+        raise ValueError(f"noc_step: no {kernel!r} kernel (have "
+                         f"{sorted(KERNELS)})")
     lib = build()
     arrivals = p["arrivals"]
     b, t, r = arrivals.shape
@@ -283,14 +311,15 @@ def run_prepared(p: dict):
            for _ in range(3)]
     ptr = [None if p[k] is None else p[k].data_ptr() for k in
            ("arrivals", "t_mask", "mask", "mask_t", "next_hop", "in_src",
-            "drain", "buf")]
+            "drain", "buf", "r_active")]
     err = lib.noc_step_launch(
         *ptr, *(o.data_ptr() for o in out), b, t, r, MAX_IN_DEGREE,
-        p["link_rate"], torch.cuda.current_stream(arrivals.device)
-        .cuda_stream)
+        KERNELS[kernel], p["link_rate"],
+        torch.cuda.current_stream(arrivals.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"noc_step kernel launch failed: CUDA error {err}")
-    backend.count_launch(NAME)
+        raise RuntimeError(f"noc_step {kernel} kernel launch failed: CUDA "
+                           f"error {err}")
+    backend.count_launch(NAME, kernel)
     return tuple(out)
 
 

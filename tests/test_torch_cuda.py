@@ -9,16 +9,19 @@ skips without one. Run them on a machine with a card and nvcc:
 
 The cases are those of `chip_smoke.py` phase 2 at a smaller size (the
 `noc_step` ones come from the same builder, `kernels/noc_step/cases.py`). For
-`epoch_step`: clean, destination matrices, a ragged `t_mask` batch with an
-all-masked lane, fault frames, and a sweep over the five kernel knobs;
-records and final state agree at rtol = atol = 1e-6 (the reference's bound
-for this kernel), integer g and boolean saturation exactly. For
-`noc_step` (T <= 1024): Fig. 13's two topologies, a padded topology with
-garbage in its dead lanes, a lane dying mid-run, an all-ones
-`valid_mask_t`, a ragged `t_mask`, `hex_config(2)` and a batch of mixed-T
-runs at rtol 1e-5, atol 1e-3 (the in-edge sums run in another order than
-the plain version's products); dead lanes exactly 0, a batch bitwise its
-single runs, and the wrapper's refusals. For `flash_attention` and
+`epoch_step`, each case through both designs ("split", which the wrapper
+picks, and "warp"): clean, destination matrices, a ragged `t_mask` batch
+with an all-masked lane, fault frames, and a sweep over the five kernel
+knobs, plus 1 and 12 chiplets; records and final state agree at
+rtol = atol = 1e-6 (the reference's bound for this kernel), integer g and
+boolean saturation exactly. For `noc_step` (T <= 1024), each case through
+the "node" kernel and the "warp" kernel, which must agree bit for bit:
+Fig. 13's two topologies, a padded topology with garbage in its dead
+lanes, a lane dying mid-run, an all-ones `valid_mask_t`, a ragged
+`t_mask`, `hex_config(2)` and a batch of mixed-T runs at rtol 1e-5, atol
+1e-3 of the plain version (the in-edge sums run in another order than the
+plain version's products); dead lanes exactly 0, a batch bitwise its
+single runs, and the wrappers' refusals. For `flash_attention` and
 `ssd_scan`: the shared cases of `kernels/flash_attention/cases.py` and
 `kernels/ssd_scan/cases.py` (chip_smoke.py's phase 2) at the reference's
 bounds (flash 2e-5 in float32, 3e-2 in bfloat16; SSD float32 outputs 1e-4,
@@ -104,10 +107,29 @@ def _traces(case: str, dev) -> list:
     return out
 
 
+def _run_variant(kernel, state0, xs, sim, tables, kw):
+    """`ops.epoch_run` for the variant the wrapper picks ("split"), the
+    raw launch reassembled for the other; one launch counted either way."""
+    from repro_torch import backend
+
+    backend.reset_counters()
+    if kernel == "split":
+        out = ops.epoch_run(state0, xs, sim, tables, **kw)
+    else:
+        out = ops._reassemble(state0, ops.launch(state0.ctl.g, xs, sim,
+                                                 tables, kernel=kernel, **kw),
+                              xs, sim, kw["faulted"])
+    torch.cuda.synchronize()
+    assert backend.COUNTERS["launches"] == {"epoch_step": 1}
+    assert backend.COUNTERS["variants"] == {f"epoch_step:{kernel}": 1}
+    return out
+
+
+@pytest.mark.parametrize("kernel", ["split", "warp"])
 @pytest.mark.parametrize("arch", ARCHS, ids=lambda a: a.value)
 @pytest.mark.parametrize("case", ["clean", "dest", "ragged", "faults",
                                   "sweep"])
-def test_kernel_matches_plain(case, arch, cuda_device):
+def test_kernel_matches_plain(case, arch, kernel, cuda_device):
     sim = tsim.SimConfig().with_arch(arch)
     grid = {}
     if case == "sweep":
@@ -120,10 +142,9 @@ def test_kernel_matches_plain(case, arch, cuda_device):
     traces = _traces(case, cuda_device)
     state0, xs, tables, kw = tsim.epoch_inputs(traces, sim,
                                                device=cuda_device, **grid)
-    tsim.reset_engine_stats()
-    got_state, got = ops.epoch_run(state0, xs, sim, tables, **kw)
-    torch.cuda.synchronize()
-    assert tsim.engine_stats()["epoch_step_launches"] == 1
+    assert ops.variant(xs[0].shape[2], kw["faulted"],
+                       kw["dest"] is not None) == "split"
+    got_state, got = _run_variant(kernel, state0, xs, sim, tables, kw)
     want_state, want = epoch_run_reference(state0, xs, sim, tables, **kw)
     _compare(got, want)
     _compare(_state(got_state), _state(want_state))
@@ -157,6 +178,37 @@ def test_entry_points_on_the_card_match_the_cpu(arch, cuda_device):
         _compare({k: v.cpu() for k, v in got[part].items()}, want[part])
 
 
+@pytest.mark.parametrize("kernel", ["split", "warp"])
+@pytest.mark.parametrize("chiplets", [1, 12])
+def test_kernel_matches_plain_at_other_widths(chiplets, kernel,
+                                              cuda_device):
+    """One chiplet and twelve (the split's 16-chiplet instantiation), with
+    destination matrices and fault frames, RESIPI."""
+    from repro_torch.core.constants import NETWORK
+
+    cfg = NETWORK.with_topology(n_chiplets=chiplets)
+    sim = tsim.SimConfig(cfg=cfg)
+    rng = np.random.RandomState(chiplets)
+    traces = []
+    for i, app in enumerate(traffic.APP_NAMES[:3]):
+        tr = traffic.generate(traffic.ParsecSpec(app, T), 60 + i, cfg,
+                              dest=True, device=cuda_device)
+        g = cfg.max_gateways_per_chiplet
+        traces.append(dict(tr, **{k: torch.as_tensor(v, device=cuda_device)
+                                  for k, v in (
+            ("gw_ok", (rng.rand(T, chiplets, g) > 0.1).astype(np.float32)),
+            ("stuck_on", (rng.rand(T, chiplets, g) > 0.95)
+             .astype(np.float32)),
+            ("drift_db", np.clip(0.05 * np.arange(T) - 0.5, 0.0, 1.0)
+             .astype(np.float32)))}))
+    state0, xs, tables, kw = tsim.epoch_inputs(traces, sim,
+                                               device=cuda_device)
+    got_state, got = _run_variant(kernel, state0, xs, sim, tables, kw)
+    want_state, want = epoch_run_reference(state0, xs, sim, tables, **kw)
+    _compare(got, want)
+    _compare(_state(got_state), _state(want_state))
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_run(cuda_device):
     sim = tsim.SimConfig().with_arch(tsim.Arch.PROWAVES)
     state0, xs, tables, kw = tsim.epoch_inputs(_traces("clean",
@@ -164,6 +216,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_run(cuda_device):
                                                sim, device=cuda_device)
     with pytest.raises(ValueError, match="RESIPI"):
         ops.epoch_run(state0, xs, sim, tables, **kw)
+    sim = tsim.SimConfig()
+    state0, xs, tables, kw = tsim.epoch_inputs(_traces("clean",
+                                                       cuda_device)[:1],
+                                               sim, device=cuda_device)
+    with pytest.raises(ValueError, match="does not take"):
+        ops.launch(state0.ctl.g, xs, sim, tables, kernel="lane", **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -189,10 +247,23 @@ def test_noc_kernel_matches_plain(case, cuda_device):
     got = nops.noc_run(*c.args, **c.kwargs)
     torch.cuda.synchronize()
     assert backend.COUNTERS["launches"] == {"noc_step": 1}
+    assert backend.COUNTERS["variants"] == {"noc_step:node": 1}
     want = reference_noc_run(*c.args, **c.kwargs)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-3)
     noc_cases.check_case(c, got, nops.noc_run)
+    _assert_warp_bitwise(c, got)
+
+
+def _assert_warp_bitwise(c, got):
+    """The warp kernel on the case's inputs gives the node kernel's result
+    bit for bit."""
+    batched = c.args[0].dim() == 3
+    warp = nops.run_prepared(nops.prepare(
+        c.args[0] if batched else c.args[0][None], *c.args[1:], **c.kwargs),
+        kernel="warp")
+    for a, b in zip(got, warp):
+        assert torch.equal(a if batched else a[None], b)
 
 
 def test_noc_kernel_batch_is_bitwise_the_single_runs(cuda_device):
@@ -204,6 +275,7 @@ def test_noc_kernel_batch_is_bitwise_the_single_runs(cuda_device):
     for a, b in zip(got, reference_noc_run(*c.args, **c.kwargs)):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-3)
     noc_cases.check_case(c, got, nops.noc_run)
+    _assert_warp_bitwise(c, got)
 
 
 def test_noc_wrapper_rejects_what_the_kernel_does_not_run(cuda_device):
@@ -222,6 +294,9 @@ def test_noc_wrapper_rejects_what_the_kernel_does_not_run(cuda_device):
                      torch.zeros((r, r), device=cuda_device), z, z)
     with pytest.raises(ValueError, match="cpu"):
         nops.noc_run(arr, nm.cpu(), drain, buf)
+    with pytest.raises(ValueError, match="kernel"):
+        nops.run_prepared(nops.prepare(arr[None], nm, drain, buf),
+                          kernel="lane")
 
 
 # ---------------------------------------------------------------------------

@@ -204,3 +204,145 @@ def test_lane_trace_and_knobs_select_trace_and_config():
         for k in rec:
             assert torch.equal(got[k][b], rec[k][0]), k
         assert torch.equal(got_state.ctl.g[b], st.ctl.g[0])
+
+
+def _split_emulation(state, xs, sim, tables, dest, faulted):
+    """The "split" kernel's structure in torch, lane n on trace n with the
+    config's knobs: the controller recurrence alone over T (it reads the
+    trace's ext row, recv = ext @ dest summed in source order, g, the
+    effective g under faults and the lane's knobs, and nothing the metrics
+    compute), then every metric of every (lane, interval) at once from the
+    g sequence it wrote. Returns (final g, records [B, T, ...])."""
+    from repro_torch.core import photonics
+    from repro_torch.core.gateway_controller import (ControllerState,
+                                                     epoch_step)
+
+    ext, mem, intra, _frac, tmask = xs[:5]
+    gw_ok, stuck, drift = xs[5:8] if faulted else (None,) * 3
+    b, t, c = ext.shape
+    cfg = sim.cfg
+    knobs = tsim.default_knobs(sim, b, "cpu")
+    slots = torch.arange(cfg.max_gateways_per_chiplet)
+
+    def usable_and_lit(g, ok, st):
+        usable = (slots < g[..., None]).to(torch.float32) * ok
+        lit = torch.maximum(usable, st * ok).flatten(-2)
+        mem_on = torch.ones(g.shape[:-1] + (cfg.memory_gateways,))
+        return usable, torch.cat([lit, mem_on], dim=-1) > 0.5
+
+    # 1. The recurrence: g after each interval (the carry, frozen when
+    # masked).
+    g = state.ctl.g
+    after = []
+    interval = float(cfg.reconfig_interval_cycles)
+    ctl_cfg = tsim._lane_sim(sim, knobs).ctl
+    for i in range(t):
+        if sim.arch == tsim.Arch.RESIPI:
+            e = ext[:, i]
+            pressure = e
+            if dest is not None:
+                w = e[:, :, None] * dest
+                recv = w[:, 0]
+                for j in range(1, c):
+                    recv = recv + w[:, j]
+                pressure = torch.maximum(e, recv)
+            packets = pressure * interval
+            if faulted:
+                usable, _ = usable_and_lit(g, gw_ok[:, i], stuck[:, i])
+                g_eff = torch.sum(usable, dim=-1).to(torch.int32)
+                packets = packets * (g.to(torch.float32) / torch.clamp_min(
+                    g_eff.to(torch.float32), 1.0))
+            ctl = ControllerState(g=g, packets_seen=torch.zeros_like(e),
+                                  epoch=torch.zeros(b, dtype=torch.int32))
+            g_new = epoch_step(ctl, packets, interval, ctl_cfg)[0].g
+            g = torch.where(tmask[:, i, None] > 0, g_new, g)
+        after.append(g)
+    g_after = torch.stack(after, dim=1)
+    g_before = torch.cat([state.ctl.g[:, None], g_after[:, :-1]], dim=1)
+
+    # 2. The metrics of all B x T (lane, interval) items as one batch.
+    def rows(x):
+        return x.reshape((b * t,) + tuple(x.shape[2:]))
+
+    row_knobs = {k: v.repeat_interleave(t) for k, v in knobs.items()}
+    lane = tsim._lane_sim(sim, row_knobs)
+    gb, ga, tv = rows(g_before), rows(g_after), rows(tmask)
+    if faulted:
+        usable, active = usable_and_lit(gb, rows(gw_ok), rows(stuck))
+        g_eff = torch.sum(usable, dim=-1).to(torch.int32)
+    else:
+        g_eff, active = gb, tsim._activity_mask(gb, sim)
+    lam = lane.wavelengths[:, None]
+    m = tsim._interval_metrics(
+        g_eff, lam, rows(ext), rows(mem), rows(intra), lane, tables, tv,
+        extra_db=rows(drift) if faulted else None,
+        dest=None if dest is None else dest.repeat_interleave(t, dim=0))
+    pw = photonics.interposer_power_mw(
+        active, lane.wavelengths, n_gateways=cfg.total_gateways, mode="pcm",
+        loss_db=m["access_db"], n_chiplets=c)
+    reconf = torch.zeros(b * t)
+    if sim.arch == tsim.Arch.RESIPI:
+        new_active = usable_and_lit(ga, rows(gw_ok), rows(stuck))[1] \
+            if faulted else tsim._activity_mask(ga, sim)
+        reconf = photonics.reconfig_energy_nj(active, new_active)
+    tv_i = tv.to(torch.int32)[:, None]
+    rec = {"latency": m["latency"], "power_mw": pw["total_mw"] * tv,
+           "laser_mw": pw["laser_mw"] * tv,
+           "energy": pw["total_mw"] * m["latency"],
+           "reconfig_nj": reconf * tv, "g": g_eff * tv_i,
+           "wavelengths": lam * torch.ones((b * t, c)) * tv[:, None],
+           "gw_load": m["gw_load"],
+           "mean_inter_latency": m["mean_inter_latency"],
+           "saturated": m["saturated"]}
+    if faulted:
+        rec["g_desired"] = gb * tv_i
+        dead = (slots < gb[..., None]) & (rows(gw_ok) < 0.5)
+        rec["failed_slots"] = torch.sum(dead, dim=(-2, -1)).to(
+            torch.float32) * tv
+    return g, {k: v.reshape((b, t) + tuple(v.shape[1:]))
+               for k, v in rec.items()}
+
+
+@pytest.mark.parametrize("arch", [tsim.Arch.RESIPI, tsim.Arch.RESIPI_ALL],
+                         ids=lambda a: a.value)
+@pytest.mark.parametrize("case", CASES)
+def test_split_recurrence_then_metrics_is_the_loop(case, arch):
+    """The "split" kernel's two passes, emulated in torch, equal the plain
+    interval loop at rtol = atol = 1e-6 with g and saturation exact: the
+    controller recurrence needs nothing the metrics compute. The ragged
+    cases hold an all-masked lane and valid intervals right before masked
+    ones, whose switch counts need the controller's output although the
+    carry freezes over the masked interval after them."""
+    inp = _inputs(case, seed=CASES.index(case))
+    sim = tsim.SimConfig().with_arch(arch)
+    state, xs, tables, dest, faulted = _port_args(inp, sim)
+    if case in ("ragged", "faults_dest_tmask"):
+        tm = xs[4]
+        assert bool(((tm[:, :-1] > 0) & (tm[:, 1:] == 0)).any())
+        assert bool((tm.sum(dim=1) == 0).any())
+    g_final, got = _split_emulation(state, xs, sim, tables, dest, faulted)
+    want_state, want = epoch_run_reference(state, xs, sim, tables,
+                                           dest=dest, faulted=faulted)
+    assert set(got) == set(want)
+    assert torch.equal(g_final, want_state.ctl.g)
+    for k in want:
+        assert got[k].shape == want[k].shape, k
+        if want[k].dtype in (torch.bool, torch.int32):
+            assert got[k].dtype == want[k].dtype, k
+            assert torch.equal(got[k], want[k]), k
+        else:
+            torch.testing.assert_close(got[k], want[k], rtol=1e-6,
+                                       atol=1e-6, msg=k)
+
+
+@pytest.mark.parametrize("faulted", [False, True])
+@pytest.mark.parametrize("c", [1, 4, 16, 17, 128])
+def test_variant_by_chiplet_count(c, faulted):
+    """"split" up to 16 chiplets, "warp" up to 128, whatever the fault
+    frames and destination matrices; nothing beyond."""
+    want = "split" if c <= ops.SPLIT_MAX_CHIPLETS else "warp"
+    for dest in (False, True):
+        assert ops.variant(c, faulted, dest) == want
+    for bad in (0, ops.MAX_CHIPLETS + 1):
+        with pytest.raises(ValueError, match="chiplets"):
+            ops.variant(bad, faulted, False)

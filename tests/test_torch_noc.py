@@ -297,3 +297,121 @@ def test_kernel_routing_view_of_the_one_hot_matrix():
     star[1:, 0] = 1.0                                     # in-degree 8
     with pytest.raises(ValueError, match="in-degree"):
         tops.routing(torch.as_tensor(star))
+
+
+def _prefix(nm, mask):
+    next_hop, in_src = tops.routing(torch.as_tensor(nm))
+    return tops.active_prefix(torch.as_tensor(mask), next_hop, in_src)
+
+
+@pytest.mark.parametrize("radix", [4, 8])
+def test_active_prefix_of_the_dse_topologies(radix):
+    """The residency DSE's padded topologies: radix 4 runs keep 16 routers
+    plus g sinks (one warp of the "node" kernel), radix 8 runs 64 plus g
+    (three warps), whatever the 68-node pad."""
+    cfg = tconst.NETWORK.with_topology(mesh_radix=radix)
+    for g in (1, 2, 3, 4):
+        for w in (2, 16):
+            nm, _, _, mask = tops.build_topology_padded(g, w, cfg,
+                                                        pad_to=68)
+            r_act = _prefix(nm[None], mask[None])
+            assert r_act.dtype == torch.int32
+            assert r_act.tolist() == [radix * radix + g]
+            assert (int(r_act) + 31) // 32 == (1 if radix == 4 else 3)
+
+
+def test_active_prefix_follows_routing_past_the_live_mask():
+    """hex_config(2) unpadded and padded; a router routed into a dead lane
+    past the live nodes stretches the prefix to that lane; a run with no
+    live or routed node has an empty prefix."""
+    hexc = ttopo.hex_config(2)
+    nm, _, _, _ = tops.build_topology(2, 4, hexc)
+    n = nm.shape[0]
+    assert _prefix(nm[None], np.ones((1, n), np.float32)).tolist() == [n]
+    nm, _, _, mask = tops.build_topology_padded(2, 4, hexc, pad_to=40)
+    assert _prefix(nm[None], mask[None]).tolist() == [n]
+    nm, _, _, mask = tops.build_topology_padded(2, 4, pad_to=40)
+    live = int(mask.sum())
+    nm = nm.copy()
+    nm[3] = 0.0
+    nm[3, 37] = 1.0                       # into a dead lane
+    assert _prefix(nm[None], mask[None]).tolist() == [38]
+    assert live < 38 and mask[37] == 0
+    batch = np.stack([nm, np.zeros_like(nm)])
+    masks = np.stack([mask, np.zeros_like(mask)])
+    assert _prefix(batch, masks).tolist() == [38, 0]
+
+
+def _exchange_emulation(case, exchanges: int):
+    """One cycle loop of the kernels in torch, over every node of every run
+    at once: the "warp" kernel's three exchanges (send, scale, moved; the
+    inflow sums moved over the in-edges) or the "node" kernel's two (the
+    inflow sums each in-edge sender's send, read while forming want, times
+    the destination's own scale). In-edges in ascending source order."""
+    arr, nm, drain, buf = case.args
+    batched = arr.dim() == 3
+    lift = (lambda x: x) if batched else (lambda x: x[None])
+    arr, nm = lift(arr), lift(nm)
+    b, t, r = arr.shape
+
+    def per_run(x, shape):
+        return torch.ones(shape) if x is None else x.expand(shape).float()
+
+    mask = per_run(case.kwargs.get("valid_mask"), (b, r))
+    mask_t = case.kwargs.get("valid_mask_t")
+    mask_t = None if mask_t is None \
+        else per_run(lift(mask_t), (b, t, r)) * mask[:, None]
+    t_mask = per_run(case.kwargs.get("t_mask"), (b, t))
+    drain, buf = per_run(drain, (b, r)), per_run(buf, (b, r))
+    next_hop, in_src = tops.routing(nm.expand(b, r, r))
+    nh, src = next_hop.long(), in_src.long()
+    has = src >= 0
+    is_router = (nh >= 0).float()
+
+    def gather_in(v):                      # [B, R] -> [B, R, K] by in-edge
+        return torch.where(has, v.gather(1, src.clamp(min=0).flatten(1))
+                           .view(src.shape), 0.0)
+
+    occ = resid = drained = torch.zeros(b, r)
+    for i in range(t):
+        m = mask if mask_t is None else mask_t[:, i]
+        tm = t_mask[:, i, None]
+        occ1 = (occ + arr[:, i]) * m
+        send = torch.clamp(occ1, max=1.0) * is_router
+        sv = gather_in(send)
+        want = torch.zeros(b, r)
+        for k in range(src.shape[-1]):
+            want = want + sv[..., k]
+        space = torch.clamp(buf - occ1, min=0.0)
+        scale = torch.where(want > 0.0, torch.clamp(
+            space / torch.clamp(want, min=1e-9), max=1.0), 0.0)
+        moved = send * torch.where(nh >= 0, scale.gather(1, nh.clamp(min=0)),
+                                   0.0)
+        terms = gather_in(moved) if exchanges == 3 \
+            else torch.where(has, sv * scale[..., None], 0.0)
+        inflow = torch.zeros(b, r)
+        for k in range(src.shape[-1]):
+            inflow = inflow + terms[..., k]
+        o = occ1 - moved + inflow * m
+        sunk = torch.minimum(o, drain)
+        o = o - sunk
+        occ, resid, drained = (tm * o + (1.0 - tm) * occ, resid + tm * o,
+                               drained + tm * sunk)
+    out = (resid, occ, drained)
+    return out if batched else tuple(x[0] for x in out)
+
+
+@pytest.mark.parametrize("name", tcases.NAMES)
+def test_two_exchanges_a_cycle_are_bitwise_three(name):
+    """The "node" kernel's cycle (inflow from the senders' send values and
+    the destination's scale) is bitwise the "warp" kernel's (inflow from a
+    third exchange of moved), and both hold the plain version at rtol 1e-5
+    / atol 1e-3 on the shared kernel cases, at T = 128."""
+    case, = tcases.kernel_cases("cpu", 128, names=[name])
+    two = _exchange_emulation(case, 2)
+    three = _exchange_emulation(case, 3)
+    for a, b in zip(two, three):
+        assert torch.equal(a, b)
+    want = tops.noc_run(*case.args, **case.kwargs)
+    for a, w in zip(two, want):
+        torch.testing.assert_close(a, w, rtol=RTOL, atol=ATOL)
