@@ -15,11 +15,12 @@ exits non-zero):
 
   1. card and build: nvidia-smi name and power limit, build seconds and the
      ptxas register / shared memory / spill report of each kernel, and per
-     design of the two simulator kernels (epoch_step "split" and "warp",
-     noc_step "node" and "warp"), naming any instantiation that spills;
+     design of the two simulator kernels (epoch_step "split", "wide" and
+     "warp", noc_step "node" and "warp"), naming any instantiation that
+     spills;
   2. epoch_step against plain on the card at the Table-1 widths, T = 100,
-     both designs on each case (the wrapper runs "split"; "warp" is forced
-     on the same inputs): clean, destination matrices, a ragged t_mask
+     every design on each case (the wrapper runs "split"; "warp" and
+     "wide" are forced on the same inputs): clean, destination matrices, a ragged t_mask
      batch with an all-masked lane, a fault frame, and a 64-point sweep
      over the five kernel knobs (rtol = atol = 1e-6, integer g and boolean
      saturation exact); noc_step against plain (rtol 1e-5, atol 1e-3) on
@@ -37,10 +38,12 @@ exits non-zero):
      states), each through its wrapper, which picks the tensor-core
      (`wgmma`) or SIMT kernel by dtype and shape; each case prints the
      kernel that ran (read from the launch counters);
-  3. the paper through the port's own generator: Fig. 11 (8 PARSEC apps x
-     4 architectures), Fig. 10 (L_m), Fig. 12 (settle times) and Fig. 13
-     (residency maps, arrivals from the threefry twin at seed 5, held to
-     the reference's values);
+  3. the paper through the port's own generator (the threefry twin, so the
+     reference's traces at the seeds of its scripts): Fig. 11 (8 PARSEC
+     apps x 4 architectures), Fig. 10 (L_m), Fig. 12 (settle times) and
+     Fig. 13 (residency maps, seed 5), each held to the reference's
+     numbers (FIG11_REFERENCE to the printed digit, FIG10_REFERENCE_LM,
+     FIG12_REFERENCE, Fig. 13's maxima and drained totals);
   4. two full-size DSEs: RESIPI `sweep_batch` over 8 PARSEC apps with
      destination matrices x a 64 x 64 (l_m x buffer_sat) grid at T = 100
      (32 768 lanes), and one `noc_run` over 512 flit-level runs (mesh radix
@@ -48,8 +51,8 @@ exits non-zero):
      cycles); then the main path's kernel variants are read (19
      epoch_step:split, 3 noc_step:node), every kernel call of phases 3 and
      4 is held against the plain version on its own inputs and each
-     noc_step call against the warp kernel bit for bit; both designs of
-     each simulator kernel are timed on the same inputs, per launch shape
+     noc_step call against the warp kernel bit for bit; every design of
+     each simulator kernel is timed on the same inputs, per launch shape
      (epoch_step on one call of each of its launch shapes: the DSE, Fig.
      10, a RESIPI and a RESIPI_ALL lane of Fig. 11 and Fig. 12, device time
      by CUDA-graph replays and the wrapper call; noc_step on the DSE and
@@ -60,7 +63,27 @@ exits non-zero):
      source (NOC_AB: the node kernel without, the warp kernel with the
      zero-numerator guard on its division, built beside the kernels in
      phase 1 and held bitwise to them);
-  5. LLM serving, the second main path, through `get_model(cfg)`,
+  5. streaming, session ticks, fault sweeps and the configurations past
+     128 chiplets / nodes, a main path of its own (`stream_phase`): the 8
+     apps of Fig. 11 concatenated to 800 intervals and streamed per arch
+     through `SimSession` in 64-interval chunks, held bit for bit to
+     one-shot `simulate`; 8 `session_tick`s of 256 lanes x 32 intervals
+     with per-lane destination matrices and one shared fault frame, lanes
+     0, 1 and 255 held bit for bit to standalone sessions; `sweep_faults`
+     with 64 frames over one trace with l_m zipped in; RESIPI at 144 and
+     256 chiplets (clean, destination matrices, a fault frame) and
+     RESIPI_ALL at 256 through `simulate` ("wide"), and `noc_run` on
+     12 x 12 and 16 x 16 meshes ("node"); its variant counts checked, every
+     kernel call held against plain, then the warm host ms of a
+     `step_chunk` and of a tick, the tick's device idle share (profiler),
+     each new launch shape's device time, plain time and bound, and the
+     evidence for `ops.variant`'s choice (GRID_DEFAULT), with and without
+     destination matrices: "wide" against "split" at 4, 8 and 16
+     chiplets with 8 and 512 lanes, and against "warp" at 24, 64 and 128
+     chiplets at 256, 1024 and 32 768 lanes, on the same inputs, failing
+     where the design picked takes more than GRID_SLACK times the other's
+     time;
+  6. LLM serving, the third main path, through `get_model(cfg)`,
      `prefill` and `decode_step`: (a) zamba2-7b at full width and depth
      (81 layers, 6.75 B parameters drawn on the card from a seeded
      generator, float32 as the reference keeps them), a batch of 4 prompts
@@ -79,16 +102,23 @@ exits non-zero):
      figure at the float32 peak beside it), prefill and
      decode tokens/s and peak memory, and (information only) zamba2's
      decode-vs-prefill consistency;
-  6. a `kernels` JSON line (launches on the main paths, error against
+  7. a `kernels` JSON line (launches on the main paths, error against
      plain, times, the bound and the kernel variant that ran) for all four
      kernels; the simulator kernels' entries add the first design's time
-     in the same run (`warp_ms`) and the times per launch shape
-     (`shapes`).
+     in the same run (`warp_ms`), the times per launch shape (`shapes`,
+     phase 5's among them) and the launches per main path.
 
 Phases 3 and 4 are the first main path: the launch counters are zeroed
 before phase 3 and read after the last DSE, before any check or timing.
-Each LLM run of phase 5 is a main path of its own, with the counters zeroed
-just before its prefill and read just after its last decode step.
+Phase 5 is the second, zeroed before its streaming and read after its last
+`noc_run`. Each LLM run of phase 6 is a main path of its own, with the
+counters zeroed just before its prefill and read just after its last
+decode step.
+`python3 chip_smoke.py --epoch-grid` builds epoch_step alone and times
+the whole design grid (GRID_FULL: 4-16 chiplets at 1-512 lanes, 17-128 at
+8-32 768, with and without destination matrices), the evidence for
+`ops.MIN_LANES`.
+
 The last line is {"ok": true, "device": {...}}. Without a card, or without
 the rest of the repository beside this file, it exits non-zero and prints
 no result.
@@ -134,6 +164,26 @@ NOC_RTOL, NOC_ATOL = 1e-5, 1e-3
 # min, sub (5); t_mask freeze of occ, residency and drained (8).
 OPS_PER_NODE_CYCLE = 26
 NOC_CYCLES = 8192
+# The epoch_step design grid: "wide" against the design that fills the
+# card with lanes ("split" at C <= 16, "warp" at 17-128), per (chiplets,
+# destination matrices, lanes), 100 intervals. The default run times points
+# either side of ops.MIN_LANES; `--epoch-grid` times the whole grid alone.
+# The design ops.variant picks must take at most GRID_SLACK times the
+# other's time.
+GRID_DEFAULT = ([(c, d, n) for c in (4, 8, 16) for d in (False, True)
+                 for n in (8, 512)]
+                + [(c, d, n) for c in (24, 64, 128) for d in (False, True)
+                   for n in (256, 1024, 32768)])
+GRID_FULL = ([(c, d, n) for c in (4, 5, 8, 12, 16) for d in (False, True)
+              for n in (1, 8, 16, 32, 64, 128, 256, 512)]
+             + [(c, d, n) for c in (17, 24, 32, 48, 64, 96, 128)
+                for d in (False, True)
+                for n in (8, 64, 256, 512, 1024, 2048, 4096, 32768)])
+GRID_SLACK = 1.25
+# Lanes up to which the grid holds both designs to the plain version (past
+# it, to each other: the plain version at 128 chiplets x 32 768 lanes with
+# destination matrices would take minutes).
+GRID_PLAIN_LANES = 512
 # A/B builds of noc_step.cu for the per-cycle breakdown: the node kernel
 # without its zero-numerator guard on space / want, the warp kernel with
 # it; each is the checked-out source with one expression replaced (both
@@ -142,7 +192,8 @@ NOC_AB = {
     "node-unguarded": ("fminf(1.f, fdiv_guarded(space, fmaxf(want, 1e-9f)))",
                        "fminf(1.f, space / fmaxf(want, 1e-9f))"),
     "warp-guarded": ("fminf(1.f, space / fmaxf(want, 1e-9f))",
-                     "fminf(1.f, fdiv_guarded(space, fmaxf(want, 1e-9f)))")}
+                     "fminf(1.f, fdiv_guarded(space, fmaxf(want, 1e-9f)))"),
+    "node-1024": ("if (threads <= kMaxNodes)", "if (false)")}
 DSE_RADIX, DSE_G, DSE_W = (4, 8), (1, 2, 3, 4), (2, 16)
 DSE_LOADS = np.linspace(0.02, 0.64, 32)
 DSE_PAD = 8 * 8 + 4                           # mesh radix 8 plus 4 sinks
@@ -152,7 +203,7 @@ DSE_PAD = 8 * 8 + 4                           # mesh radix 8 plus 4 sinks
 # (what its SIMT kernel's arithmetic is held to) is printed beside it, so
 # the row reads the same work whatever implements it.
 BF16_FLOPS_PER_S = 989e12
-# LLM serving (phase 5): (arch, batch, prompt tokens, decode steps).
+# LLM serving (phase 6): (arch, batch, prompt tokens, decode steps).
 LLM_RUNS = (("zamba2-7b", 4, 2048, 16), ("mamba2-130m", 8, 2048, 16))
 LLM_SEED = 2026
 # Bound of the whole prefill's logits against the same prefill with the
@@ -161,9 +212,23 @@ LLM_SEED = 2026
 # layer adds some to the residual stream and it persists, so on an H100
 # the plain bf16 prefill lands tens of percent from the float32 one, and
 # two bf16 prefills whose floats differ in the last bits part by about as
-# much (phase 5 prints both); no bf16 bound can hold there. In float32 the
+# much (phase 6 prints both); no bf16 bound can hold there. In float32 the
 # kernel and plain prefills part by under 1e-3 at the logits.
 PREFILL_F32_REL_TOL = 5e-3
+# Phase 5: streaming chunks, the session tick's shape, the fault sweep's
+# frame count, and the flit cases past 128 nodes.
+STREAM_CHUNK = 64
+TICK_LANES, TICK_CHUNK, TICK_COUNT = 256, 32, 8
+SWEEP_FRAMES = 64
+NOC_WIDE_CYCLES = 2048
+# The reference's Figs. 10-12 at the seeds their scripts use (the JAX
+# package on the CPU; the port's generator draws the same traces): Fig. 11
+# ReSiPI against PROWAVES in latency / power / energy to the printed digit,
+# Fig. 10's L_m, Fig. 12's settle times and gateway peak.
+FIG11_REFERENCE = {"latency": "33.6%", "power": "27.6%", "energy": "51.1%"}
+FIG10_REFERENCE_LM = "0.0060"
+FIG12_REFERENCE = {"resipi_settle": [3, 30], "prowaves_settle": [2, 30],
+                   "max_gateways_used": 18}
 
 
 def fail(msg: str) -> None:
@@ -272,17 +337,22 @@ def fault_frame(rng: np.random.RandomState, t: int, c: int, g: int) -> dict:
     return {"gw_ok": ok, "stuck_on": stuck, "drift_db": drift}
 
 
-def epoch_work(n, t, c, g, b, dest: bool) -> tuple:
-    """(bytes read once + written once, float ops) of one epoch_step call
-    without faults. Written per lane-interval: the six scalars the records
-    need (latency, power, laser, reconfiguration energy, mean inter-chiplet
-    latency, saturated) and g_eff, gw_load per chiplet; per lane the final
-    g. Read: ext, intra, mem, t_mask, dest per trace; lane_trace, the five
-    knobs and g0 per lane; the two selection-table rows."""
+def epoch_work(n, t, c, g, b, dest: bool, frames: int = 0) -> tuple:
+    """(bytes read once + written once, float ops) of one epoch_step call.
+    Written per lane-interval: the six scalars the records need (latency,
+    power, laser, reconfiguration energy, mean inter-chiplet latency,
+    saturated) and g_eff, gw_load per chiplet; per lane the final g. Read:
+    ext, intra, mem, t_mask, dest per trace; lane_trace, the five knobs and
+    g0 per lane; the two selection-table rows. `frames` fault frames (one
+    per trace, or one that every lane shares) add gw_ok and stuck_on
+    [T, C, G] and drift_db [T] each to the reads, and g_desired per
+    chiplet and the failed-slot count per lane-interval to the writes."""
     f = 4
     read = (2 * n * t * c + 2 * n * t + (n * c * c if dest else 0)) * f \
-        + b * (4 + 5 * f + c * f) + 2 * g * f
-    written = b * t * (6 + 2 * c) * f + b * c * f
+        + b * (4 + 5 * f + c * f) + 2 * g * f \
+        + frames * (2 * t * c * g + t) * f
+    written = b * t * (6 + 2 * c) * f + b * c * f \
+        + (b * t * (1 + c) * f if frames else 0)
     ops = b * t * (OPS_PER_LANE + c * OPS_PER_CHIPLET
                    + (c * c * OPS_PER_PAIR if dest else 0)
                    + c * g * OPS_PER_SLOT)
@@ -381,6 +451,67 @@ def build_noc_ab(backend, nops, name: str):
     return backend.build_library(f"noc_step-{name}", where / "noc_step.cu")
 
 
+def epoch_design_grid(dev, card: str, points, phase: str) -> dict:
+    """Time "wide" against the design ops.variant would otherwise run at
+    each (chiplets, destination matrices, lanes) point: one trace of
+    T_INTERVALS intervals, the lanes an l_m sweep over it, both designs in
+    turns (device time, CUDA-graph replays), both held to the plain version
+    (up to GRID_PLAIN_LANES lanes) or to each other. Fails where the design
+    ops.variant picks takes more than GRID_SLACK times the other's time."""
+    from repro_torch import interop
+    from repro_torch.core import simulator as S
+    from repro_torch.kernels.epoch_step import cases as ecases
+    from repro_torch.kernels.epoch_step import ops
+    from repro_torch.kernels.epoch_step.ref import epoch_run_reference
+
+    cfg = S.SimConfig().cfg
+    rows = {}
+    for c, dest, lanes_n in points:
+        csim = S.SimConfig(cfg=cfg.with_topology(n_chiplets=c))
+        rng = np.random.RandomState(c + lanes_n)
+        tr = ecases.make_trace(rng, T_INTERVALS, c,
+                               cfg.max_gateways_per_chiplet, dest=dest,
+                               faults=False)
+        state0, xs, tbl, kw = S.epoch_inputs(
+            interop.trace_from_numpy(tr, dev), csim, device=dev,
+            l_m=np.linspace(0.004, 0.03, lanes_n).astype(np.float32))
+        other = "split" if c <= ops.SPLIT_MAX_CHIPLETS else "warp"
+        row = {}
+        for kern in (other, "wide", other, "wide"):
+            run = lambda: ops.launch(state0.ctl.g, xs, csim, tbl,  # noqa
+                                     kernel=kern, **kw)
+            row.setdefault(kern, []).append(time_graph(run))
+        recs = {kern: ops._reassemble(state0, ops.launch(
+            state0.ctl.g, xs, csim, tbl, kernel=kern, **kw), xs, csim,
+            False)[1] for kern in (other, "wide")}
+        label = f"{c} chiplets x {lanes_n} lanes{' (dest)' if dest else ''}"
+        if lanes_n <= GRID_PLAIN_LANES:
+            want = epoch_run_reference(state0, xs, csim, tbl, **kw)[1]
+            for kern, got in recs.items():
+                compare(got, want, f"{kern} at {label}")
+            held = "both == plain at 1e-6"
+        else:
+            compare(recs["wide"], recs[other], f"wide vs {other} at {label}")
+            held = f"wide == {other} at 1e-6"
+        chosen = ops.variant(c, False, dest, lanes_n)
+        ms = {k: float(np.median(v)) for k, v in row.items()}
+        ratio = ms[chosen] / min(ms.values())
+        rows[f"c{c}{'d' if dest else ''}x{lanes_n}"] = dict(
+            row, chiplets=c, dest=dest, lanes=lanes_n, chosen=chosen,
+            chosen_over_fastest=ratio)
+        say(phase, f"design choice, {label} x {T_INTERVALS} intervals: "
+                   + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.4f} ms"
+                               for k, v in row.items())
+                   + f" (device, in turns; {held}); ops.variant picks "
+                     f"{chosen}, {ratio:.3f}x the faster; card: {card}")
+        if ratio > GRID_SLACK:
+            fail(f"ops.variant picks {chosen} at {label}, {ratio:.3f}x the "
+                 f"faster design's time (slack {GRID_SLACK})")
+        del state0, xs, tbl, kw, recs
+        torch.cuda.empty_cache()
+    return rows
+
+
 def noc_cycle_probe(nops, prep: dict, runs: list, ab_libs: dict,
                     card: str) -> None:
     """Information: what one simulated cycle costs each noc_step design,
@@ -464,7 +595,7 @@ def ssd_work(b, nc, q, h, p, g, n, in_bytes) -> tuple:
     return nbytes, ops
 
 
-def device_breakdown(fn, label: str, top: int = 6, phase: str = "5"):
+def device_breakdown(fn, label: str, top: int = 6, phase: str = "6"):
     """Information: one call of `fn` under torch.profiler; prints its host
     wall time, the summed device time of its kernels, the device's busy
     share (kernels run one at a time on one stream) and the kernels that
@@ -562,7 +693,7 @@ def llm_checked_ops(fops, sops, flash_ref, ssd_ref, errs: dict,
 
 
 def serve_llms(dev, card: str, fops, sops, llm_err: dict) -> list:
-    """Phase 5: the LLM serving main paths (LLM_RUNS), then the two LLM
+    """Phase 6: the LLM serving main paths (LLM_RUNS), then the two LLM
     kernels' timings; returns their rows of the `kernels` line."""
     from repro_torch import backend
     from repro_torch.configs import get_config
@@ -588,7 +719,7 @@ def serve_llms(dev, card: str, fops, sops, llm_err: dict) -> list:
         toks = torch.randint(0, cfg.real_vocab, (batch, prompt), device=dev,
                              generator=gen)
         torch.cuda.synchronize()
-        say("5", f"{arch}: {count_params(model.spec()) / 1e9:.4g} B "
+        say("6", f"{arch}: {count_params(model.spec()) / 1e9:.4g} B "
                  f"parameters drawn on the card in "
                  f"{time.perf_counter() - t0:.2f} s (float32, "
                  f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
@@ -638,7 +769,7 @@ def serve_llms(dev, card: str, fops, sops, llm_err: dict) -> list:
         for what, lg in (("prefill", prefill_logits), ("decode", logits)):
             if not torch.isfinite(lg.float()).all():
                 fail(f"{arch}: {what} logits not finite")
-        say("5", f"{arch}: prefill {batch} x {prompt} + {steps} greedy "
+        say("6", f"{arch}: prefill {batch} x {prompt} + {steps} greedy "
                  f"decode steps; launches {launches}, variants {variants} "
                  f"(expected); every "
                  f"launch == plain on its own inputs (max abs err "
@@ -668,7 +799,7 @@ def serve_llms(dev, card: str, fops, sops, llm_err: dict) -> list:
             fail(f"{arch}: float32 prefill logits vs the plain-op prefill: "
                  f"relative RMS {rel:.3g} beyond {PREFILL_F32_REL_TOL}")
         bf_k, bf_p = got[torch.bfloat16, False], got[torch.bfloat16, True]
-        say("5", f"{arch}: prefill logits == plain-op prefill in float32 "
+        say("6", f"{arch}: prefill logits == plain-op prefill in float32 "
                  f"compute (relative RMS {rel:.3g}, bound "
                  f"{PREFILL_F32_REL_TOL}; max abs diff "
                  f"{float((f32_k - f32_p).abs().max()):.3g} on logits of RMS "
@@ -698,7 +829,7 @@ def serve_llms(dev, card: str, fops, sops, llm_err: dict) -> list:
             del caches
         peak = torch.cuda.max_memory_allocated() / 2**30
         p_s, d_s = float(np.median(prefill_s)), float(np.median(decode_s))
-        say("5", f"{arch}: prefill {batch * prompt / p_s:.6g} tokens/s "
+        say("6", f"{arch}: prefill {batch * prompt / p_s:.6g} tokens/s "
                  f"({p_s:.4f} s median of 3), decode "
                  f"{batch * steps / d_s:.6g} tokens/s ({d_s / steps * 1e3:.3f}"
                  f" ms a step, median of 3 runs of {steps}); peak memory "
@@ -728,7 +859,7 @@ def serve_llms(dev, card: str, fops, sops, llm_err: dict) -> list:
                                       max_len)
             step_logits, _ = model.decode_step(params, toks[:, -1:], caches)
             diff = step_logits.float() - prefill_logits.float()
-            say("5", f"{arch}: decode-vs-prefill consistency (information): "
+            say("6", f"{arch}: decode-vs-prefill consistency (information): "
                      f"max abs diff {float(diff.abs().max()):.4g}, relative "
                      f"RMS {rel_rms(step_logits, prefill_logits):.4g}")
             del caches
@@ -758,7 +889,7 @@ def serve_llms(dev, card: str, fops, sops, llm_err: dict) -> list:
     nbytes, flops = flash_work(b, s_len, h, d, q.element_size(), causal)
     t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
     bound_ms, bound_by = max((t_b, "bytes"), (t_o, "operations"))
-    say("5", f"flash_attention {variant} kernel at [{b}, {s_len}, {h}, {d}] "
+    say("6", f"flash_attention {variant} kernel at [{b}, {s_len}, {h}, {d}] "
              f"{q.dtype}, causal: median {ms:.4f} ms (SIMT kernel "
              f"{simt_ms:.4f} ms); plain {plain_ms:.3f} ms; SDPA "
              f"{lib_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
@@ -794,7 +925,7 @@ def serve_llms(dev, card: str, fops, sops, llm_err: dict) -> list:
                                  (n_ops / BF16_FLOPS_PER_S * 1e3,
                                   "operations"))
         f32_bound_ms = max(t_b, n_ops / F32_FLOPS_PER_S * 1e3)
-        say("5", f"ssd_scan {variant} kernel, {arch} layer [B {bsz}, NC "
+        say("6", f"ssd_scan {variant} kernel, {arch} layer [B {bsz}, NC "
                  f"{nc}, Q {cq}, H {h}, P {p}, G {g}, N {n}] {x.dtype}: "
                  f"median {ms:.4f} ms (SIMT kernel {simt_ms:.4f} ms); plain "
                  f"{plain_ms:.3f} ms; no library call; bound {bound_ms:.4f} "
@@ -817,7 +948,302 @@ def serve_llms(dev, card: str, fops, sops, llm_err: dict) -> list:
     return rows
 
 
+def stream_phase(dev, card: str) -> dict:
+    """Phase 5, a main path of its own at the Table-1 widths (counters
+    zeroed before (a), read after (d)): (a) the 8 PARSEC apps of Fig. 11
+    (twin, seed 1) concatenated to 800 intervals, streamed per arch
+    through a `SimSession` in STREAM_CHUNK-interval chunks (the ragged
+    last one padded) and held bit for bit to one-shot `simulate`; (b)
+    `session_tick` over TICK_LANES lanes x TICK_CHUNK intervals for
+    TICK_COUNT ticks with per-lane destination matrices and one shared
+    fault frame (a gateway fault and a link flap), lanes 0, 1 and the last
+    held bit for bit to standalone sessions; (c) `sweep_faults` with
+    SWEEP_FRAMES frames over one trace with l_m zipped in; (d) the F1
+    cases past 128 chiplets / nodes (`kernels/*/cases.py`: RESIPI at 144
+    and 256 chiplets clean, with destination matrices and with a fault
+    frame, RESIPI_ALL at 256; noc_run on 12 x 12 and 16 x 16 meshes). Then
+    every kernel call of the path is held against its plain version on its
+    own inputs, and the host and device times, bounds and the design
+    choice around ops.MIN_LANES are measured. Returns the rows the `kernels`
+    line adds."""
+    from repro_torch import backend, figures, interop
+    from repro_torch import random as trandom
+    from repro_torch.core import faults, traffic
+    from repro_torch.core import simulator as S
+    from repro_torch.kernels.epoch_step import cases as ecases
+    from repro_torch.kernels.epoch_step import ops
+    from repro_torch.kernels.epoch_step.ref import epoch_run_reference
+    from repro_torch.kernels.noc_step import cases as ncases
+    from repro_torch.kernels.noc_step import ops as nops
+    from repro_torch.kernels.noc_step.ref import reference_noc_run
+
+    apps = traffic.APP_NAMES
+    cfg = S.SimConfig().cfg
+    g_slots = cfg.max_gateways_per_chiplet
+    # Inputs (set-up, before the counters are zeroed).
+    f11 = figures.fig11_traces(T_INTERVALS, seed=1, device=dev)
+    stream = traffic.concat_traces([f11[a] for a in apps])
+    keys = trandom.split(trandom.prng_key(17, device=dev), TICK_LANES)
+    lanes = [list(traffic.chunk_trace(traffic.generate(
+        traffic.ParsecSpec(apps[i % len(apps)], TICK_CHUNK * TICK_COUNT),
+        keys[i], dest=True, device=dev), TICK_CHUNK))
+        for i in range(TICK_LANES)]
+    frame = faults.compile_faults(
+        [faults.GatewayFault(chiplet=1, slot=0, start=4, end=20),
+         faults.LinkFlap(chiplet=2, p_down=0.2, p_up=0.5)],
+        cfg, TICK_CHUNK, seed=3)
+    frame_t = interop.fault_frame_from_numpy(frame, dev)
+    sweep_trace = traffic.generate(traffic.ParsecSpec("dedup", T_INTERVALS),
+                                   23, dest=True, device=dev)
+    frames = [faults.compile_faults(
+        [faults.LinkFlap(chiplet=k % 4, p_down=0.1 + 0.005 * k),
+         faults.GatewayFault(chiplet=(k + 1) % 4, slot=k % g_slots,
+                             start=k % 50, end=k % 50 + 30),
+         faults.PcmStuckCell(chiplet=(k + 2) % 4, slot=(k + 1) % g_slots,
+                             mode="on" if k % 2 else "off"),
+         faults.LossDrift(db_per_interval=0.001 * (k % 8))],
+        cfg, T_INTERVALS, seed=k) for k in range(SWEEP_FRAMES)]
+    sweep_lm = np.linspace(0.004, 0.03, SWEEP_FRAMES).astype(np.float32)
+    wide = [(c, interop.trace_from_numpy(c.trace, dev))
+            for c in ecases.wide_cases(T_INTERVALS)]
+    noc_wide = ncases.kernel_cases(dev, NOC_WIDE_CYCLES,
+                                   names=ncases.WIDE_NAMES)
+
+    calls, noc_calls = [], []
+    kernel_epoch_run, kernel_noc_run = ops.epoch_run, nops.noc_run
+    part = ""
+
+    def recorded_epoch_run(state, xs, sim, tables, **kw):
+        out = kernel_epoch_run(state, xs, sim, tables, **kw)
+        calls.append((part, state, xs, sim, tables, kw, out))
+        return out
+
+    def recorded_noc_run(*args, **kw):
+        out = kernel_noc_run(*args, **kw)
+        noc_calls.append((part, args, kw, out))
+        return out
+
+    ops.epoch_run, nops.noc_run = recorded_epoch_run, recorded_noc_run
+    torch.cuda.synchronize()
+    backend.reset_counters()                     # main path starts
+    # (a) streaming, every arch
+    part = "stream"
+    n_chunks = 0
+    for arch in S.Arch:
+        sim = S.SimConfig().with_arch(arch)
+        one = S.simulate(stream, sim, device=dev)
+        sess = S.SimSession.init(sim, device=dev)
+        recs = [sess.step_chunk(c)["records"]
+                for c in traffic.chunk_trace(stream, STREAM_CHUNK, pad=True)]
+        n_chunks = len(recs)
+        total = 8 * T_INTERVALS
+        for k, v in one["records"].items():
+            if not torch.equal(torch.cat([r[k] for r in recs])[:total], v):
+                fail(f"streaming {arch.value}: chunked {k} differs from "
+                     f"one-shot simulate")
+        if sess.intervals_seen != total:
+            fail(f"streaming {arch.value}: {sess.intervals_seen} intervals "
+                 f"seen, expected {total}")
+    # (b) session ticks
+    part = "tick"
+    sim = S.SimConfig()
+    states = S.init_session_states(sim, TICK_LANES, device=dev)
+    tables = S.selection_tables_torch(sim.cfg, dev)
+    watched = (0, 1, TICK_LANES - 1)
+    solo = {k: S.SimSession.init(sim, device=dev) for k in watched}
+    tick_batches = []
+    for tick in range(TICK_COUNT):
+        chunks = [lane[tick] for lane in lanes]
+        batch = {k: torch.stack([c[k] for c in chunks])
+                 for k in ("ext_load", "mem_load", "int_load", "ext_frac",
+                           "dest")}
+        batch["t_mask"] = torch.ones((TICK_LANES, TICK_CHUNK), device=dev)
+        tick_batches.append(batch)
+        kept = state_fields(states)
+        kept = {k: v.clone() for k, v in kept.items()}
+        new, recs, sums = S.session_tick(states, batch, tables, sim,
+                                         frame=frame_t)
+        for k, v in state_fields(states).items():
+            if not torch.equal(v, kept[k]):
+                fail(f"session_tick changed the carry it was given ({k})")
+        states = new
+        for k in watched:
+            out = solo[k].step_chunk(faults.attach_faults(chunks[k], frame))
+            for n, v in out["records"].items():
+                if not torch.equal(recs[n][k], v):
+                    fail(f"tick {tick} lane {k}: {n} differs from a "
+                         f"standalone session")
+            mine = S.summary_from_sums({n: v[k] for n, v in sums.items()},
+                                       sim.cfg.n_chiplets)
+            for n, v in out["summary"].items():
+                if not torch.equal(mine[n], v):
+                    fail(f"tick {tick} lane {k}: sums ({n}) differ from a "
+                         f"standalone session")
+    # (c) a fault-frame sweep
+    part = "sweep_faults"
+    swept = S.sweep_faults(sweep_trace, sim, frames, device=dev, l_m=sweep_lm)
+    # (d) the F1 cases
+    part = "f1"
+    for case, trace in wide:
+        S.simulate(trace, case.sim, device=dev)
+    for case in noc_wide:
+        nops.noc_run(*case.args, **case.kwargs)
+    torch.cuda.synchronize()
+    launches = dict(backend.COUNTERS["launches"])      # main path ends
+    variants = dict(backend.COUNTERS["variants"])
+    ops.epoch_run, nops.noc_run = kernel_epoch_run, kernel_noc_run
+
+    kernel_archs = sum(a in S.KERNEL_ARCHS for a in S.Arch)
+    want = {f"{ops.NAME}:split": kernel_archs * (n_chunks + 1)
+            + TICK_COUNT * (1 + len(watched)) + 1,
+            f"{ops.NAME}:wide": len(wide),
+            f"{nops.NAME}:node": len(noc_wide)}
+    if variants != want:
+        fail(f"phase 5 main path kernel variants {variants}, expected "
+             f"{want}")
+    say("5", f"main path: {json.dumps(launches)} launches, variants "
+             f"{json.dumps(variants)}: (a) {len(list(S.Arch))} archs x "
+             f"{n_chunks} chunks of {STREAM_CHUNK} ({8 * T_INTERVALS} "
+             f"intervals) == "
+             f"one-shot simulate bitwise; (b) {TICK_COUNT} ticks of "
+             f"{TICK_LANES} lanes x {TICK_CHUNK}, lanes {watched} == "
+             f"standalone sessions bitwise (records and sums), the carry "
+             f"passed in unchanged; (c) sweep_faults {SWEEP_FRAMES} frames; "
+             f"(d) {len(wide)} simulate calls past 128 chiplets, "
+             f"{len(noc_wide)} noc_run calls past 128 nodes")
+    for k, v in swept["summary"].items():
+        if v.shape != (SWEEP_FRAMES,) or not torch.isfinite(v).all():
+            fail(f"sweep_faults summary {k} malformed")
+
+    # Every kernel call of the path against the plain version.
+    err, checked = 0.0, {}
+    for name, state0, xs, csim, tbl, kw, (got_state, got) in calls:
+        want_state, want_recs = epoch_run_reference(state0, xs, csim, tbl,
+                                                    **kw)
+        e = max(compare(got, want_recs, f"phase 5 {name}"),
+                compare(state_fields(got_state), state_fields(want_state),
+                        f"phase 5 {name} state"))
+        err = max(err, e)
+        n, m = checked.get(name, (0, 0.0))
+        checked[name] = (n + 1, max(m, e))
+    noc_err = 0.0
+    for name, args, kw, got in noc_calls:
+        noc_err = max(noc_err, noc_compare(got, reference_noc_run(*args,
+                                                                  **kw),
+                                           f"phase 5 {name}"))
+    say("5", "every kernel call == plain version on its own inputs: "
+             + ", ".join(f"{k} {n} call(s) max abs err {m:.3g}"
+                         for k, (n, m) in checked.items())
+             + f"; noc_run past 128 nodes max abs err {noc_err:.3g}")
+
+    # Host times (warm, host clock, each call ended by a synchronize).
+    def host_ms(fn, reps):
+        out = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(out))
+
+    chunk0 = next(iter(traffic.chunk_trace(stream, STREAM_CHUNK)))
+    for arch in S.Arch:
+        sess = S.SimSession.init(S.SimConfig().with_arch(arch), device=dev)
+        sess.step_chunk(chunk0)
+        say("5", f"(a) {arch.value}: warm step_chunk ({STREAM_CHUNK} "
+                 f"intervals) {host_ms(lambda: sess.step_chunk(chunk0), 9):.3f}"
+                 f" ms (host clock, median of 9); card: {card}")
+    tick = lambda: S.session_tick(states, tick_batches[0], tables, sim,  # noqa
+                                  frame=frame_t)
+    tick()
+    tick_ms = host_ms(tick, 9)
+    prof = device_breakdown(tick, "(b) session_tick warm", top=6, phase="5")
+    idle = None if prof is None else \
+        1.0 - sum(prof[1].values()) / 1e6 / prof[0]
+    say("5", f"(b) session_tick warm: {tick_ms:.3f} ms a tick ({TICK_LANES} "
+             f"lanes x {TICK_CHUNK} intervals; host clock, median of 9); "
+             f"device idle share "
+             f"{'not measured' if idle is None else f'{idle:.1%}'} "
+             f"(profiled tick); card: {card}")
+    sweep_ms = host_ms(lambda: S.sweep_faults(sweep_trace, sim, frames,
+                                              device=dev, l_m=sweep_lm), 3)
+    say("5", f"(c) sweep_faults {SWEEP_FRAMES} frames x {T_INTERVALS} "
+             f"intervals: {sweep_ms:.3f} ms (entry point, host clock, "
+             f"median of 3); card: {card}")
+
+    # Device time per launch shape, beside its bound and the plain time.
+    shape_calls = {"tick": next(c for c in calls if c[0] == "tick"
+                                and int(c[5]["lane_trace"].shape[0])
+                                == TICK_LANES),
+                   "sweep_faults": next(c for c in calls
+                                        if c[0] == "sweep_faults")}
+    for (case, _), c in zip(wide, [c for c in calls if c[0] == "f1"]):
+        shape_calls[case.name] = c
+    epoch_rows = {}
+    for label, (_, state0, xs, csim, tbl, kw, _) in shape_calls.items():
+        kern = ops.variant(xs[0].shape[2], kw["faulted"],
+                           kw["dest"] is not None, state0.ctl.g.shape[0])
+        run = lambda: ops.launch(state0.ctl.g, xs, csim, tbl,  # noqa: E731
+                                 **kw)
+        ms = time_graph(run)
+        plain = time_cuda(lambda: epoch_run_reference(state0, xs, csim, tbl,
+                                                      **kw), 1)[0]
+        n_tr, t_len, c = xs[0].shape
+        n_lanes = int(kw["lane_trace"].shape[0])
+        shared = kw["faulted"] and xs[5].stride(0) == 0
+        # One trace expanded over the lanes (sweep_faults) is read once.
+        n_read = 1 if xs[0].stride(0) == 0 else n_tr
+        nbytes, n_ops = epoch_work(
+            n_read, t_len, c, csim.cfg.max_gateways_per_chiplet, n_lanes,
+            dest=kw["dest"] is not None,
+            frames=(1 if shared else n_tr) if kw["faulted"] else 0)
+        bound, by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                        (n_ops / F32_FLOPS_PER_S * 1e3, "operations"))
+        epoch_rows[label] = {"variant": kern, "lanes": n_lanes,
+                             "intervals": t_len, "chiplets": c, "ms": ms,
+                             "plain_ms": plain, "bound_ms": bound,
+                             "bound_by": by}
+        say("5", f"epoch_step {label} launch ({kern}; {n_lanes} lane(s) x "
+                 f"{t_len} intervals x {c} chiplets): {ms:.4f} ms (device: "
+                 f"CUDA-graph replays, median of 5); plain version "
+                 f"{plain:.2f} ms once; bound {bound:.4f} ms by {by} "
+                 f"({nbytes / 1e6:.2f} MB, {n_ops / 1e9:.4f} GFLOP); card: "
+                 f"{card}")
+    noc_rows = {}
+    for name, args, kw, _ in noc_calls:
+        prep = nops.prepare(args[0][None], *args[1:], **kw)
+        run = lambda: nops.run_prepared(prep)  # noqa: E731
+        time_cuda(run, 2)
+        ms = float(np.median(time_cuda(run, 5)))
+        plain = time_cuda(lambda: reference_noc_run(*args, **kw), 1)[0]
+        nbytes, n_ops = noc_work(prep, kw.get("t_mask") is not None,
+                                 nops.MAX_IN_DEGREE)
+        bound, by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                        (n_ops / F32_FLOPS_PER_S * 1e3, "operations"))
+        label = f"R{args[0].shape[-1]}"
+        noc_rows[label] = {"variant": "node", "nodes": args[0].shape[-1],
+                           "cycles": args[0].shape[0], "ms": ms,
+                           "plain_ms": plain, "bound_ms": bound,
+                           "bound_by": by}
+        say("5", f"noc_step node launch, {args[0].shape[-1]} nodes x "
+                 f"{args[0].shape[0]} cycles: {ms:.4f} ms (CUDA events, "
+                 f"median of 5); plain version {plain:.1f} ms once; bound "
+                 f"{bound:.4f} ms by {by}; card: {card}")
+
+    # The evidence for ops.variant's choice, around its thresholds.
+    choice = epoch_design_grid(dev, card, GRID_DEFAULT, "5")
+    return {"epoch_launches": launches.get(ops.NAME, 0),
+            "noc_launches": launches.get(nops.NAME, 0),
+            "epoch_err": err, "noc_err": noc_err, "epoch_shapes": epoch_rows,
+            "noc_shapes": noc_rows, "design_choice": choice,
+            "variants": variants}
+
+
 def main() -> int:
+    grid_only = sys.argv[1:] == ["--epoch-grid"]
+    if sys.argv[1:] and not grid_only:
+        print("usage: chip_smoke.py [--epoch-grid]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false); this script measures the port on the card",
@@ -861,6 +1287,15 @@ def main() -> int:
     print(card, flush=True)
     say("1", f"device {kind} x{count}; torch {torch.__version__} cuda "
              f"{torch.version.cuda}")
+    if grid_only:
+        ops.build()
+        grid = epoch_design_grid(dev, card, GRID_FULL, "grid")
+        print(json.dumps({"design_grid": grid}), flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": kind,
+                                                 "count": count}}),
+              flush=True)
+        return 0
     t0 = time.perf_counter()
     kernels = (ops, nops, fops, sops)
     with ThreadPoolExecutor(len(kernels) + len(NOC_AB)) as pool:
@@ -891,6 +1326,9 @@ def main() -> int:
              f"this run: {backend.COUNTERS['builds']})")
     for m, designs in ((ops, (("split", "epoch_recurrence_kernel"),
                               ("split", "epoch_metrics_kernel"),
+                              ("wide", "epoch_recv_kernel"),
+                              ("wide", "epoch_wide_recurrence_kernel"),
+                              ("wide", "epoch_wide_metrics_kernel"),
                               ("warp", "epoch_step_kernel"))),
                        (nops, (("node", "noc_node_kernel"),
                                ("warp", "noc_step_kernel")))):
@@ -965,15 +1403,17 @@ def main() -> int:
         err = compare(got, want, name)
         err = max(err, compare(state_fields(got_state),
                                state_fields(want_state), name + " state"))
-        # The first design ("warp") on the same inputs, held alike.
-        warp_state, warp = ops._reassemble(
-            state0, ops.launch(state0.ctl.g, xs, sim, tables, kernel="warp",
-                               **kw), xs, sim, kw["faulted"])
-        torch.cuda.synchronize()
-        warp_err = max(compare(warp, want, name + " (warp kernel)"),
-                       compare(state_fields(warp_state),
-                               state_fields(want_state),
-                               name + " state (warp kernel)"))
+        # The other designs ("warp", "wide") on the same inputs, held alike.
+        other_err = {}
+        for kern in ("warp", "wide"):
+            o_state, o = ops._reassemble(
+                state0, ops.launch(state0.ctl.g, xs, sim, tables,
+                                   kernel=kern, **kw), xs, sim, kw["faulted"])
+            torch.cuda.synchronize()
+            other_err[kern] = max(
+                compare(o, want, f"{name} ({kern} kernel)"),
+                compare(state_fields(o_state), state_fields(want_state),
+                        f"{name} state ({kern} kernel)"))
         if name.startswith("ragged"):
             # The all-masked lane returns its input carry untouched.
             lane = state_fields(got_state)
@@ -983,7 +1423,9 @@ def main() -> int:
         max_err = max(max_err, err)
         say("2", f"{name}: {int(kw['lane_trace'].shape[0])} lanes x "
                  f"{xs[0].shape[1]} intervals, {ran} kernel == plain "
-                 f"(max abs err {err:.3g}; warp kernel {warp_err:.3g})")
+                 f"(max abs err {err:.3g}; warp kernel "
+                 f"{other_err['warp']:.3g}, wide kernel "
+                 f"{other_err['wide']:.3g})")
 
     noc_err = 0.0
     for case in noc_cases.kernel_cases(dev, 2048, fig13_cycles=NOC_CYCLES):
@@ -1072,9 +1514,13 @@ def main() -> int:
         return out
 
     nops.noc_run = recorded_noc_run
+    # Figs. 10-12 draw the reference's workloads (the threefry twin, the
+    # seeds and keys of its scripts), so they must give its numbers.
+    traces11 = figures.fig11_traces(T_INTERVALS, seed=1, device=dev)
+    traces10 = figures.fig10_traces(60, seed=7, device=dev)
+    seq = figures.fig12_trace(T_INTERVALS, seed=3, device=dev)
     phase = "fig11"
     sim_mod.reset_engine_stats()
-    traces11 = traffic.all_app_traces(T_INTERVALS, seed=1, device=dev)
     f11 = figures.fig11_main(traces11, device=dev)
     means = {arch: {m: float(np.mean([f11["per_app"][a][arch][m]
                                       for a in apps]))
@@ -1091,29 +1537,34 @@ def main() -> int:
               "energy": s["energy_reduction_vs_prowaves"]}
     say("3", "fig11 ReSiPI vs PROWAVES: " + ", ".join(
         f"{k} -{v:.1%}" for k, v in deltas.items())
-        + " (paper -37% / -25% / -53%)")
+        + " (paper -37% / -25% / -53%; the reference -"
+        + " / -".join(FIG11_REFERENCE.values()) + ")")
     for k, v in deltas.items():
-        if not 0.10 <= v <= 0.70:
-            fail(f"fig11 {k} reduction vs PROWAVES {v:.3f} outside "
-                 f"[0.10, 0.70]")
+        if f"{v:.1%}" != FIG11_REFERENCE[k]:
+            fail(f"fig11 {k} reduction vs PROWAVES {v:.4%} is not the "
+                 f"reference's {FIG11_REFERENCE[k]}")
     phase = "fig10"
-    traces10 = traffic.all_app_traces(60, seed=7, device=dev)
-    f10 = figures.fig10_dse([traces10[a] for a in apps], device=dev)
+    f10 = figures.fig10_dse(traces10, device=dev)
     say("3", f"fig10 L_m selected {f10['l_m_selected']:.4f} (paper "
-             f"0.0152), {f10['n_accepted']} points in the 10% band")
+             f"0.0152, the reference {FIG10_REFERENCE_LM}), "
+             f"{f10['n_accepted']} points in the 10% band")
+    if f"{f10['l_m_selected']:.4f}" != FIG10_REFERENCE_LM:
+        fail(f"fig10 L_m {f10['l_m_selected']:.5f} is not the reference's "
+             f"{FIG10_REFERENCE_LM}")
     phase = "fig12"
-    gen = torch.Generator().manual_seed(3)
-    seq = traffic.concat_traces([
-        traffic.generate_trace(a, T_INTERVALS, gen, device=dev)
-        for a in figures.FIG12_SEQUENCE])
     f12 = figures.fig12_adaptivity(seq, per_app=T_INTERVALS, device=dev)
     say("3", f"fig12 settle after switches: ReSiPI "
              f"{f12['adaptation']['resipi_settle']}, PROWAVES "
-             f"{f12['adaptation']['prowaves_settle']} (paper ~3 / ~5); "
-             f"max gateways {f12['max_gateways_used']} (paper 18)")
+             f"{f12['adaptation']['prowaves_settle']} (paper ~3 / ~5; the "
+             f"reference {FIG12_REFERENCE['resipi_settle']} / "
+             f"{FIG12_REFERENCE['prowaves_settle']}); max gateways "
+             f"{f12['max_gateways_used']} (paper 18)")
     for k in ("latency_resipi", "power_resipi", "latency_prowaves"):
         if not np.all(np.isfinite(f12[k])) or len(f12[k]) != 3 * T_INTERVALS:
             fail(f"fig12 {k} malformed")
+    got12 = dict(f12["adaptation"], max_gateways_used=f12["max_gateways_used"])
+    if got12 != FIG12_REFERENCE:
+        fail(f"fig12 {got12} is not the reference's {FIG12_REFERENCE}")
 
     phase = "fig13"
     f13 = figures.fig13_residency(device=dev)
@@ -1268,13 +1719,13 @@ def main() -> int:
         "fig12": next(c for c in calls if c[0] == "fig12")}
     del calls
 
-    # Kernel times per launch shape, both designs on the same inputs: the
+    # Kernel times per launch shape, every design on the same inputs: the
     # device time of the launch(es) alone (CUDA-graph replays, median of 5)
     # and the wrapper call around them (CUDA events, median of 5).
     epoch_shapes = {}
     for label, (_, state0, xs, csim, tables, kw, _) in shape_calls.items():
         row = {}
-        for kern in ("split", "warp"):
+        for kern in ("split", "warp", "wide"):
             run = lambda: ops.launch(state0.ctl.g, xs, csim, tables,  # noqa
                                      kernel=kern, **kw)
             row[f"{kern}_ms"] = time_graph(run)
@@ -1291,11 +1742,12 @@ def main() -> int:
                                    bound_ms=bound, bound_by=by)
         say("4", f"epoch_step {label} launch ({n_lanes} lane(s) x {t_len} "
                  f"intervals): split {row['split_ms']:.4f} ms, warp "
-                 f"{row['warp_ms']:.4f} ms (device: CUDA-graph replays, "
-                 f"median of 5; split "
-                 f"{'faster' if row['split_ms'] < row['warp_ms'] else 'NOT faster'}"
+                 f"{row['warp_ms']:.4f} ms, wide {row['wide_ms']:.4f} ms "
+                 f"(device: CUDA-graph replays, median of 5; split "
+                 f"{'fastest' if row['split_ms'] < min(row['warp_ms'], row['wide_ms']) else 'NOT fastest'}"
                  f"); wrapper call split {row['split_call_ms']:.4f} / warp "
-                 f"{row['warp_call_ms']:.4f} ms; bound {bound:.4f} ms by {by} "
+                 f"{row['warp_call_ms']:.4f} / wide {row['wide_call_ms']:.4f} "
+                 f"ms; bound {bound:.4f} ms by {by} "
                  f"({nbytes / 1e6:.2f} MB, {n_ops / 1e9:.3f} GFLOP); card: "
                  f"{card}")
     _, state0, xs, sim, tables, kw, _ = dse_call
@@ -1363,13 +1815,31 @@ def main() -> int:
     # Kernel times: median of 5 launches after warm-up, CUDA events, on
     # inputs prepared once (routing, defaults) as the wrapper prepares them,
     # both designs in turns.
+    # "node-1024" is the node kernel's instantiation bounded to 1024
+    # threads, which runs R > 128, forced here at R <= 128 (NOC_AB) and
+    # held bitwise to the 128-bounded one the wrapper runs.
     noc_shapes = {}
+    kernel_build = nops.build
     for label, prep in noc_preps.items():
         row = {}
-        for kern in ("node", "warp", "node", "warp"):
-            run = lambda: nops.run_prepared(prep, kernel=kern)  # noqa: E731
-            time_cuda(run, 2)
-            row.setdefault(kern, []).append(float(np.median(time_cuda(run, 5))))
+        for name in ("node", "warp", "node-1024") * 2:
+            lib = noc_ab_libs.get(name) or kernel_build()
+            kern = "warp" if name == "warp" else "node"
+            first = name == "node-1024" and name not in row
+            want = nops.run_prepared(prep) if first else None
+            nops.build = lambda: lib                    # noqa: B023
+            try:
+                run = lambda: nops.run_prepared(prep, kernel=kern)  # noqa
+                for a, b in zip(run() if first else (), want or ()):
+                    if not torch.equal(a, b):
+                        fail(f"noc_step {label}: the node kernel bounded "
+                             f"to 1024 threads differs from the 128-bounded "
+                             f"one")
+                time_cuda(run, 2)
+                row.setdefault(name, []).append(
+                    float(np.median(time_cuda(run, 5))))
+            finally:
+                nops.build = kernel_build
         b_runs, t_cyc, _ = prep["arrivals"].shape
         nbytes, n_ops = noc_work(prep, noc_kw[label].get("t_mask")
                                  is not None, nops.MAX_IN_DEGREE)
@@ -1379,11 +1849,16 @@ def main() -> int:
                              "ms": row["node"][0], "warp_ms": row["warp"][0],
                              "ms_again": row["node"][1],
                              "warp_ms_again": row["warp"][1],
+                             "node1024_ms": row["node-1024"][0],
+                             "node1024_ms_again": row["node-1024"][1],
                              "bound_ms": bound, "bound_by": by}
         say("4", f"noc_step {label} launch ({b_runs} run(s) x {t_cyc} "
                  f"cycles): node {row['node'][0]:.4f} ms (again "
                  f"{row['node'][1]:.4f}), warp {row['warp'][0]:.4f} ms (again "
-                 f"{row['warp'][1]:.4f}) (CUDA events, median of 5 each); "
+                 f"{row['warp'][1]:.4f}), node bounded to 1024 threads "
+                 f"{row['node-1024'][0]:.4f} ms (again "
+                 f"{row['node-1024'][1]:.4f}) (CUDA events, median of 5 "
+                 f"each, in turns); "
                  f"bound {bound:.4f} ms by {by}; card: {card}")
     prep = noc_preps["dse"]
     nb, nt, nr = prep["arrivals"].shape
@@ -1403,29 +1878,41 @@ def main() -> int:
     noc_cycle_probe(nops, prep, runs, noc_ab_libs, card)
     del noc_calls, noc_arr, noc_preps, noc_kw, prep
 
-    # --- 5. LLM serving (second main path) -----------------------------------
+    # --- 5. streaming, session ticks, fault sweeps, F1 (a main path) -------
+    p5 = stream_phase(dev, card)
+
+    # --- 6. LLM serving (a main path a model) --------------------------------
     llm = serve_llms(dev, card, fops, sops, llm_err)
 
-    # --- 6. kernels line ----------------------------------------------------
+    # --- 7. kernels line ----------------------------------------------------
     def ran(name):
-        return "+".join(sorted(k.split(":")[1] for k in variants
-                               if k.startswith(name + ":")))
+        return "+".join(sorted({k.split(":")[1] for k in
+                                list(variants) + list(p5["variants"])
+                                if k.startswith(name + ":")}))
 
     print(json.dumps({"kernels": [{
         "name": ops.NAME, "route": "cuda", "variant": ran(ops.NAME),
         "source": "src/repro_torch/kernels/epoch_step/csrc/epoch_step.cu",
         "replaces": "src/repro/kernels/epoch_step/kernel.py:48",
-        "launches": stats["epoch_step_launches"],
-        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "warp_ms": warp_ms, "shapes": epoch_shapes}, {
+        "launches": stats["epoch_step_launches"] + p5["epoch_launches"],
+        "launches_by_path": {"paper+dse": stats["epoch_step_launches"],
+                             "streaming+faults+f1": p5["epoch_launches"]},
+        "max_abs_err": max(max_err, p5["epoch_err"]), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "warp_ms": warp_ms,
+        "shapes": dict(epoch_shapes, **p5["epoch_shapes"]),
+        "design_choice": p5["design_choice"]}, {
         "name": nops.NAME, "route": "cuda", "variant": ran(nops.NAME),
         "source": "src/repro_torch/kernels/noc_step/csrc/noc_step.cu",
         "replaces": "src/repro/kernels/noc_step/kernel.py:32",
-        "launches": noc_launches, "max_abs_err": noc_err, "ms": noc_dse_ms,
+        "launches": noc_launches + p5["noc_launches"],
+        "launches_by_path": {"paper+dse": noc_launches,
+                             "streaming+faults+f1": p5["noc_launches"]},
+        "max_abs_err": max(noc_err, p5["noc_err"]), "ms": noc_dse_ms,
         "plain_ms": noc_plain_ms, "bound_ms": noc_bound_ms,
         "bound_by": noc_bound_by, "library_ms": None,
-        "warp_ms": noc_shapes["dse"]["warp_ms"], "shapes": noc_shapes}]
+        "warp_ms": noc_shapes["dse"]["warp_ms"],
+        "shapes": dict(noc_shapes, **p5["noc_shapes"])}]
         + llm}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind,

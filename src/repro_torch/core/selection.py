@@ -22,6 +22,7 @@ import torch
 from repro_torch.backend import resolve_device
 from repro_torch.core import photonics, topology
 from repro_torch.core.constants import NETWORK, NetworkConfig
+from repro_torch.core.gateway_controller import activation_order
 
 
 def _validate_positions(pos: np.ndarray, cfg: NetworkConfig,
@@ -119,6 +120,25 @@ def resolve_gateway_positions(cfg: NetworkConfig = NETWORK) -> np.ndarray:
             f"max_gateways_per_chiplet={cfg.max_gateways_per_chiplet}")
     _validate_positions(pos, cfg, "gateway_positions")
     return pos[: cfg.max_gateways_per_chiplet]
+
+
+def normalize_placement(positions, cfg: NetworkConfig = NETWORK, *,
+                        order: str = "given"):
+    """Canonicalize a placement into the hashable tuple form configs carry.
+
+    `order="spread"` re-rows the placement by the controller's activation
+    order (gateway_controller.activation_order) so partial activation levels
+    stay well-spread; `order="given"` keeps the caller's row order. Returns
+    None unchanged (the default scheme marker).
+    """
+    if positions is None:
+        return None
+    pos = np.asarray(positions, np.int64).reshape(-1, 2)
+    if order == "spread":
+        pos = pos[activation_order(pos, cfg)]
+    elif order != "given":
+        raise ValueError(f"unknown placement order: {order!r}")
+    return tuple((int(x), int(y)) for x, y in pos)
 
 
 def _balanced_assignment_from_dist(dist: np.ndarray,

@@ -26,7 +26,18 @@ the plain loop `_loop` on either device, as the reference's gate sends them
 to its scan body. Entry points run on the card unless `device="cpu"`.
 
 Like the reference, `sweep` and `sweep_batch` read no fault frames; fault
-frames ride `simulate` and `simulate_batch`.
+frames ride `simulate` and `simulate_batch`, and `sweep_faults` runs K
+frames over one trace as K lanes.
+
+Streaming: `SimSession` steps a carried `SimState` through trace chunks
+(`step_chunk`, `swap_placement`, `summary`) and `session_tick` advances B
+packed sessions one chunk as B lanes of one interval loop (one kernel
+launch on the card), with one fault frame shared by every lane. A chunked
+run gives the records of a one-shot `simulate` of the concatenated trace
+bit for bit, and lane k of a tick those of a standalone session: every
+per-lane total is summed in a fixed pairwise order over the intervals,
+whatever the lane count or the device. The carry is never updated in
+place, so a caller may keep an old one to roll back to.
 """
 from __future__ import annotations
 
@@ -47,7 +58,8 @@ from repro_torch.core.gateway_controller import (ControllerConfig,
                                                  ControllerState, epoch_step)
 from repro_torch.core.noc import NocModel, uniform_mesh_mean_hops
 from repro_torch.core.selection import (build_selection_tables,
-                                        mean_access_hops,
+                                        mean_access_hops, normalize_placement,
+                                        resolve_gateway_positions,
                                         selection_tables_torch)
 
 _F32 = torch.float32
@@ -520,20 +532,33 @@ def _scan_trace(state: SimState, xs: tuple, sim: SimConfig, tables: dict,
                  lane_trace=lane_trace, knobs=knobs)
 
 
+def _lane_total(x: torch.Tensor) -> torch.Tensor:
+    """Per-lane sum of [B, T] over T in a fixed pairwise order (halving the
+    interval axis, odd lengths padded with 0.0): lane b's total is the same
+    float whatever B is and on either device."""
+    while x.shape[1] > 1:
+        if x.shape[1] % 2:
+            x = torch.cat([x, torch.zeros_like(x[:, :1])], dim=1)
+        x = x[:, 0::2] + x[:, 1::2]
+    return x[:, 0]
+
+
 def _record_sums(recs: dict, t_mask: torch.Tensor) -> dict:
     """Mask-correct per-lane record totals ([B] each); records are already
-    t_valid-masked, so plain sums ignore padded intervals."""
+    t_valid-masked, so plain sums ignore padded intervals. Counts and
+    integer-valued records sum exactly in any order; the float records go
+    through `_lane_total`."""
     def tot(k):
         r = recs[k]
         return torch.sum(r, dim=tuple(range(1, r.dim())))
     return {
-        "latency": tot("latency"),
-        "power_mw": tot("power_mw"),
-        "energy": tot("energy"),
+        "latency": _lane_total(recs["latency"]),
+        "power_mw": _lane_total(recs["power_mw"]),
+        "energy": _lane_total(recs["energy"]),
         "gateways": tot("g").to(_F32),
         "wavelengths": tot("wavelengths"),
         "saturated": torch.sum(recs["saturated"].to(_F32), dim=1),
-        "reconfig_nj": tot("reconfig_nj"),
+        "reconfig_nj": _lane_total(recs["reconfig_nj"]),
         "valid_intervals": torch.sum(t_mask, dim=1),
     }
 
@@ -781,3 +806,251 @@ def simulate_all_archs(trace: dict, base: SimConfig = SimConfig(), *,
     return {arch.value: simulate(trace, base.with_arch(arch),
                                  device=device)["summary"]
             for arch in Arch}
+
+
+def sweep_faults(trace: dict, sim: SimConfig, frames, *, device=None,
+                 **fields) -> dict:
+    """K fault scenarios over one trace as K lanes of one interval loop
+    (one `epoch_step` launch for RESIPI / RESIPI_ALL on the card).
+
+    `frames` is a list of fault frames (each from `faults.compile_faults`
+    on the trace's horizon) or a stacked frame dict with a leading [K] axis
+    (`faults.stack_fault_frames`). Optional `**fields` grids
+    (SWEEPABLE_FIELDS, each of length K) zip lane for lane with the frames.
+    Results carry a leading [K] axis.
+    """
+    if _has_faults(trace):
+        raise ValueError(
+            "sweep_faults() takes the fault grid via `frames`; pass a clean "
+            "trace (faults.strip_faults) instead of an attached one")
+    from repro_torch.core.faults import stack_fault_frames
+
+    dev = backend.resolve_device(device)
+    stacked = stack_fault_frames(frames) \
+        if isinstance(frames, (list, tuple)) else frames
+    missing = [k for k in FAULT_KEYS if k not in stacked]
+    if missing:
+        raise ValueError(f"fault frames are missing keys {missing}")
+    flt = tuple(_as_f32(stacked[k], dev) for k in FAULT_KEYS)
+    ext, mem, intra, ext_frac, t_mask, dest = _trace_arrays(trace, dev)
+    if ext.dim() != 2:
+        raise ValueError(f"sweep_faults takes one unbatched trace "
+                         f"(ext_load [T, C]), got {tuple(ext.shape)}")
+    k = int(flt[0].shape[0])
+    t = int(mem.shape[0])
+    if int(flt[0].shape[1]) != t:
+        raise ValueError(
+            f"fault frames cover {int(flt[0].shape[1])} intervals but the "
+            f"trace has {t} — compile them with n_intervals={t}")
+    ov = _check_sweep_fields(fields, dev) if fields else {}
+    if ov and int(next(iter(ov.values())).shape[0]) != k:
+        raise ValueError(
+            f"swept fields have length "
+            f"{int(next(iter(ov.values())).shape[0])} but there are {k} "
+            f"fault frames — the axes zip lane-for-lane")
+    knobs = default_knobs(sim, k, dev, ov)
+    tm = t_mask.expand(k, t)
+    xs = ((ext * t_mask[:, None]).expand(k, *ext.shape),
+          (mem * t_mask).expand(k, t), (intra * t_mask[:, None])
+          .expand(k, *intra.shape), ext_frac.expand(k, t), tm) + flt
+    _, recs = _scan_trace(
+        _initial_state(sim, knobs), xs, sim,
+        selection_tables_torch(sim.cfg, dev),
+        dest=None if dest is None else dest.expand(k, *dest.shape),
+        faulted=True, lane_trace=torch.arange(k, device=dev), knobs=knobs)
+    return {"records": recs,
+            "summary": _summary_from_sums(_record_sums(recs, tm),
+                                          sim.cfg.n_chiplets)}
+
+
+# ---------------------------------------------------------------------------
+# Streaming sessions and continuous-batching ticks
+# ---------------------------------------------------------------------------
+
+def _session_run(states: SimState, ext, mem, intra, ext_frac, t_mask,
+                 tables: dict, sim: SimConfig, *, dest=None, frame=None
+                 ) -> Tuple[SimState, dict, dict]:
+    """B session lanes one chunk each: lane b steps its own chunk (ext [B,
+    T, C], mem / t_mask [B, T], intra [B, T, C], ext_frac [B], dest [B, C,
+    C]) from its own carry; `frame` (gw_ok / stuck_on [T, C, G], drift_db
+    [T]) is one fault frame every lane shares, handed to the loop expanded
+    over the lanes (not copied). Returns (new states, records [B, ...],
+    sums [B])."""
+    b, t = mem.shape
+    xs = (ext * t_mask[..., None], mem * t_mask, intra * t_mask[..., None],
+          ext_frac.reshape(b, 1).expand(b, t), t_mask)
+    if frame is not None:
+        xs = xs + tuple(a[None].expand(b, *a.shape) for a in frame)
+    lanes = torch.arange(b, device=mem.device)
+    new_states, recs = _scan_trace(
+        states, xs, sim, tables, dest=dest, faulted=frame is not None,
+        lane_trace=lanes, knobs=default_knobs(sim, b, mem.device))
+    return new_states, recs, _record_sums(recs, t_mask)
+
+
+def _frame_arrays(frame: dict, t: int, device, what: str) -> tuple:
+    missing = [k for k in FAULT_KEYS if k not in frame]
+    if missing:
+        raise ValueError(f"fault frame is missing {missing} "
+                         f"(build it with faults.compile_faults/no_faults)")
+    flt = tuple(_as_f32(frame[k], device) for k in FAULT_KEYS)
+    if int(flt[0].shape[0]) != t:
+        raise ValueError(
+            f"fault frame covers {int(flt[0].shape[0])} intervals but the "
+            f"{what} has {t} — compile the frame at that length")
+    return flt
+
+
+class SimSession:
+    """Streaming simulation session: unbounded traces at fixed memory.
+
+    ::
+
+        session = SimSession.init(sim, device="cpu")
+        for chunk in online_trace_chunks:        # each a trace dict
+            out = session.step_chunk(chunk)      # records + chunk summary
+        total = session.summary()                # whole-stream summary
+
+    The controller / PROWAVES / activity state persists across chunks, so
+    a chunked run equals a one-shot `simulate` of the concatenated trace:
+    per-interval records bit for bit, the running summary up to the float
+    re-association of the partial sums. A chunk padded with `t_mask` (for
+    example the ragged last one, through `traffic.pad_trace`) freezes the
+    carry on its masked intervals.
+    """
+
+    def __init__(self, sim: SimConfig, state: SimState, tables: dict,
+                 device: torch.device):
+        self.sim = sim
+        self.device = device
+        self._state = state
+        self._tables = tables
+        self._sums = None
+        self.placement = normalize_placement(
+            resolve_gateway_positions(sim.cfg), sim.cfg)
+
+    @classmethod
+    def init(cls, sim: SimConfig, *, device=None) -> "SimSession":
+        """Open a session with a fresh state for `sim` on `device` (the
+        card unless `device="cpu"`)."""
+        dev = backend.resolve_device(device)
+        return cls(sim, init_session_states(sim, 1, device=dev),
+                   selection_tables_torch(sim.cfg, dev), dev)
+
+    def swap_placement(self, positions) -> None:
+        """Live gateway re-placement between chunks: new selection tables,
+        the carried state streams on (an in-flight reconfiguration). The
+        caller charges the physical cost (faults.placement_reconfig_cost).
+        """
+        p = normalize_placement(positions, self.sim.cfg)
+        self._tables = selection_tables_torch(
+            self.sim.cfg.with_placement(p), self.device)
+        self.placement = p
+
+    @property
+    def intervals_seen(self) -> int:
+        """Valid (unmasked) intervals consumed so far."""
+        return 0 if self._sums is None \
+            else int(self._sums["valid_intervals"])
+
+    def step_chunk(self, chunk: dict) -> dict:
+        """Consume one trace chunk; returns its records and its summary.
+
+        `chunk` is an ordinary (unbatched) trace dict, optionally with a
+        `t_mask` and a fault frame. Masked intervals freeze the carry.
+        """
+        ext, mem, intra, ext_frac, t_mask, dest = \
+            _trace_arrays(chunk, self.device)
+        if ext.dim() != 2:
+            raise ValueError(
+                f"step_chunk takes one unbatched trace chunk "
+                f"(ext_load [T, C]), got ext_load {tuple(ext.shape)}")
+        frame = _trace_faults(chunk, self.device)
+        self._state, recs, sums = _session_run(
+            self._state, ext[None], mem[None], intra[None], ext_frac[None],
+            t_mask[None], self._tables, self.sim,
+            dest=None if dest is None else dest[None], frame=frame)
+        sums = {k: v[0] for k, v in sums.items()}
+        self._sums = sums if self._sums is None else \
+            {k: self._sums[k] + v for k, v in sums.items()}
+        return {"records": {k: v[0] for k, v in recs.items()},
+                "summary": _summary_from_sums(sums, self.sim.cfg.n_chiplets)}
+
+    def summary(self) -> dict:
+        """Running summary over every interval streamed so far."""
+        if self._sums is None:
+            raise ValueError("summary() before any step_chunk() — the "
+                             "session has consumed no intervals yet")
+        return _summary_from_sums(self._sums, self.sim.cfg.n_chiplets)
+
+
+def simulate_stream(chunks, sim: SimConfig, *, device=None) -> dict:
+    """Drive a fresh `SimSession` over an iterable of trace chunks; returns
+    the whole-stream summary, the chunk count and the session."""
+    session = SimSession.init(sim, device=device)
+    n = 0
+    for chunk in chunks:
+        session.step_chunk(chunk)
+        n += 1
+    if n == 0:
+        raise ValueError("simulate_stream() got an empty chunk iterable")
+    return {"summary": session.summary(), "chunks": n, "session": session}
+
+
+def init_session_states(sim: SimConfig, lanes: int, *,
+                        device=None) -> SimState:
+    """Batched fresh session carries, a `SimState` with leading [lanes]:
+    every lane the state a standalone `SimSession.init` holds."""
+    if lanes < 1:
+        raise ValueError(f"lanes must be >= 1, got {lanes}")
+    dev = backend.resolve_device(device)
+    return _initial_state(sim, default_knobs(sim, lanes, dev))
+
+
+def session_tick(states: SimState, batch: dict, tables: dict,
+                 sim: SimConfig, frame: Optional[dict] = None):
+    """Advance B packed session lanes one chunk: B lanes of one interval
+    loop (one `epoch_step` launch on the card for RESIPI / RESIPI_ALL).
+
+    `batch` is a lane-stacked chunk dict: ext_load [B, T, C], mem_load
+    [B, T], int_load [B, T, C], ext_frac [B], t_mask [B, T] and optionally
+    dest [B, C, C]. Lane k steps exactly as `SimSession.step_chunk` on the
+    same chunk; an all-masked lane freezes its carry and adds zero to
+    every sum. `frame` (optional) is one fault frame (gw_ok / stuck_on
+    [T, C, G], drift_db [T]) shared by every lane: faults live on hardware
+    time. Returns (new_states, records, sums), each with a leading [B]
+    axis; `states` is left as it was, so a caller may roll lanes back.
+    """
+    dev = states.ctl.g.device
+    ext = _as_f32(batch["ext_load"], dev)
+    mem = _as_f32(batch["mem_load"], dev)
+    t_mask = _as_f32(batch["t_mask"], dev)
+    if ext.dim() != 3 or mem.dim() != 2 or t_mask.dim() != 2:
+        raise ValueError(
+            f"session_tick takes lane-stacked chunks (ext_load [B, T, C], "
+            f"mem_load [B, T], t_mask [B, T]); got ext_load "
+            f"{tuple(ext.shape)}, mem_load {tuple(mem.shape)}, t_mask "
+            f"{tuple(t_mask.shape)}")
+    dest = batch.get("dest")
+    flt = None if frame is None else \
+        _frame_arrays(frame, int(mem.shape[1]), dev, "tick chunk")
+    return _session_run(states, ext, mem, _as_f32(batch["int_load"], dev),
+                        _as_f32(batch["ext_frac"], dev), t_mask, tables, sim,
+                        dest=None if dest is None else _as_f32(dest, dev),
+                        frame=flt)
+
+
+def session_sums_zero(*, device=None) -> dict:
+    """The additive identity of the per-session totals: a never-served
+    session's partial summary is well-formed instead of raising."""
+    dev = backend.resolve_device(device)
+    return {k: torch.zeros((), dtype=_F32, device=dev)
+            for k in ("latency", "power_mw", "energy", "gateways",
+                      "wavelengths", "saturated", "reconfig_nj",
+                      "valid_intervals")}
+
+
+def summary_from_sums(sums: dict, n_chiplets: int) -> dict:
+    """The summary of accumulated totals (a whole session or a partial
+    one): valid-interval means."""
+    return _summary_from_sums(sums, n_chiplets)

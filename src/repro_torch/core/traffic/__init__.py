@@ -3,8 +3,8 @@
   * `specs` — the frozen `TrafficSpec` hierarchy (PARSEC profiles and the
     synthetic NoC workloads), a verbatim copy;
   * `dest` — row-stochastic destination matrices per spec;
-  * `generators` — `generate(spec, generator, cfg)` with a `torch.Generator`
-    (same distributions as the reference, other random bits);
+  * `generators` — `generate(spec, key, cfg)` with a threefry-twin key
+    (the reference's trace for the same key);
   * `transform` — validation, slicing, padding, chunking, concatenation.
 """
 from repro_torch.core.traffic.specs import (ALL_SYNTHETIC_SPECS, APP_NAMES,

@@ -2,16 +2,20 @@
 
 Counterparts of the reference's `benchmarks/fig10_lm_dse.py`,
 `fig11_main.py`, `fig12_adaptivity.py` and `fig13_residency.py`. Figs.
-10-12 take traces as arguments (made by the port's generator, or by the
-reference and carried across with `interop.trace_from_numpy`); Fig. 13
-draws its arrivals with the threefry twin, so it equals the reference's at
-the same seed. They return the same result dicts, without writing files.
+10-12 take traces as arguments; `fig10_traces`, `fig11_traces` and
+`fig12_trace` make them with the port's generator from the seeds and keys
+those scripts use, which gives the reference's traces (the generator draws
+with the threefry twin). Fig. 13 draws its arrivals with the twin too. They
+return the same result dicts, without writing files.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch import random as trandom
+from repro_torch.backend import resolve_device
+from repro_torch.core import traffic
 from repro_torch.core.simulator import (Arch, SimConfig, simulate,
                                         simulate_all_archs, stack_traces,
                                         sweep_batch)
@@ -19,6 +23,34 @@ from repro_torch.kernels.noc_step.ops import simulate_residency
 
 GATEWAY_COUNTS = (1, 2, 3, 4)
 FIG12_SEQUENCE = ("blackscholes", "facesim", "dedup")
+
+
+def fig10_traces(n_intervals: int = 60, seed: int = 7, *,
+                 device=None) -> list:
+    """Fig. 10's workload: every PARSEC app, app i from key i of
+    `split(prng_key(seed), 8)`."""
+    traces = traffic.all_app_traces(n_intervals, seed=seed, device=device)
+    return [traces[a] for a in traffic.APP_NAMES]
+
+
+def fig11_traces(n_intervals: int = 100, seed: int = 1, *,
+                 device=None) -> dict:
+    """Fig. 11's workload: every PARSEC app from the one key
+    `prng_key(seed)`."""
+    key = trandom.prng_key(seed, device=resolve_device(device))
+    return {a: traffic.generate_trace(a, n_intervals, key, device=device)
+            for a in traffic.APP_NAMES}
+
+
+def fig12_trace(per_app: int = 100, seed: int = 3, *, device=None) -> dict:
+    """Fig. 12's workload: the `FIG12_SEQUENCE` apps concatenated, app i
+    from key i of `split(prng_key(seed), 3)`."""
+    keys = trandom.split(trandom.prng_key(seed,
+                                          device=resolve_device(device)),
+                         len(FIG12_SEQUENCE))
+    return traffic.concat_traces([
+        traffic.generate_trace(a, per_app, k, device=device)
+        for a, k in zip(FIG12_SEQUENCE, keys)])
 
 
 def fig10_dse(batch, base: SimConfig = None, *, device=None) -> dict:

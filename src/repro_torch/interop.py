@@ -7,7 +7,11 @@ port's tensors, with the dtypes the reference uses (float32 loads, int32
 gateway counts, bool activity), so the parity tests hand both packages the
 same inputs. The flit model's inputs (arrivals, routing matrix, drain,
 buffers, masks) go across with `noc_inputs_from_numpy`. `records_to_numpy`
-goes the other way for comparisons.
+goes the other way for comparisons. For streaming and faults,
+`session_states_from_numpy` carries a batched carry across (the
+reference's `init_session_states`, or any `SimState` with leading lane
+axes), `fault_frame_from_numpy` a fault frame or a stacked [K] frame, and
+`key_from_jax` a jax PRNG key as a key of the threefry twin.
 
 For the LLM serving slice, `params_from_numpy` carries a reference
 parameter tree (nested dicts of numpy arrays, with the stacked layer axes)
@@ -62,6 +66,38 @@ def state_from_numpy(g, packets_seen, epoch, wavelengths, prev_active,
                             epoch=_tensor(epoch, np.int32, dev)),
         wavelengths=_tensor(wavelengths, np.int32, dev),
         prev_active=_tensor(prev_active, np.bool_, dev))
+
+
+def session_states_from_numpy(states, device=None) -> SimState:
+    """A batched `SimState` from the reference's (`init_session_states`,
+    or any carry with `ctl.g`, `ctl.packets_seen`, `ctl.epoch`,
+    `wavelengths` and `prev_active` holding arrays with leading lane
+    axes)."""
+    return state_from_numpy(np.asarray(states.ctl.g),
+                            np.asarray(states.ctl.packets_seen),
+                            np.asarray(states.ctl.epoch),
+                            np.asarray(states.wavelengths),
+                            np.asarray(states.prev_active), device=device)
+
+
+def fault_frame_from_numpy(frame, device=None) -> dict:
+    """A fault frame (gw_ok / stuck_on [T, C, G], drift_db [T]) or a
+    stacked one with a leading [K] axis, as float32 tensors."""
+    dev = resolve_device(device)
+    missing = [k for k in FAULT_KEYS if k not in frame]
+    if missing:
+        raise ValueError(f"fault frame is missing {missing}")
+    return {k: _tensor(frame[k], np.float32, dev) for k in FAULT_KEYS}
+
+
+def key_from_jax(key, device=None) -> torch.Tensor:
+    """A threefry-twin key from a jax PRNG key (raw uint32 [..., 2], as
+    `jax.random.PRNGKey` makes it): the same two words, as int64."""
+    words = np.asarray(key)
+    if words.dtype != np.uint32 or words.shape[-1:] != (2,):
+        raise ValueError(f"expected a raw uint32 [..., 2] key, got "
+                         f"{words.dtype} {words.shape}")
+    return _tensor(words, np.int64, resolve_device(device))
 
 
 def tables_from_numpy(tables, device=None) -> dict:

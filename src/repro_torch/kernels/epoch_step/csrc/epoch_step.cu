@@ -10,9 +10,10 @@
 // closed form -> PCMC switch count x reconfiguration nJ, and the t_mask
 // freeze of the carry — for B independent lanes (traces x sweep points).
 //
-// Two designs live here; the wrapper (ops.variant) picks one from C.
+// Three designs live here; the wrapper (ops.variant) picks one from C, the
+// lane count and whether destination matrices ride along.
 //
-// "split" (C <= 16, the main path). Nothing the interval metrics compute
+// "split" (C <= 16 with enough lanes, the main path). Nothing the interval metrics compute
 // feeds back into the controller: its only carried state is g [C], and the
 // update reads the trace's ext row, recv = ext @ dest (trace-only), g, the
 // effective g under faults and the lane's l_m / gateway clamps, and each
@@ -40,8 +41,14 @@
 // them) per interval per chain; the metrics are bounded by issue rate (tens
 // of divisions and a powf per item) and by the records' bytes.
 //
-// "warp" (C <= 128, the first design, kept for C > 16 and as the yardstick
-// the split is timed against): one WARP runs one lane for all T intervals,
+// "wide" (C <= 1024; below, after the split): the split's two launches
+// with the chiplet count a runtime value and the metrics one BLOCK per
+// (lane, interval). Its cost grows with the lanes from a low floor: it
+// runs every C > 128, and smaller C with few lanes.
+//
+// "warp" (C <= 128, the first design; at 17-128 chiplets it runs many
+// lanes, whose warps fill the card behind its latency floor, while "wide"
+// runs few): one WARP runs one lane for all T intervals,
 // thread j owns chiplets j, j+32, ... and keeps their g in registers.
 // Cross-chiplet sums are xor shuffles; the kappa chain's upstream counts
 // are an exclusive warp scan over per-chiplet lit totals (chain is
@@ -153,7 +160,8 @@ epoch_step_kernel(const float* __restrict__ ext,       // [N, T, C]
                   float* __restrict__ g_des_out,       // [B, T, C] or null
                   float* __restrict__ gw_load_out,     // [B, T, C]
                   float* __restrict__ g_final,         // [B, C]
-                  int B, int T, int C, int G, int M, Consts k) {
+                  int B, int T, int C, int G, int M, int fshared,
+                  Consts k) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -183,6 +191,7 @@ epoch_step_kernel(const float* __restrict__ ext,       // [N, T, C]
 
   for (int t = 0; t < T; ++t) {
     const long nt = n * T + t;
+    const long ft = fshared ? t : nt;   // fault-frame row
     const long bt = static_cast<long>(b) * T + t;
     const float tm = t_mask[nt];
     const float mem_t = mem[nt];
@@ -209,8 +218,8 @@ epoch_step_kernel(const float* __restrict__ ext,       // [N, T, C]
         float usable = 0.0f;
         int lit = 0;
         for (int s = 0; s < G; ++s) {
-          const float ok = gw_ok[ntc * G + s];
-          const float st = stuck_on[ntc * G + s];
+          const float ok = gw_ok[(ft * C + c) * G + s];
+          const float st = stuck_on[(ft * C + c) * G + s];
           const float des = static_cast<float>(s) < g[q] ? 1.0f : 0.0f;
           const float u = des * ok;
           usable = usable + u;
@@ -239,7 +248,7 @@ epoch_step_kernel(const float* __restrict__ ext,       // [N, T, C]
     }
     const float mean_src = warp_sum(p_src) / cf;
     float access_db = warp_sum(p_db) / cf;
-    if (kFaulted) access_db = access_db + drift[nt];
+    if (kFaulted) access_db = access_db + drift[ft];
 
     // --- inter-chiplet latency --------------------------------------------
     float recv[kMaxChipletsPerThread];
@@ -340,11 +349,11 @@ epoch_step_kernel(const float* __restrict__ ext,       // [N, T, C]
         const bool dec = (load < lm * (1.0f - 1.0f / g1)) && (g[q] > ming);
         g_new[q] = inc ? g[q] + 1.0f : (dec ? g[q] - 1.0f : g[q]);
         if (kFaulted) {
-          const long ntc = nt * C + c;
+          const long ftc = ft * C + c;
           int lit = 0;
           for (int s = 0; s < G; ++s) {
-            const float ok = gw_ok[ntc * G + s];
-            const float st = stuck_on[ntc * G + s];
+            const float ok = gw_ok[ftc * G + s];
+            const float st = stuck_on[ftc * G + s];
             const float des = static_cast<float>(s) < g_new[q] ? 1.0f : 0.0f;
             lit += fmaxf(des * ok, st * ok) > 0.5f;
           }
@@ -372,12 +381,12 @@ epoch_step_kernel(const float* __restrict__ ext,       // [N, T, C]
         base_old += __shfl_sync(kFull, inc_old, 31);
         base_new += __shfl_sync(kFull, inc_new, 31);
         if (c >= C) continue;
-        const long ntc = nt * C + c;
+        const long ftc = ft * C + c;
         for (int s = 0; s < G; ++s) {
           bool on_old, on_new;
           if (kFaulted) {
-            const float ok = gw_ok[ntc * G + s];
-            const float st = stuck_on[ntc * G + s];
+            const float ok = gw_ok[ftc * G + s];
+            const float st = stuck_on[ftc * G + s];
             const float d_old = static_cast<float>(s) < g[q] ? 1.0f : 0.0f;
             const float d_new = static_cast<float>(s) < g_new[q] ? 1.0f : 0.0f;
             on_old = fmaxf(d_old * ok, st * ok) > 0.5f;
@@ -447,7 +456,7 @@ cudaError_t launch(const float* ext, const float* intra, const float* mem,
                    const float* gw_ok, const float* stuck_on, float* scal,
                    float* g_eff, float* g_des, float* gw_load,
                    float* g_final, int B, int T, int C, int G, int M,
-                   const Consts& k, cudaStream_t stream) {
+                   int fshared, const Consts& k, cudaStream_t stream) {
   const dim3 block(kWarpsPerBlock * 32);
   const dim3 grid((B + kWarpsPerBlock - 1) / kWarpsPerBlock);
   const size_t shmem = sizeof(float) * 2 * C * kWarpsPerBlock;
@@ -455,7 +464,7 @@ cudaError_t launch(const float* ext, const float* intra, const float* mem,
       <<<grid, block, shmem, stream>>>(
           ext, intra, mem, t_mask, drift, lane_trace, params, g0, src_hops,
           gw_loss_db, dest, gw_ok, stuck_on, scal, g_eff, g_des, gw_load,
-          g_final, B, T, C, G, M, k);
+          g_final, B, T, C, G, M, fshared, k);
   return cudaGetLastError();
 }
 
@@ -479,7 +488,8 @@ epoch_recurrence_kernel(const float* __restrict__ ext,       // [N, T, C]
                         const float* __restrict__ gw_ok,     // [N, T, C, G]
                         float* __restrict__ g_step,          // [B, T, C]
                         float* __restrict__ g_final,         // [B, C]
-                        int B, int T, int C, int G, float interval) {
+                        int B, int T, int C, int G, int fshared,
+                        float interval) {
   const long item = static_cast<long>(blockIdx.x) * kSplitBlock + threadIdx.x;
   if (item >= static_cast<long>(B) * C) return;
   const int b = static_cast<int>(item / C);
@@ -541,7 +551,7 @@ epoch_recurrence_kernel(const float* __restrict__ ext,       // [N, T, C]
       }
       float packets = pressure * interval;
       if (kFaulted) {
-        const float* ok = gw_ok + ((n * T + t) * C + c) * G;
+        const float* ok = gw_ok + ((fshared ? t : n * T + t) * C + c) * G;
         float usable = 0.0f;
         for (int s = 0; s < G; ++s) {
           const float des = static_cast<float>(s) < g ? 1.0f : 0.0f;
@@ -598,7 +608,8 @@ epoch_metrics_kernel(const float* __restrict__ ext,       // [N, T, C]
                      float* __restrict__ g_des_out,       // [B, T, C]
                      float* __restrict__ gw_load_out,     // [B, T, C]
                      float* __restrict__ g_final,         // [B, C]
-                     int B, int T, int C, int G, int M, Consts k) {
+                     int B, int T, int C, int G, int M, int fshared,
+                     Consts k) {
   constexpr int kCols = kFaulted ? 7 : 6;
   extern __shared__ float smem[];
   const int n_kappa = kappa_table_len(C, G, M);
@@ -622,6 +633,7 @@ epoch_metrics_kernel(const float* __restrict__ ext,       // [N, T, C]
     const int t = static_cast<int>(item - static_cast<long>(b) * T);
     const long n = lane_trace[b];
     const long nt = n * T + t;
+    const long ft = fshared ? t : nt;   // fault-frame row
     const float bsat = params[b * 5 + 3];
     const float lam = params[b * 5 + 4];
     const float inv_bsat = 1.0f / bsat;
@@ -665,8 +677,8 @@ epoch_metrics_kernel(const float* __restrict__ ext,       // [N, T, C]
         float usable = 0.0f;
         int lit = 0;
         for (int s = 0; s < G; ++s) {
-          const float ok = gw_ok[ntc * G + s];
-          const float st = stuck_on[ntc * G + s];
+          const float ok = gw_ok[(ft * C + q) * G + s];
+          const float st = stuck_on[(ft * C + q) * G + s];
           const float des = static_cast<float>(s) < g[q] ? 1.0f : 0.0f;
           const float u = des * ok;
           usable = usable + u;
@@ -694,7 +706,7 @@ epoch_metrics_kernel(const float* __restrict__ ext,       // [N, T, C]
     }
     const float mean_src = p_src / cf;
     float access_db = p_db / cf;
-    if (kFaulted) access_db = access_db + drift[nt];
+    if (kFaulted) access_db = access_db + drift[ft];
 
     // --- inter-chiplet latency --------------------------------------------
     float inter_w = 0.0f;
@@ -773,10 +785,10 @@ epoch_metrics_kernel(const float* __restrict__ ext,       // [N, T, C]
       for (int q = 0; q < kC; ++q) {
         if (q >= C) break;
         if (kFaulted) {
-          const long ntc = nt * C + q;
+          const long ftc = ft * C + q;
           for (int s = 0; s < G; ++s) {
-            const float ok = gw_ok[ntc * G + s];
-            const float st = stuck_on[ntc * G + s];
+            const float ok = gw_ok[ftc * G + s];
+            const float st = stuck_on[ftc * G + s];
             const float des = static_cast<float>(s) < g_new[q] ? 1.0f : 0.0f;
             n_lit_new += fmaxf(des * ok, st * ok) > 0.5f;
           }
@@ -791,12 +803,12 @@ epoch_metrics_kernel(const float* __restrict__ ext,       // [N, T, C]
 #pragma unroll
       for (int q = 0; q < kC; ++q) {
         if (q >= C) break;
-        const long ntc = nt * C + q;
+        const long ftc = ft * C + q;
         for (int s = 0; s < G; ++s) {
           bool on_old, on_new;
           if (kFaulted) {
-            const float ok = gw_ok[ntc * G + s];
-            const float st = stuck_on[ntc * G + s];
+            const float ok = gw_ok[ftc * G + s];
+            const float st = stuck_on[ftc * G + s];
             const float d_old = static_cast<float>(s) < g[q] ? 1.0f : 0.0f;
             const float d_new = static_cast<float>(s) < g_new[q] ? 1.0f : 0.0f;
             on_old = fmaxf(d_old * ok, st * ok) > 0.5f;
@@ -857,14 +869,14 @@ cudaError_t launch_split(const float* ext, const float* intra,
                          const float* stuck_on, float* g_step, float* scal,
                          float* g_eff, float* g_des, float* gw_load,
                          float* g_final, int B, int T, int C, int G, int M,
-                         const Consts& k, cudaStream_t stream) {
+                         int fshared, const Consts& k, cudaStream_t stream) {
   if (kController) {
     const long chains = static_cast<long>(B) * C;
     epoch_recurrence_kernel<kC, kDest, kFaulted>
         <<<static_cast<unsigned>((chains + kSplitBlock - 1) / kSplitBlock),
            kSplitBlock, 0, stream>>>(
             ext, t_mask, lane_trace, params, g0, dest, gw_ok, g_step,
-            g_final, B, T, C, G, k.interval);
+            g_final, B, T, C, G, fshared, k.interval);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -881,78 +893,551 @@ cudaError_t launch_split(const float* ext, const float* intra,
            kSplitBlock, shmem, stream>>>(
       ext, intra, mem, t_mask, drift, lane_trace, params, g0, src_hops,
       gw_loss_db, dest, gw_ok, stuck_on, g_step, scal, g_eff, g_des,
-      gw_load, g_final, B, T, C, G, M, k);
+      gw_load, g_final, B, T, C, G, M, fshared, k);
+  return cudaGetLastError();
+}
+
+// --- "wide": any C up to kMaxWideChiplets, the path past 128 ---------------
+//
+// The recurrence keeps one thread per (lane, chiplet), with the chiplet
+// count a runtime value and nothing sized by it in registers; it reads only
+// its own chiplet's ext and, with destination matrices, its own received
+// load recv[c] = sum_i ext[i] dest[i][c]. That sum depends on the trace
+// alone, so a launch before the recurrence (epoch_recv_kernel, one thread
+// per trace, interval and chiplet) computes it for every interval at once,
+// in index order as the plain version sums it, into a [N, T, C] scratch:
+// summed inside the recurrence, it was a C-term chain of dependent loads
+// and adds per interval on a few hundred threads. The metrics run one BLOCK
+// per (lane, interval) instead of one
+// thread: the chiplets spread over the block's threads, the per-chiplet
+// values the later passes need (ext, effective g, gateway load, access hops,
+// g before and after, lit counts) are staged in shared memory, and every
+// sum is reduced in a fixed order (each thread its strided chiplets in index
+// order, then each warp's xor tree, then the warps' totals in warp order).
+// Destination terms: recv and phi one thread per destination column, then
+// each source row's leg sum by one warp across the destinations. The Eq. 4
+// kappa chain's upstream counts are an exclusive block scan of the
+// per-chiplet lit counts (integers: exact in any order), each thread walking
+// its own contiguous run of chiplets. No register array, no loop over C
+// inside a thread's chiplet loop: the per-thread O(C^2) work and the kC
+// arrays of the split's metrics kernel are gone. Shared memory is 9 C
+// floats a block (36 KB at the cap).
+
+constexpr int kWideBlock = 256;                  // threads of a metrics block
+constexpr int kWideWarps = kWideBlock / 32;
+constexpr int kMaxWideChiplets = 1024;           // MAX_CHIPLETS in ops.py
+
+// recv[n][t][c] = sum_i ext[n][t][i] dest[n][i][c], summed in index order
+// (the plain version's order), one thread per (trace, interval, chiplet):
+// the ext row is a broadcast load, the dest column coalesced across c.
+__global__ void __launch_bounds__(kSplitBlock)
+epoch_recv_kernel(const float* __restrict__ ext,    // [N, T, C]
+                  const float* __restrict__ dest,   // [N, C, C]
+                  float* __restrict__ recv,         // [N, T, C]
+                  int N, int T, int C) {
+  const long item = static_cast<long>(blockIdx.x) * kSplitBlock + threadIdx.x;
+  if (item >= static_cast<long>(N) * T * C) return;
+  const long nt = item / C;
+  const int c = static_cast<int>(item - nt * C);
+  const long n = nt / T;
+  const float* e_row = ext + nt * C;
+  const float* dcol = dest + n * C * C + c;
+  float r = 0.0f;
+#pragma unroll 8
+  for (int i = 0; i < C; ++i) {
+    const float w = __ldg(e_row + i) * __ldg(dcol + static_cast<long>(i) * C);
+    r = i == 0 ? w : r + w;
+  }
+  recv[item] = r;
+}
+
+template <bool kDest, bool kFaulted>
+__global__ void __launch_bounds__(kSplitBlock)
+epoch_wide_recurrence_kernel(const float* __restrict__ ext,       // [N, T, C]
+                             const float* __restrict__ t_mask,    // [N, T]
+                             const int* __restrict__ lane_trace,  // [B]
+                             const float* __restrict__ params,    // [B, 5]
+                             const float* __restrict__ g0,        // [B, C]
+                             const float* __restrict__ recv,      // [N, T, C]
+                             const float* __restrict__ gw_ok,     // [N, T, C, G]
+                             float* __restrict__ g_step,          // [B, T, C]
+                             float* __restrict__ g_final,         // [B, C]
+                             int B, int T, int C, int G, int fshared,
+                             float interval) {
+  const long item = static_cast<long>(blockIdx.x) * kSplitBlock + threadIdx.x;
+  if (item >= static_cast<long>(B) * C) return;
+  const int b = static_cast<int>(item / C);
+  const int c = static_cast<int>(item - static_cast<long>(b) * C);
+  const long n = lane_trace[b];
+  const float lm = params[b * 5 + 0];
+  const float maxg = params[b * 5 + 1];
+  const float ming = params[b * 5 + 2];
+  float g = g0[item];
+  for (int t = 0; t < T; ++t) {
+    const long nt = n * T + t;
+    const float tm = __ldg(t_mask + nt);
+    const float own = __ldg(ext + nt * C + c);
+    const float pressure = kDest ? fmaxf(own, __ldg(recv + nt * C + c)) : own;
+    float packets = pressure * interval;
+    if (kFaulted) {
+      const float* ok = gw_ok + ((fshared ? t : nt) * C + c) * G;
+      float usable = 0.0f;
+      for (int s = 0; s < G; ++s) {
+        const float des = static_cast<float>(s) < g ? 1.0f : 0.0f;
+        usable = usable + des * __ldg(ok + s);
+      }
+      packets = packets * (g / fmaxf(truncf(usable), 1.0f));
+    }
+    const float g1 = fmaxf(g, 1.0f);
+    const float load = packets / (interval * g1);
+    const bool inc = (load > lm) && (g < maxg);
+    const bool dec = (load < lm * (1.0f - 1.0f / g1)) && (g > ming);
+    const float g_new = inc ? g + 1.0f : (dec ? g - 1.0f : g);
+    // Masked intervals freeze the controller carry.
+    g = tm > 0.0f ? g_new : g;
+    g_step[(static_cast<long>(b) * T + t) * C + c] = g;
+  }
+  g_final[item] = g;
+}
+
+// The sum of v over the block, the same float in every thread: each warp's
+// xor tree, then the warps' totals in warp order. The leading barrier lets
+// the previous call's readers of s_red finish first.
+__device__ __forceinline__ float block_sum(float v, float* s_red) {
+  v = warp_sum(v);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float tot = s_red[0];
+#pragma unroll
+  for (int w = 1; w < kWideWarps; ++w) tot = tot + s_red[w];
+  return tot;
+}
+
+__device__ __forceinline__ int block_sum_int(int v, int* s_red) {
+  v = warp_sum_int(v);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int tot = 0;
+#pragma unroll
+  for (int w = 0; w < kWideWarps; ++w) tot += s_red[w];
+  return tot;
+}
+
+// The exclusive prefix of v over the block's threads in thread order.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* s_red) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int inc = warp_inclusive_scan(v, lane);
+  __syncthreads();
+  if (lane == 31) s_red[warp] = inc;
+  __syncthreads();
+  int base = 0;
+  for (int w = 0; w < warp; ++w) base += s_red[w];
+  return base + inc - v;
+}
+
+__host__ __device__ constexpr size_t wide_smem_bytes(int C) {
+  // floats: ext, effective g, gateway load, access hops, destination leg,
+  // g before, g after [C] and the float reduction slots; ints: lit before,
+  // lit after [C] and the integer reduction slots.
+  return sizeof(float) * (7 * static_cast<size_t>(C) + kWideWarps)
+      + sizeof(int) * (2 * static_cast<size_t>(C) + kWideWarps);
+}
+// At the cap the metrics block fits the 48 KB of dynamic shared memory a
+// launch gets without opting in.
+static_assert(wide_smem_bytes(kMaxWideChiplets) <= 48 * 1024,
+              "wide metrics block exceeds 48 KB of shared memory");
+
+template <bool kDest, bool kFaulted, bool kController>
+__global__ void __launch_bounds__(kWideBlock)
+epoch_wide_metrics_kernel(const float* __restrict__ ext,       // [N, T, C]
+                          const float* __restrict__ intra,     // [N, T, C]
+                          const float* __restrict__ mem,       // [N, T]
+                          const float* __restrict__ t_mask,    // [N, T]
+                          const float* __restrict__ drift,     // [N, T] or null
+                          const int* __restrict__ lane_trace,  // [B]
+                          const float* __restrict__ params,    // [B, 5]
+                          const float* __restrict__ g0,        // [B, C]
+                          const float* __restrict__ src_hops,  // [G]
+                          const float* __restrict__ gw_loss_db,  // [G]
+                          const float* __restrict__ dest,      // [N, C, C] or null
+                          const float* __restrict__ gw_ok,     // [N, T, C, G]
+                          const float* __restrict__ stuck_on,  // [N, T, C, G]
+                          const float* __restrict__ g_step,    // [B, T, C]
+                          float* __restrict__ scal,            // [B, T, 6 or 7]
+                          float* __restrict__ g_eff_out,       // [B, T, C]
+                          float* __restrict__ g_des_out,       // [B, T, C]
+                          float* __restrict__ gw_load_out,     // [B, T, C]
+                          float* __restrict__ g_final,         // [B, C]
+                          int B, int T, int C, int G, int M, int fshared,
+                          Consts k) {
+  constexpr int kCols = kFaulted ? 7 : 6;
+  extern __shared__ float smem[];
+  float* s_e = smem;                 // [C] ext
+  float* s_ge = s_e + C;             // [C] effective g
+  float* s_gwl = s_ge + C;           // [C] per-gateway load
+  float* s_src = s_gwl + C;          // [C] mean access hops at ge
+  float* s_leg = s_src + C;          // [C] destination leg (kDest)
+  float* s_g = s_leg + C;            // [C] g before the interval
+  float* s_gn = s_g + C;             // [C] g after it (kController)
+  float* s_red = s_gn + C;           // [kWideWarps]
+  int* s_lo = reinterpret_cast<int*>(s_red + kWideWarps);  // [C] lit before
+  int* s_ln = s_lo + C;              // [C] lit after (kController)
+  int* s_ired = s_ln + C;            // [kWideWarps]
+
+  const int tid = threadIdx.x;
+  const long item = blockIdx.x;      // b * T + t
+  const int b = static_cast<int>(item / T);
+  const int t = static_cast<int>(item - static_cast<long>(b) * T);
+  const long n = lane_trace[b];
+  const long nt = n * T + t;
+  const long ft = fshared ? t : nt;  // fault-frame row
+  const float bsat = params[b * 5 + 3];
+  const float lam = params[b * 5 + 4];
+  const float inv_bsat = 1.0f / bsat;
+  const float s_eff = fmaxf(k.packet_bits / (lam * k.ser_k), k.flits);
+  const float cf = static_cast<float>(C);
+  const float mf = static_cast<float>(M);
+  const float gf = static_cast<float>(G);
+  const float tm = t_mask[nt];
+  const float mem_t = mem[nt];
+
+  // --- per chiplet: slot masks, effective capacity, latency inputs --------
+  float p_src = 0.0f, p_db = 0.0f, p_ext = 0.0f, p_int = 0.0f;
+  float p_intra_w = 0.0f;
+  int p_lo = 0, p_ln = 0, p_failed = 0;
+  bool p_sat = false;
+  for (int c = tid; c < C; c += kWideBlock) {
+    const long bc = static_cast<long>(b) * C + c;
+    // g before and (controller) after this interval, from the recurrence's
+    // scratch: never from the records, which read 0 on masked intervals.
+    float g = g0[bc], g_new = g;
+    if (kController) {
+      const long row = static_cast<long>(b) * T + t;
+      if (t > 0) g = g_step[(row - 1) * C + c];
+      g_new = g_step[row * C + c];
+    } else if (t == 0) {
+      g_final[bc] = g;
+    }
+    const long ntc = nt * C + c;
+    const long ftc = ft * C + c;
+    const float e = ext[ntc];
+    const float in = intra[ntc];
+    float ge;
+    int lit_old;
+    if (kFaulted) {
+      float usable = 0.0f;
+      int lit = 0;
+      for (int s = 0; s < G; ++s) {
+        const float ok = gw_ok[ftc * G + s];
+        const float st = stuck_on[ftc * G + s];
+        const float des = static_cast<float>(s) < g ? 1.0f : 0.0f;
+        const float u = des * ok;
+        usable = usable + u;
+        lit += fmaxf(u, st * ok) > 0.5f;
+        p_failed += (des > 0.0f) && (ok < 0.5f);
+      }
+      ge = truncf(usable);           // the plain version's int32 cast
+      lit_old = lit;
+    } else {
+      ge = g;
+      lit_old = static_cast<int>(fminf(fmaxf(g, 0.0f), gf));
+    }
+    const float gwl = e / fmaxf(ge, 1.0f);
+    const int lev = min(static_cast<int>(fmaxf(ge, 1.0f)), G) - 1;
+    const float src = src_hops[lev];
+    p_src += src;
+    p_db += gw_loss_db[lev];
+    p_ext += e;
+    p_int += in;
+    // intra-mesh latency (noc.NocModel.mesh_latency), weighted by load
+    const float link = in * k.flits / k.mesh_feed;
+    const float intra_lat = k.mesh_hops * k.rpc + k.flits
+        + md1(clampf(link, 0.0f, 1.0f), k.flits, inv_bsat, k);
+    p_intra_w += intra_lat * in;
+    p_sat = p_sat || (gwl * s_eff > bsat);
+    s_e[c] = e;
+    s_ge[c] = ge;
+    s_gwl[c] = gwl;
+    s_src[c] = src;
+    s_g[c] = g;
+    s_lo[c] = lit_old;
+    p_lo += lit_old;
+    if (kController) {
+      int lit_new = 0;
+      if (kFaulted) {
+        for (int s = 0; s < G; ++s) {
+          const float ok = gw_ok[ftc * G + s];
+          const float st = stuck_on[ftc * G + s];
+          const float des = static_cast<float>(s) < g_new ? 1.0f : 0.0f;
+          lit_new += fmaxf(des * ok, st * ok) > 0.5f;
+        }
+      } else {
+        lit_new = static_cast<int>(fminf(fmaxf(g_new, 0.0f), gf));
+      }
+      s_gn[c] = g_new;
+      s_ln[c] = lit_new;
+      p_ln += lit_new;
+    }
+    // records of this chiplet (t_valid-masked like the plain version)
+    const long btc = item * C + c;
+    g_eff_out[btc] = ge * tm;
+    gw_load_out[btc] = gwl * tm;
+    if (kFaulted) g_des_out[btc] = g * tm;
+  }
+  const float mean_src = block_sum(p_src, s_red) / cf;
+  float access_db = block_sum(p_db, s_red) / cf;
+  if (kFaulted) access_db = access_db + drift[ft];
+  const float tot_ext = block_sum(p_ext, s_red) + 1e-9f;
+  const float tot_int = block_sum(p_int, s_red) + 1e-9f;
+  const float intra_w = block_sum(p_intra_w, s_red);
+  const bool any_sat = __syncthreads_or(p_sat);
+
+  // --- inter-chiplet latency ------------------------------------------------
+  float p_inter_w = 0.0f;
+  if (kDest) {
+    const float* d = dest + n * C * C;
+    for (int j = tid; j < C; j += kWideBlock) {
+      float r = 0.0f, sq = 0.0f;
+#pragma unroll 8
+      for (int i = 0; i < C; ++i) {
+        const float w = s_e[i] * d[static_cast<long>(i) * C + j];
+        if (i == 0) { r = w; sq = w * w; }
+        else { r = r + w; sq = sq + w * w; }
+      }
+      const float phi = sq / fmaxf(r * r, 1e-12f);
+      const float bs = (1.0f + (k.burstiness - 1.0f) * phi)
+          * (1.0f / k.burstiness);
+      const float dst_gw = r / fmaxf(s_ge[j], 1.0f);
+      s_leg[j] = access_lat(s_src[j], dst_gw, bs, inv_bsat, k);
+    }
+    __syncthreads();
+    // Source row i: one warp, its lanes over the destinations.
+    const int lane = tid & 31;
+    for (int i = tid >> 5; i < C; i += kWideWarps) {
+      const float* di = d + static_cast<long>(i) * C;
+      float acc = 0.0f;
+#pragma unroll 4
+      for (int j = lane; j < C; j += 32) acc = acc + di[j] * s_leg[j];
+      acc = warp_sum(acc);
+      if (lane == 0) {
+        const float inter = access_lat(s_src[i], s_gwl[i], 1.0f, inv_bsat, k)
+            + gateway_lat(s_gwl[i], s_eff, inv_bsat, k) + acc;
+        p_inter_w += inter * s_e[i];
+      }
+    }
+  } else {
+    for (int i = tid; i < C; i += kWideBlock) {
+      const float inter = access_lat(s_src[i], s_gwl[i], 1.0f, inv_bsat, k)
+          + gateway_lat(s_gwl[i], s_eff, inv_bsat, k)
+          + access_lat(mean_src, s_gwl[i], 1.0f, inv_bsat, k);
+      p_inter_w += inter * s_e[i];
+    }
+  }
+  const float inter_w = block_sum(p_inter_w, s_red);
+  const int n_lit_old = block_sum_int(p_lo, s_ired);
+
+  // --- reconfiguration energy: the Eq. 4 kappa chain, chiplet-major ---------
+  float reconf = 0.0f;
+  if (kController) {
+    const int gt_old = n_lit_old + M;
+    const int gt_new = block_sum_int(p_ln, s_ired) + M;
+    // Thread tid walks the contiguous chiplets [c0, c1).
+    const int per = (C + kWideBlock - 1) / kWideBlock;
+    const int c0 = min(tid * per, C);
+    const int c1 = min(c0 + per, C);
+    int seg_old = 0, seg_new = 0;
+    for (int c = c0; c < c1; ++c) {
+      seg_old += s_lo[c];
+      seg_new += s_ln[c];
+    }
+    int up_old = block_exclusive_scan(seg_old, s_ired);
+    int up_new = block_exclusive_scan(seg_new, s_ired);
+    int switched = 0;
+    for (int c = c0; c < c1; ++c) {
+      const long ftc = ft * C + c;
+      const float g = s_g[c];
+      const float g_new = s_gn[c];
+      for (int s = 0; s < G; ++s) {
+        bool on_old, on_new;
+        if (kFaulted) {
+          const float ok = gw_ok[ftc * G + s];
+          const float st = stuck_on[ftc * G + s];
+          const float d_old = static_cast<float>(s) < g ? 1.0f : 0.0f;
+          const float d_new = static_cast<float>(s) < g_new ? 1.0f : 0.0f;
+          on_old = fmaxf(d_old * ok, st * ok) > 0.5f;
+          on_new = fmaxf(d_new * ok, st * ok) > 0.5f;
+        } else {
+          on_old = static_cast<float>(s) < g;
+          on_new = static_cast<float>(s) < g_new;
+        }
+        const float k_old = on_old
+            ? 1.0f / fmaxf(static_cast<float>(gt_old - up_old), 1.0f) : 0.0f;
+        const float k_new = on_new
+            ? 1.0f / fmaxf(static_cast<float>(gt_new - up_new), 1.0f) : 0.0f;
+        switched += fabsf(k_new - k_old) > 1e-6f;
+        up_old += on_old;
+        up_new += on_new;
+      }
+    }
+    reconf = static_cast<float>(block_sum_int(switched, s_ired))
+        * k.reconfig_nj;
+  }
+  const float failed = kFaulted
+      ? static_cast<float>(block_sum_int(p_failed, s_ired)) : 0.0f;
+
+  // --- the interval's scalars (t_valid-masked) ------------------------------
+  if (tid == 0) {
+    const float tot_mem = mem_t + 1e-9f;
+    const float mem_gw = mem_t / mf;
+    const float mem_lat = access_lat(mean_src, mem_gw, 1.0f, inv_bsat, k)
+        + gateway_lat(mem_gw, s_eff, inv_bsat, k)
+        + access_lat(1.0f, mem_gw, 1.0f, inv_bsat, k);
+    const float lat = (inter_w + intra_w + mem_lat * tot_mem)
+        / (tot_ext + tot_int + tot_mem);
+    const float minter = inter_w / tot_ext;
+    const bool sat = any_sat && tm > 0.0f;
+    const float lit_w = static_cast<float>(n_lit_old + M) * lam;
+    const float laser = lit_w * k.laser_mw * powf(10.0f, access_db * 0.1f);
+    const float tia = lit_w * k.tia_mw;
+    const float tuning = (lit_w + lit_w) * k.tuning_mw;
+    const float driver = lit_w * k.driver_mw;
+    const float total = laser + tia + tuning + driver + k.controller_mw;
+    float* row = scal + item * kCols;
+    row[0] = lat * tm;
+    row[1] = total * tm;
+    row[2] = laser * tm;
+    row[3] = reconf * tm;
+    row[4] = minter * tm;
+    row[5] = (sat ? 1.0f : 0.0f) * tm;
+    if (kFaulted) row[6] = failed * tm;
+  }
+}
+
+template <bool kDest, bool kFaulted, bool kController>
+cudaError_t launch_wide(const float* ext, const float* intra,
+                        const float* mem, const float* t_mask,
+                        const float* drift, const int* lane_trace,
+                        const float* params, const float* g0,
+                        const float* src_hops, const float* gw_loss_db,
+                        const float* dest, const float* gw_ok,
+                        const float* stuck_on, float* g_step, float* scal,
+                        float* g_eff, float* g_des, float* gw_load,
+                        float* g_final, float* recv, int N, int B, int T,
+                        int C, int G, int M, int fshared, const Consts& k,
+                        cudaStream_t stream) {
+  if (kController) {
+    if (kDest) {
+      const long items = static_cast<long>(N) * T * C;
+      epoch_recv_kernel<<<static_cast<unsigned>(
+                              (items + kSplitBlock - 1) / kSplitBlock),
+                          kSplitBlock, 0, stream>>>(ext, dest, recv, N, T, C);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+    const long chains = static_cast<long>(B) * C;
+    epoch_wide_recurrence_kernel<kDest, kFaulted>
+        <<<static_cast<unsigned>((chains + kSplitBlock - 1) / kSplitBlock),
+           kSplitBlock, 0, stream>>>(
+            ext, t_mask, lane_trace, params, g0, recv, gw_ok, g_step,
+            g_final, B, T, C, G, fshared, k.interval);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  epoch_wide_metrics_kernel<kDest, kFaulted, kController>
+      <<<static_cast<unsigned>(static_cast<long>(B) * T), kWideBlock,
+         wide_smem_bytes(C), stream>>>(
+      ext, intra, mem, t_mask, drift, lane_trace, params, g0, src_hops,
+      gw_loss_db, dest, gw_ok, stuck_on, g_step, scal, g_eff, g_des,
+      gw_load, g_final, B, T, C, G, M, fshared, k);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // kernel: 0 = "split" (C <= 16; g_step is the [B, T, C] float scratch,
-// used only when use_controller), 1 = "warp" (C <= 128; g_step unused).
+// used only when use_controller), 1 = "warp" (C <= 128; g_step unused),
+// 2 = "wide" (C <= 1024; g_step as for split, and recv the [N, T, C]
+// float scratch of received loads, used only with destination matrices and
+// the controller). fault_shared: the fault
+// frame is one [T, C, G] / [T] frame that every trace shares (a session
+// tick's hardware frame), not [N, T, C, G] / [N, T].
 extern "C" int epoch_step_launch(
     const float* ext, const float* intra, const float* mem,
     const float* t_mask, const float* drift, const int* lane_trace,
     const float* params, const float* g0, const float* src_hops,
     const float* gw_loss_db, const float* dest, const float* gw_ok,
     const float* stuck_on, float* scal, float* g_eff, float* g_des,
-    float* gw_load, float* g_final, float* g_step, int B, int T, int C,
-    int G, int M, int use_dest, int faulted, int use_controller, int kernel,
-    float interval, float burstiness, float rpc, float flight,
-    float feed_links, float flits, float packet_bits, float ser_k,
-    float mesh_hops, float mesh_feed, float laser_mw, float tia_mw,
-    float tuning_mw, float driver_mw, float controller_mw, float reconfig_nj,
-    void* stream) {
-  const bool split = kernel == 0;
-  if (B < 1 || T < 1 || C < 1 || G < 1 || M < 1 || (kernel != 0 && kernel != 1)
-      || C > (split ? kMaxSplitChiplets : 32 * kMaxChipletsPerThread)
-      || (split && use_controller && g_step == nullptr))
+    float* gw_load, float* g_final, float* g_step, float* recv, int N, int B,
+    int T, int C, int G, int M, int use_dest, int faulted,
+    int use_controller, int kernel,
+    int fault_shared, float interval, float burstiness, float rpc,
+    float flight, float feed_links, float flits, float packet_bits,
+    float ser_k, float mesh_hops, float mesh_feed, float laser_mw,
+    float tia_mw, float tuning_mw, float driver_mw, float controller_mw,
+    float reconfig_nj, void* stream) {
+  const int max_c = kernel == 0 ? kMaxSplitChiplets
+      : kernel == 1 ? 32 * kMaxChipletsPerThread : kMaxWideChiplets;
+  if (B < 1 || T < 1 || C < 1 || G < 1 || M < 1 || kernel < 0 || kernel > 2
+      || C > max_c || N < 1
+      || (kernel != 1 && use_controller && g_step == nullptr)
+      || (kernel == 2 && use_controller && use_dest && recv == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const Consts k{interval, burstiness, rpc, flight, feed_links, flits,
                  packet_bits, ser_k, mesh_hops, mesh_feed, laser_mw, tia_mw,
                  tuning_mw, driver_mw, controller_mw, reconfig_nj};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int fs = fault_shared ? 1 : 0;
   const int variant = (use_dest ? 4 : 0) | (faulted ? 2 : 0)
       | (use_controller ? 1 : 0);
   cudaError_t err;
-  if (split) {
+  // One instantiation per (destination matrices, fault frames, controller)
+  // combination; CALL(kDest, kFaulted, kController) launches one.
+#define EPOCH_CASES(CALL)                                                   \
+  switch (variant) {                                                        \
+    case 0: err = CALL(false, false, false); break;                         \
+    case 1: err = CALL(false, false, true); break;                          \
+    case 2: err = CALL(false, true, false); break;                          \
+    case 3: err = CALL(false, true, true); break;                           \
+    case 4: err = CALL(true, false, false); break;                          \
+    case 5: err = CALL(true, false, true); break;                           \
+    case 6: err = CALL(true, true, false); break;                           \
+    default: err = CALL(true, true, true); break;                           \
+  }
 #define EPOCH_SPLIT_ARGS                                                    \
   ext, intra, mem, t_mask, drift, lane_trace, params, g0, src_hops,         \
       gw_loss_db, dest, gw_ok, stuck_on, g_step, scal, g_eff, g_des,        \
-      gw_load, g_final, B, T, C, G, M, k, s
-#define EPOCH_SPLIT_CASES(KC)                                               \
-  switch (variant) {                                                        \
-    case 0: err = launch_split<KC, false, false, false>(EPOCH_SPLIT_ARGS); break; \
-    case 1: err = launch_split<KC, false, false, true>(EPOCH_SPLIT_ARGS); break;  \
-    case 2: err = launch_split<KC, false, true, false>(EPOCH_SPLIT_ARGS); break;  \
-    case 3: err = launch_split<KC, false, true, true>(EPOCH_SPLIT_ARGS); break;   \
-    case 4: err = launch_split<KC, true, false, false>(EPOCH_SPLIT_ARGS); break;  \
-    case 5: err = launch_split<KC, true, false, true>(EPOCH_SPLIT_ARGS); break;   \
-    case 6: err = launch_split<KC, true, true, false>(EPOCH_SPLIT_ARGS); break;   \
-    default: err = launch_split<KC, true, true, true>(EPOCH_SPLIT_ARGS); break;   \
-  }
-    if (C <= 4) {
-      EPOCH_SPLIT_CASES(4)
-    } else {
-      EPOCH_SPLIT_CASES(16)
-    }
-#undef EPOCH_SPLIT_CASES
-#undef EPOCH_SPLIT_ARGS
-    return static_cast<int>(err);
-  }
+      gw_load, g_final, B, T, C, G, M, fs, k, s
 #define EPOCH_STEP_ARGS                                                     \
   ext, intra, mem, t_mask, drift, lane_trace, params, g0, src_hops,         \
       gw_loss_db, dest, gw_ok, stuck_on, scal, g_eff, g_des, gw_load,       \
-      g_final, B, T, C, G, M, k, s
-  switch (variant) {
-    case 0: err = launch<false, false, false>(EPOCH_STEP_ARGS); break;
-    case 1: err = launch<false, false, true>(EPOCH_STEP_ARGS); break;
-    case 2: err = launch<false, true, false>(EPOCH_STEP_ARGS); break;
-    case 3: err = launch<false, true, true>(EPOCH_STEP_ARGS); break;
-    case 4: err = launch<true, false, false>(EPOCH_STEP_ARGS); break;
-    case 5: err = launch<true, false, true>(EPOCH_STEP_ARGS); break;
-    case 6: err = launch<true, true, false>(EPOCH_STEP_ARGS); break;
-    default: err = launch<true, true, true>(EPOCH_STEP_ARGS); break;
+      g_final, B, T, C, G, M, fs, k, s
+#define EPOCH_WIDE_ARGS                                                     \
+  ext, intra, mem, t_mask, drift, lane_trace, params, g0, src_hops,         \
+      gw_loss_db, dest, gw_ok, stuck_on, g_step, scal, g_eff, g_des,        \
+      gw_load, g_final, recv, N, B, T, C, G, M, fs, k, s
+#define SPLIT4(D, F, K) launch_split<4, D, F, K>(EPOCH_SPLIT_ARGS)
+#define SPLIT16(D, F, K) launch_split<16, D, F, K>(EPOCH_SPLIT_ARGS)
+#define WIDE(D, F, K) launch_wide<D, F, K>(EPOCH_WIDE_ARGS)
+#define WARP(D, F, K) launch<D, F, K>(EPOCH_STEP_ARGS)
+  if (kernel == 0 && C <= 4) {
+    EPOCH_CASES(SPLIT4)
+  } else if (kernel == 0) {
+    EPOCH_CASES(SPLIT16)
+  } else if (kernel == 2) {
+    EPOCH_CASES(WIDE)
+  } else {
+    EPOCH_CASES(WARP)
   }
+#undef WARP
+#undef WIDE
+#undef SPLIT16
+#undef SPLIT4
 #undef EPOCH_STEP_ARGS
+#undef EPOCH_WIDE_ARGS
+#undef EPOCH_SPLIT_ARGS
+#undef EPOCH_CASES
   return static_cast<int>(err);
 }

@@ -10,13 +10,21 @@ B lanes and T intervals and rebuilds the exact record dict and final
 `SimState` the loop produces; given CPU tensors it runs the plain version.
 There is no fallback: an unsupported configuration on CUDA tensors raises.
 
-`variant(c, faulted, dest)` picks the kernel from the chiplet count alone:
-"split" (C <= 16: the controller recurrence, one thread per lane and
-chiplet, then the interval metrics, one thread per lane and interval) or
-"warp" (the first design, one warp per lane, C <= 128). Each call counts one `epoch_step`
-launch, and one under `epoch_step:<variant>`
-(`backend.COUNTERS["variants"]`), whether the variant takes one kernel
-launch or two.
+`variant(c, faulted, dest, lanes)` picks one of three designs from the
+chiplet count, the lane count and whether destination matrices ride along
+(`MIN_LANES`, from the card's timings in PERF.md): "split" (C <= 16: the
+controller recurrence, one thread per lane and chiplet, then the interval
+metrics, one thread per lane and interval) or "warp" (one warp per lane,
+17-128 chiplets) once there are enough lanes to fill the card, else "wide"
+(the recurrence as in "split" with the chiplet count a runtime value, then
+the metrics one block per lane and interval; every C up to MAX_CHIPLETS =
+1024). Each call counts one `epoch_step` launch, and one under
+`epoch_step:<variant>` (`backend.COUNTERS["variants"]`), whether the
+variant takes one kernel launch or two.
+
+A fault frame shared by every trace (one [T, C, G] frame expanded over the
+trace axis, as a session tick's hardware frame is) reaches the kernel once,
+not copied per trace.
 
 Port of `repro.kernels.epoch_step.ops.epoch_run_pallas`.
 """
@@ -37,9 +45,27 @@ from repro_torch.kernels.epoch_step.ref import epoch_run_reference
 
 NAME = "epoch_step"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "epoch_step.cu"
-MAX_CHIPLETS = 128            # "warp": kMaxChipletsPerThread * 32
+MAX_CHIPLETS = 1024           # "wide": kMaxWideChiplets in the source
+WARP_MAX_CHIPLETS = 128       # "warp": kMaxChipletsPerThread * 32
 SPLIT_MAX_CHIPLETS = 16       # "split": kMaxSplitChiplets in the source
-KERNELS = {"split": 0, "warp": 1}
+KERNELS = {"split": 0, "warp": 1, "wide": 2}
+# The most chiplets each design takes.
+KERNEL_MAX_CHIPLETS = {"split": SPLIT_MAX_CHIPLETS,
+                       "warp": WARP_MAX_CHIPLETS, "wide": MAX_CHIPLETS}
+# When "wide" runs instead of the design that fills the card with lanes
+# ("split" up to 16 chiplets, "warp" at 17-128), by destination matrices or
+# not (`chip_smoke.py --epoch-grid` on the card, 100 intervals). "Split"
+# and "warp" have a latency floor (0.04-0.12 ms and 0.3-0.9 ms; with
+# destination matrices up to 5.3 ms at 128 chiplets) that lanes fill at no
+# cost until the card is full; "wide" costs about 1 us a lane (2-4 us with
+# destination matrices) from a lower floor. So "wide" wins below some lane
+# count, and with destination matrices past 48 chiplets at every count
+# measured, where the warp's per-lane C x C loop loses. Each entry: the
+# most chiplets it covers (16 is a boundary in both), and the fewest lanes
+# at which "split" / "warp" runs; past the last entry, "wide".
+MIN_LANES = {False: ((8, 1), (12, 16), (16, 32), (64, 512),
+                     (WARP_MAX_CHIPLETS, 1024)),
+             True: ((4, 1), (8, 32), (16, 64), (32, 512), (48, 1024))}
 (COL_LATENCY, COL_POWER, COL_LASER, COL_RECONFIG, COL_MEAN_INTER,
  COL_SATURATED, COL_FAILED) = range(7)
 
@@ -63,20 +89,26 @@ def build() -> ctypes.CDLL:
     lib = backend.build_library(NAME, SOURCE)
     fn = lib.epoch_step_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 19 + [_I] * 9 + [_F] * 16 + [_P]
+        fn.argtypes = [_P] * 20 + [_I] * 11 + [_F] * 16 + [_P]
         fn.restype = _I
     return lib
 
 
-def variant(c: int, faulted: bool, dest: bool) -> str:
-    """The kernel that runs C chiplets (with or without fault frames and
-    destination matrices, which every variant takes): "split" for
-    C <= 16, "warp" up to 128. Raises beyond."""
-    del faulted, dest                  # both variants take both
+def variant(c: int, faulted: bool, dest: bool, lanes: int) -> str:
+    """The kernel that runs `lanes` lanes of C chiplets (with or without
+    fault frames, which every variant takes): "split" (C <= 16) or "warp"
+    (17-128) from `MIN_LANES` lanes on, "wide" otherwise, up to
+    MAX_CHIPLETS. Raises beyond."""
+    del faulted                        # every variant takes fault frames
     if not 1 <= c <= MAX_CHIPLETS:
         raise ValueError(f"epoch_step kernel supports 1 to {MAX_CHIPLETS} "
                          f"chiplets, got {c}")
-    return "split" if c <= SPLIT_MAX_CHIPLETS else "warp"
+    for top, least in MIN_LANES[dest]:
+        if c <= top:
+            if lanes < least:
+                return "wide"
+            return "split" if c <= SPLIT_MAX_CHIPLETS else "warp"
+    return "wide"
 
 
 def _check_supported(sim, xs, faulted: bool) -> None:
@@ -153,21 +185,19 @@ def launch(g0: torch.Tensor, xs: tuple, sim, tables: dict, *,
         raise RuntimeError(f"epoch_step kernel needs CUDA tensors, got "
                            f"{dev}")
     _check_supported(sim, xs, faulted)
-    c_count = xs[0].shape[2]
-    chosen = variant(c_count, faulted, dest is not None)
-    kernel = chosen if kernel is None else kernel
-    if kernel not in KERNELS or (kernel == "split"
-                                 and c_count > SPLIT_MAX_CHIPLETS):
-        raise ValueError(f"epoch_step: the {kernel} kernel does not take "
-                         f"{c_count} chiplets")
-    lib = build()
-
-    ext, mem, intra, _ext_frac, t_mask = (_f32(a) for a in xs[:5])
-    n, t, c = ext.shape
+    n, t, c = xs[0].shape
     if lane_trace is None:
         lane_trace = torch.arange(n, device=dev)
     lane_trace = lane_trace.to(device=dev, dtype=torch.int32).contiguous()
     b = int(lane_trace.shape[0])
+    if kernel is None:
+        kernel = variant(c, faulted, dest is not None, b)
+    elif kernel not in KERNELS or c > KERNEL_MAX_CHIPLETS[kernel]:
+        raise ValueError(f"epoch_step: the {kernel} kernel does not take "
+                         f"{c} chiplets")
+    lib = build()
+
+    ext, mem, intra, _ext_frac, t_mask = (_f32(a) for a in xs[:5])
     if knobs is None:
         knobs = default_knobs(sim, b, dev)
     params = torch.stack([knobs[k].to(torch.float32) for k in PARAM_KNOBS],
@@ -178,19 +208,23 @@ def launch(g0: torch.Tensor, xs: tuple, sim, tables: dict, *,
     srch = _f32(tables["src_hops"])
     gwdb = _f32(tables["gw_loss_db"])
     dmat = None if dest is None else _f32(dest)
+    # One frame expanded over the trace axis (stride 0) goes in once.
+    shared = faulted and all(a.stride(0) == 0 for a in xs[5:8])
     if faulted:
-        gw_ok, stuck_on, drift = (_f32(a) for a in xs[5:8])
+        gw_ok, stuck_on, drift = (_f32(a[0] if shared else a)
+                                  for a in xs[5:8])
     else:
         gw_ok = stuck_on = drift = None
+    fn = () if shared else (n,)
     for name, a, shape in (("g0", g0, (b, c)), ("src_hops", srch, (g_slots,)),
                            ("gw_loss_db", gwdb, (g_slots,)),
                            ("mem", mem, (n, t)), ("t_mask", t_mask, (n, t)),
                            ("intra", intra, (n, t, c)),
                            ("params", params, (b, len(PARAM_KNOBS))),
                            ("dest", dmat, (n, c, c)),
-                           ("gw_ok", gw_ok, (n, t, c, g_slots)),
-                           ("stuck_on", stuck_on, (n, t, c, g_slots)),
-                           ("drift_db", drift, (n, t))):
+                           ("gw_ok", gw_ok, fn + (t, c, g_slots)),
+                           ("stuck_on", stuck_on, fn + (t, c, g_slots)),
+                           ("drift_db", drift, fn + (t,))):
         if a is not None and (tuple(a.shape) != shape or a.device != dev):
             raise ValueError(f"epoch_step: {name} must be {shape} on {dev}, "
                              f"got {tuple(a.shape)} on {a.device}")
@@ -203,10 +237,13 @@ def launch(g0: torch.Tensor, xs: tuple, sim, tables: dict, *,
            "g_final": torch.empty((b, c), **f32),
            "lane_trace": lane_trace, "knobs": knobs}
     use_controller = sim.arch == Arch.RESIPI
-    # The split's controller recurrence hands g after each interval to the
-    # metrics launch through this scratch.
+    # The split's and the wide design's controller recurrence hands g after
+    # each interval to the metrics launch through this scratch; the wide
+    # recurrence reads the received loads from a launch before it.
     g_step = torch.empty((b, t, c), **f32) \
-        if kernel == "split" and use_controller else None
+        if kernel != "warp" and use_controller else None
+    recv = torch.empty((n, t, c), **f32) \
+        if kernel == "wide" and use_controller and dmat is not None else None
     noc = sim.noc
     pwr = PHOTONIC_POWER
     consts = (
@@ -227,9 +264,9 @@ def launch(g0: torch.Tensor, xs: tuple, sim, tables: dict, *,
         _ptr(lane_trace), _ptr(params), _ptr(g0), _ptr(srch), _ptr(gwdb),
         _ptr(dmat), _ptr(gw_ok), _ptr(stuck_on), _ptr(out["scal"]),
         _ptr(out["g_eff"]), _ptr(out["g_des"]), _ptr(out["gw_load"]),
-        _ptr(out["g_final"]), _ptr(g_step), b, t, c, g_slots,
+        _ptr(out["g_final"]), _ptr(g_step), _ptr(recv), n, b, t, c, g_slots,
         cfg.memory_gateways, int(dmat is not None), int(faulted),
-        int(use_controller), KERNELS[kernel], *consts,
+        int(use_controller), KERNELS[kernel], int(shared), *consts,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"epoch_step {kernel} kernel launch failed: CUDA "

@@ -9,9 +9,11 @@ on every device.
 Cases: Fig. 13's two topologies with static masks; a padded topology with
 garbage arrivals and buffers in its dead lanes; a lane dying mid-run; an
 all-ones `valid_mask_t`; a ragged `t_mask`; `hex_config(2)`; and a batch of
-runs of mixed T, padded with `t_mask` and dead lanes. `check_case` holds a
-run's output to what its case promises besides agreeing with the plain
-version.
+runs of mixed T, padded with `t_mask` and dead lanes. Past the warp
+kernel's 128 nodes (WIDE_NAMES, the node kernel alone): a 12 x 12 and a
+16 x 16 mesh with four gateway sinks each (148 and 260 nodes).
+`check_case` holds a run's output to what its case promises besides
+agreeing with the plain version.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from repro_torch.kernels.noc_step import ops as nops
 NAMES = ("fig13-prowaves", "fig13-resipi", "padded-garbage", "lane-dies",
          "all-ones-valid_mask_t", "ragged-t_mask", "hex_config(2)",
          "batch-mixed-T")
+WIDE_NAMES = ("mesh-12x12", "mesh-16x16")
 PAD = 32                      # node lanes of the padded and batch cases
 
 
@@ -78,6 +81,14 @@ def kernel_cases(dev, cycles: int, fig13_cycles: Optional[int] = None,
                                drain, buf), {}, None)
         if name == "batch-mixed-T":
             return _batch_case(dev, t, topo, arrivals)
+        if name in WIDE_NAMES:
+            radix = int(name.split("-")[1].split("x")[0])
+            cfg = NETWORK.with_topology(mesh_radix=radix)
+            nm, drain, buf = topo(4, 4, cfg)
+            n = nm.shape[0]
+            return Case(name, (arrivals(cfg, n, t, load=0.5), nm, drain,
+                               buf),
+                        {"valid_mask": torch.ones(n, device=dev)}, None)
         nm, drain, buf = topo(2, 4)
         n = nm.shape[0]
         args = (arrivals(NETWORK, n, t, load=0.3), nm, drain, buf)

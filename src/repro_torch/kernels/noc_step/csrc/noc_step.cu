@@ -26,7 +26,8 @@
 //
 // Two designs live here; the wrapper picks one (ops.run_prepared).
 //
-// "node" (the main path): one BLOCK per run, one node per thread, over
+// "node" (the main path, up to kMaxNodeNodes = 1024 nodes): one BLOCK per
+// run of roundup(R, 32) threads, one node per thread, over
 // w = ceil(R_active / 32) warps, R_active being the run's active prefix
 // (one past its highest node that is live or routed; the wrapper computes
 // it). Nodes past the prefix come out exactly 0 without being simulated.
@@ -39,14 +40,19 @@
 // in the same order as a third exchange of moved would give: bitwise the
 // "warp" design's result. When w = 1 the exchanges are warp shuffles (no
 // shared memory, no barrier); when w > 1 they go through shared memory
-// between named barriers over the run's 32 w threads. Inputs are loaded a
-// chunk of kNodeDepth cycles ahead. The space / want division guards a zero
+// between named barriers over the run's 32 w threads; the two exchange
+// arrays live in dynamic shared memory sized by the block (2 x 4 KB at 1024
+// nodes). Runs of up to 128 nodes take an instantiation bounded to 128
+// threads a block, wider ones one bounded to 1024 (at most 64 registers a
+// thread): forced at R <= 128 the latter is ~10% slower on the card
+// (chip_smoke.py phase 4 times both). Inputs are loaded a chunk of
+// kNodeDepth cycles ahead. The space / want division guards a zero
 // numerator (a full buffer), which would otherwise take the division's slow
 // path: congested runs fill buffers every cycle.
 //
 // "warp" (the first design, kept as the yardstick the node design is held
 // to bitwise and timed against): one WARP per run, thread j owns nodes j,
-// j+32, j+64, j+96 (R <= 128) for all T cycles, three exchanges a cycle
+// j+32, j+64, j+96 (R <= kMaxNodes = 128) for all T cycles, three exchanges a cycle
 // through shared memory after __syncwarp (send, scale, moved).
 //
 // Numerics: build with --fmad=false. Every float is computed op for op as
@@ -67,7 +73,8 @@ namespace {
 
 constexpr int kWarpsPerBlock = 4;
 constexpr int kMaxNodesPerThread = 4;           // R <= 128
-constexpr int kMaxNodes = 32 * kMaxNodesPerThread;
+constexpr int kMaxNodes = 32 * kMaxNodesPerThread;   // the warp kernel
+constexpr int kMaxNodeNodes = 1024;   // the node kernel: MAX_NODES in ops.py
 constexpr int kMaxInDegree = 6;                 // hex neighbors; MAX_IN_DEGREE
 constexpr int kDepth = 4;                       // cycles prefetched ahead
 
@@ -369,8 +376,8 @@ __device__ __forceinline__ void node_run(
   }
 }
 
-template <bool kTv>
-__global__ void __launch_bounds__(kMaxNodes) noc_node_kernel(
+template <bool kTv, int kMaxThreads>
+__global__ void __launch_bounds__(kMaxThreads) noc_node_kernel(
     const float* __restrict__ arrivals, const float* __restrict__ t_mask,
     const float* __restrict__ mask, const float* __restrict__ mask_t,
     const int* __restrict__ next_hop, const int* __restrict__ in_src,
@@ -378,8 +385,9 @@ __global__ void __launch_bounds__(kMaxNodes) noc_node_kernel(
     const int* __restrict__ r_active, float* __restrict__ resid_out,
     float* __restrict__ occ_out, float* __restrict__ drained_out, int T,
     int R, float link_rate) {
-  __shared__ float s_send[kMaxNodes];
-  __shared__ float s_scale[kMaxNodes];
+  extern __shared__ float s_node[];    // [2, blockDim.x]: send, scale
+  float* s_send = s_node;
+  float* s_scale = s_node + blockDim.x;
   const int b = blockIdx.x;
   const int n = threadIdx.x;
   const int r_act = min(max(r_active[b], 0), R);
@@ -409,10 +417,16 @@ cudaError_t launch_node(const float* arrivals, const float* t_mask,
                         const int* r_active, float* resid, float* occ,
                         float* drained, int B, int T, int R, float link_rate,
                         cudaStream_t stream) {
-  const dim3 block(32 * ((R + 31) / 32));
-  noc_node_kernel<kTv><<<B, block, 0, stream>>>(
-      arrivals, t_mask, mask, mask_t, next_hop, in_src, drain, buf, r_active,
-      resid, occ, drained, T, R, link_rate);
+  const int threads = 32 * ((R + 31) / 32);
+  const size_t shmem = 2 * sizeof(float) * threads;
+  if (threads <= kMaxNodes)
+    noc_node_kernel<kTv, kMaxNodes><<<B, threads, shmem, stream>>>(
+        arrivals, t_mask, mask, mask_t, next_hop, in_src, drain, buf,
+        r_active, resid, occ, drained, T, R, link_rate);
+  else
+    noc_node_kernel<kTv, kMaxNodeNodes><<<B, threads, shmem, stream>>>(
+        arrivals, t_mask, mask, mask_t, next_hop, in_src, drain, buf,
+        r_active, resid, occ, drained, T, R, link_rate);
   return cudaGetLastError();
 }
 
@@ -421,15 +435,16 @@ cudaError_t launch_node(const float* arrivals, const float* t_mask,
 // arrivals [B, T, R], t_mask [B, T], mask [B, R], mask_t [B, T, R] or null
 // (the static mask ANDed in), next_hop [B, R], in_src [B, R, max_in], drain
 // and buf [B, R], r_active [B] (the active prefix; "node" only) -> resid,
-// occ, drained [B, R]. kernel: 0 = "node", 1 = "warp". Returns a
-// cudaError_t.
+// occ, drained [B, R]. kernel: 0 = "node" (R <= 1024), 1 = "warp"
+// (R <= 128). Returns a cudaError_t.
 extern "C" int noc_step_launch(
     const float* arrivals, const float* t_mask, const float* mask,
     const float* mask_t, const int* next_hop, const int* in_src,
     const float* drain, const float* buf, const int* r_active, float* resid,
     float* occ, float* drained, int B, int T, int R, int max_in, int kernel,
     float link_rate, void* stream) {
-  if (B < 1 || T < 0 || R < 1 || R > kMaxNodes || max_in != kMaxInDegree
+  if (B < 1 || T < 0 || R < 1 || R > (kernel == 0 ? kMaxNodeNodes : kMaxNodes)
+      || max_in != kMaxInDegree
       || (kernel != 0 && kernel != 1) || (kernel == 0 && r_active == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -10,8 +10,9 @@ the port's arrivals equal the reference's at the same seed), and runs
 all B runs of a batch; given CPU tensors it runs the plain version
 (`ref.reference_noc_run`). There is no fallback. The kernel that runs is
 "node" (one block per run, one node per thread over the run's active
-prefix); `run_prepared(p, kernel="warp")` runs the first design, one warp
-per run, on the same inputs. Each launch counts under `noc_step` and under
+prefix, up to MAX_NODES = 1024 nodes); `run_prepared(p, kernel="warp")`
+runs the first design, one warp per run (up to WARP_MAX_NODES = 128), on
+the same inputs. Each launch counts under `noc_step` and under
 `noc_step:<kernel>` (`backend.COUNTERS["variants"]`).
 
 `build_topology_padded` and the dead-lane `valid_mask` are the contract for
@@ -39,7 +40,8 @@ from repro_torch.kernels.noc_step.ref import reference_noc_run
 
 NAME = "noc_step"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "noc_step.cu"
-MAX_NODES = 128               # kMaxNodes in the source
+MAX_NODES = 1024              # the node kernel: kMaxNodeNodes in the source
+WARP_MAX_NODES = 128          # the warp kernel: kMaxNodes in the source
 KERNELS = {"node": 0, "warp": 1}
 # kMaxInDegree in the source: a node receives from at most one neighbor per
 # adjacency direction (6 on hex layouts, 4 on meshes; a sink from 1).
@@ -226,7 +228,7 @@ def noc_run(arrivals: torch.Tensor, next_mat: torch.Tensor,
     next_mat, [B?, R] drain/buffers/validity, [B?, T, R] valid_mask_t,
     [B?, T] t_mask; arrays without the batch axis are shared by all runs).
     On CUDA tensors the kernel runs all B runs in one launch (next_mat must
-    be one-hot, R <= 128, every T accepted); on CPU tensors the plain
+    be one-hot, R <= MAX_NODES, every T accepted); on CPU tensors the plain
     version runs. Returns (residency, final_occupancy, drained), [B?, R].
     """
     if arrivals.device.type == "cpu":
@@ -299,14 +301,17 @@ def run_prepared(p: dict, kernel: Optional[str] = None):
     """One kernel launch on `prepare`'s output, on the current stream
     (never synchronizes); returns (residency, final_occupancy, drained)
     [B, R]. `kernel` is "node" (the default) or "warp" (the first design,
-    which tests and timing run on the same inputs)."""
+    which tests and timing run on the same inputs, up to WARP_MAX_NODES)."""
     kernel = "node" if kernel is None else kernel
     if kernel not in KERNELS:
         raise ValueError(f"noc_step: no {kernel!r} kernel (have "
                          f"{sorted(KERNELS)})")
-    lib = build()
     arrivals = p["arrivals"]
     b, t, r = arrivals.shape
+    if kernel == "warp" and r > WARP_MAX_NODES:
+        raise ValueError(f"noc_step: the warp kernel supports up to "
+                         f"{WARP_MAX_NODES} nodes, got {r}")
+    lib = build()
     out = [torch.empty((b, r), dtype=_F32, device=arrivals.device)
            for _ in range(3)]
     ptr = [None if p[k] is None else p[k].data_ptr() for k in

@@ -13,13 +13,26 @@ torch's uint32 support is thin. Everything is vectorised over the whole
 output on the key's device; a draw of N values holds a few int64 [N]
 temporaries, so callers that draw billions split the work into groups.
 
-Normal, lognormal and gamma draws (which go through XLA's own `erf_inv`
-polynomial) are not here.
+`normal` and `permutation` return `jax.random.normal` (float32) and
+`jax.random.permutation(key, n)` bit for bit. A normal is
+`sqrt(2) * erf_inv(u)` for u uniform on [nextafter(-1, 0), 1), and jax's
+`erf_inv` is XLA's single-precision polynomial, whose `log1p` and `log` are
+XLA's own (Cephes-style) approximations, not libm's: `xla_log`,
+`xla_log1p`, `erf_inv` and `xla_exp` below repeat XLA's CPU code operation
+for operation, including the multiply-adds its compiler fuses (emulated
+exactly: a float32 product is exact in float64, and the float64 sum rounds
+to float32 as the fused operation does, barring double rounding), with
+division and square root rounded from float64 (torch's float32 CPU `sqrt`
+is not correctly rounded). `sin` is float64 `sin` rounded to float32; XLA
+calls libm's `sinf`, which differs from the correctly rounded value by an
+ulp in about 2% of arguments.
 """
 from __future__ import annotations
 
 import math
+import struct
 
+import numpy as np
 import torch
 
 from repro_torch.backend import resolve_device
@@ -67,8 +80,8 @@ def _hash_iota(key: torch.Tensor, shape: tuple) -> tuple:
     hi = idx >> 32
     lo = idx & _MASK
     lead = key.shape[:-1]
-    k1 = key[..., 0].reshape(*lead, *(1,) * len(shape))
-    k2 = key[..., 1].reshape(*lead, *(1,) * len(shape))
+    k1 = key[..., 0].reshape(tuple(lead) + (1,) * len(shape))
+    k2 = key[..., 1].reshape(tuple(lead) + (1,) * len(shape))
     return _threefry2x32(k1, k2, hi.reshape(shape), lo.reshape(shape))
 
 
@@ -91,3 +104,176 @@ def uniform(key: torch.Tensor, shape) -> torch.Tensor:
     bits = random_bits(key, shape)
     f = ((bits >> (32 - _F32_MANTISSA)) | _ONE_F32_BITS).to(torch.int32)
     return f.view(torch.float32) - 1.0
+
+
+def uniform_range(key: torch.Tensor, shape, minval: float,
+                  maxval: float) -> torch.Tensor:
+    """`jax.random.uniform(key, shape, float32, minval, maxval)`:
+    `max(minval, u * (maxval - minval) + minval)` in float32, u = `uniform`
+    (the range folded to one float32 constant, as XLA folds it)."""
+    lo = torch.tensor(minval, dtype=torch.float32)
+    span = float(torch.tensor(maxval, dtype=torch.float32) - lo)
+    u = uniform(key, shape)
+    return torch.maximum(lo.to(u.device), u * span + float(lo))
+
+
+# --- XLA's float32 elementary functions (CPU code generator) ---------------
+
+def _f32(hex64: str) -> float:
+    """A float32 constant from the 64-bit hex form LLVM IR prints it in."""
+    return float(np.float32(struct.unpack(">d", bytes.fromhex(hex64))[0]))
+
+
+_F32 = torch.float32
+_MIN_NORMAL = _f32("3810000000000000")
+_LOG_SQRTHF = _f32("3FE6A09E60000000")
+_LOG_P = [_f32(h) for h in (
+    "3FB2043760000000", "BFBD7A3700000000", "3FBDE4A340000000",
+    "BFBFCBA9E0000000", "3FC23D37E0000000", "BFC555CA00000000",
+    "3FC999D580000000", "BFCFFFFF80000000", "3FD5555540000000")]
+_LOG_Q1 = _f32("BF2BD01060000000")
+_LOG_Q2 = _f32("3FE6300000000000")
+_LOG1P_SMALL = _f32("3FDA8279A0000000")          # sqrt(2) - 1
+_LOG1P_DEN = [_f32(h) for h in (
+    "402E2035A0000000", "4054C30B60000000", "406BB865A0000000",
+    "4073519460000000", "406B0DB140000000", "404E0F3040000000")]
+_LOG1P_NUM0 = _f32("3F07BC0960000000")
+_LOG1P_NUM = [_f32(h) for h in (
+    "3FDFE818A0000000", "401A509F40000000", "403DE97380000000",
+    "404E798EC0000000", "404C8E75A0000000", "40340A2020000000")]
+_EXP_LO = _f32("C055F33340000000")
+_EXP_HI = _f32("4056333340000000")
+_LOG2E = _f32("3FF7154760000000")
+_EXP_P = [_f32(h) for h in (
+    "3F2A0D2CE0000000", "3F56E879C0000000", "3F81112100000000",
+    "3FA5553820000000", "3FC5555540000000")]
+# Giles' single-precision erf_inv: w < 5 and w >= 5 coefficient sets.
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+SQRT2_F32 = float(np.float32(np.sqrt(2)))
+
+
+def fma(a, b, c) -> torch.Tensor:
+    """float32 a * b + c with one rounding (a fused multiply-add): the
+    product is exact in float64 and the sum is rounded once more to
+    float32."""
+    d = [x.double() if isinstance(x, torch.Tensor) else x for x in (a, b, c)]
+    return (d[0] * d[1] + d[2]).to(_F32)
+
+
+def div(a: torch.Tensor, b) -> torch.Tensor:
+    """Correctly rounded float32 a / b."""
+    return (a.double() / (b.double() if isinstance(b, torch.Tensor)
+                          else b)).to(_F32)
+
+
+def sqrt(a: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 sqrt."""
+    return torch.sqrt(a.double()).to(_F32)
+
+
+def sin(a: torch.Tensor) -> torch.Tensor:
+    """float32 sin as float64 sin rounded (XLA calls libm's sinf, which is
+    an ulp off the correctly rounded value for some arguments)."""
+    return torch.sin(a.double()).to(_F32)
+
+
+def _full(v: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.full_like(like, v, dtype=_F32)
+
+
+def xla_log(v: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 log (CPU): exponent split, mantissa in [sqrt(1/2),
+    sqrt(2)), a degree-9 Cephes polynomial; denormal inputs read as 0."""
+    x = torch.where(v > _MIN_NORMAL, v, _full(_MIN_NORMAL, v))
+    bits = x.view(torch.int32)
+    e1 = ((bits >> 23) - 127).to(_F32) + 1.0
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(_F32)
+    low = m < _LOG_SQRTHF
+    e = e1 - low.to(_F32)
+    xx = (m + -1.0) + torch.where(low, m, _full(0.0, m))
+    x2 = xx * xx
+    x3 = x2 * xx
+    a = fma(fma(xx, _LOG_P[0], _LOG_P[1]), xx, _LOG_P[2])
+    b = fma(fma(xx, _LOG_P[3], _LOG_P[4]), xx, _LOG_P[5])
+    c = fma(fma(xx, _LOG_P[6], _LOG_P[7]), xx, _LOG_P[8])
+    y = fma(fma(fma(a, x3, b), x3, c), x3, e * _LOG_Q1)
+    out = ((xx - x2 * 0.5) + y) + e * _LOG_Q2
+    out = torch.where(v < _MIN_NORMAL, _full(float("-inf"), v), out)
+    out = torch.where(v < 0, _full(float("nan"), v), out)
+    return torch.where(v == float("inf"), v, out)
+
+
+def xla_log1p(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 log1p (CPU): a rational Cephes approximation for
+    |x| < sqrt(2) - 1, `xla_log(1 + x)` beyond."""
+    x2 = x * x
+    d = x + _LOG1P_DEN[0]
+    for c in _LOG1P_DEN[1:]:
+        d = fma(d, x, c)
+    n = fma(x, _LOG1P_NUM0, _LOG1P_NUM[0])
+    for c in _LOG1P_NUM[1:]:
+        n = fma(n, x, c)
+    small = x + (x2 * -0.5 + (x * x2) * div(n, d))
+    return torch.where(x.abs() < _LOG1P_SMALL, small, xla_log(x + 1.0))
+
+
+def xla_exp(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 exp (CPU): clamp, n = floor(x log2 e + 1/2), a Cephes
+    polynomial of the reduced argument, times 2^n; denormals flushed."""
+    x = torch.clamp(x, _EXP_LO, _EXP_HI)
+    n = torch.clamp(torch.floor(fma(x, _LOG2E, 0.5)), -127.0, 127.0)
+    r = fma(n, -_LOG_Q1, x - n * _LOG_Q2)
+    y = fma(r, _EXP_P[0], _EXP_P[1])
+    for c in _EXP_P[2:]:
+        y = fma(y, r, c)
+    y = 1.0 + fma(fma(y, r, 0.5), r * r, r)
+    out = y * ((n.to(torch.int32) + 127) << 23).view(_F32)
+    # XLA's CPU code flushes denormal results to zero.
+    return torch.where(out < _MIN_NORMAL, _full(0.0, out), out)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ErfInv: Giles' polynomial in w = -log1p(-x^2)."""
+    w = -xla_log1p(x * -x)
+    lt = w < 5.0
+    wv = torch.where(lt, w + -2.5, sqrt(w) + -3.0)
+    p = torch.where(lt, _full(_ERFINV_LT5[0], x), _full(_ERFINV_GE5[0], x))
+    for lo, hi in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = fma(p, wv, torch.where(lt, _full(lo, x), _full(hi, x)))
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+
+
+def normal_erf_inv(key: torch.Tensor, shape) -> torch.Tensor:
+    """`erf_inv(u)` of the uniform a normal draw uses: `normal` is this
+    times sqrt(2). XLA folds that factor into a constant that multiplies
+    the draw, so a generator mirroring such a fold starts here."""
+    return erf_inv(uniform_range(key, shape, _NORMAL_LO, 1.0))
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """`jax.random.normal(key, shape)` (float32), bit for bit."""
+    return normal_erf_inv(key, shape) * SQRT2_F32
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """`jax.random.permutation(key, n)`: arange(n) sorted, stably, by fresh
+    32-bit keys in each of ceil(3 ln n / ln(2^32 - 1)) rounds, the round's
+    key split off the carried one (`split(key)`: carry [0], round [1]).
+    Returns int64 [..., n] for a key [..., 2]."""
+    n = int(n)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(_MASK)))
+    x = torch.arange(n, device=key.device).expand(*key.shape[:-1], n)
+    for _ in range(rounds):
+        pair = split(key)
+        key, sub = pair[..., 0, :], pair[..., 1, :]
+        order = torch.sort(random_bits(sub, (n,)), dim=-1, stable=True)[1]
+        x = torch.gather(x, -1, order)
+    return x

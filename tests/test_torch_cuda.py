@@ -12,7 +12,10 @@ The cases are those of `chip_smoke.py` phase 2 at a smaller size (the
 `epoch_step`, each case through both designs ("split", which the wrapper
 picks, and "warp"): clean, destination matrices, a ragged `t_mask` batch
 with an all-masked lane, fault frames, and a sweep over the five kernel
-knobs, plus 1 and 12 chiplets; records and final state agree at
+knobs, plus 1 and 12 chiplets, each also through the "wide" design; the
+cases past 128 chiplets (`kernels/epoch_step/cases.py`: 144 and 256,
+clean, destination matrices, a fault frame, RESIPI_ALL) through "wide",
+which `simulate` picks there; records and final state agree at
 rtol = atol = 1e-6 (the reference's bound for this kernel), integer g and
 boolean saturation exactly. For `noc_step` (T <= 1024), each case through
 the "node" kernel and the "warp" kernel, which must agree bit for bit:
@@ -21,7 +24,10 @@ lanes, a lane dying mid-run, an all-ones `valid_mask_t`, a ragged
 `t_mask`, `hex_config(2)` and a batch of mixed-T runs at rtol 1e-5, atol
 1e-3 of the plain version (the in-edge sums run in another order than the
 plain version's products); dead lanes exactly 0, a batch bitwise its
-single runs, and the wrappers' refusals. For `flash_attention` and
+single runs, and the wrappers' refusals; the 12 x 12 and 16 x 16 meshes
+(148 and 260 nodes) through the node kernel alone. Streaming on the card:
+a chunked session equals a one-shot `simulate` and a `session_tick` lane a
+standalone session, bit for bit, and `sweep_faults` the plain version. For `flash_attention` and
 `ssd_scan`: the shared cases of `kernels/flash_attention/cases.py` and
 `kernels/ssd_scan/cases.py` (chip_smoke.py's phase 2) at the reference's
 bounds (flash 2e-5 in float32, 3e-2 in bfloat16; SSD float32 outputs 1e-4,
@@ -38,6 +44,7 @@ import torch
 
 from repro_torch.core import simulator as tsim
 from repro_torch.core import traffic
+from repro_torch.kernels.epoch_step import cases as ecases
 from repro_torch.kernels.epoch_step import ops
 from repro_torch.kernels.epoch_step.ref import epoch_run_reference
 from repro_torch.kernels.noc_step import cases as noc_cases
@@ -108,12 +115,14 @@ def _traces(case: str, dev) -> list:
 
 
 def _run_variant(kernel, state0, xs, sim, tables, kw):
-    """`ops.epoch_run` for the variant the wrapper picks ("split"), the
-    raw launch reassembled for the other; one launch counted either way."""
+    """`ops.epoch_run` where the wrapper picks `kernel` itself, the raw
+    launch of `kernel` reassembled otherwise; one launch counted either
+    way."""
     from repro_torch import backend
 
     backend.reset_counters()
-    if kernel == "split":
+    if kernel == ops.variant(xs[0].shape[2], kw["faulted"],
+                             kw["dest"] is not None, state0.ctl.g.shape[0]):
         out = ops.epoch_run(state0, xs, sim, tables, **kw)
     else:
         out = ops._reassemble(state0, ops.launch(state0.ctl.g, xs, sim,
@@ -125,7 +134,7 @@ def _run_variant(kernel, state0, xs, sim, tables, kw):
     return out
 
 
-@pytest.mark.parametrize("kernel", ["split", "warp"])
+@pytest.mark.parametrize("kernel", ["split", "warp", "wide"])
 @pytest.mark.parametrize("arch", ARCHS, ids=lambda a: a.value)
 @pytest.mark.parametrize("case", ["clean", "dest", "ragged", "faults",
                                   "sweep"])
@@ -143,7 +152,8 @@ def test_kernel_matches_plain(case, arch, kernel, cuda_device):
     state0, xs, tables, kw = tsim.epoch_inputs(traces, sim,
                                                device=cuda_device, **grid)
     assert ops.variant(xs[0].shape[2], kw["faulted"],
-                       kw["dest"] is not None) == "split"
+                       kw["dest"] is not None,
+                       state0.ctl.g.shape[0]) == "split"
     got_state, got = _run_variant(kernel, state0, xs, sim, tables, kw)
     want_state, want = epoch_run_reference(state0, xs, sim, tables, **kw)
     _compare(got, want)
@@ -178,7 +188,7 @@ def test_entry_points_on_the_card_match_the_cpu(arch, cuda_device):
         _compare({k: v.cpu() for k, v in got[part].items()}, want[part])
 
 
-@pytest.mark.parametrize("kernel", ["split", "warp"])
+@pytest.mark.parametrize("kernel", ["split", "warp", "wide"])
 @pytest.mark.parametrize("chiplets", [1, 12])
 def test_kernel_matches_plain_at_other_widths(chiplets, kernel,
                                               cuda_device):
@@ -222,6 +232,38 @@ def test_wrapper_rejects_what_the_kernel_does_not_run(cuda_device):
                                                sim, device=cuda_device)
     with pytest.raises(ValueError, match="does not take"):
         ops.launch(state0.ctl.g, xs, sim, tables, kernel="lane", **kw)
+    # Past the cap (1024 chiplets) the wrapper raises, naming it.
+    c = ops.MAX_CHIPLETS + 1
+    wide = tsim.SimConfig(cfg=tsim.NETWORK.with_topology(n_chiplets=c))
+    z = torch.zeros((1, 4, c), device=cuda_device)
+    o = torch.ones((1, 4), device=cuda_device)
+    with pytest.raises(ValueError, match=str(ops.MAX_CHIPLETS)):
+        ops.launch(torch.ones((1, c), device=cuda_device), (z, o, z, o, o),
+                   wide, tables)
+
+
+@pytest.mark.parametrize("name", ecases.WIDE_NAMES)
+def test_wide_design_past_128_chiplets(name, cuda_device):
+    """144 and 256 chiplets: `simulate` runs the "wide" design (one
+    launch), and the kernel equals the plain version on the same inputs at
+    1e-6 with g, saturation and state exact."""
+    from repro_torch import backend, interop
+
+    case = ecases.wide_case(name, t=T)
+    trace = interop.trace_from_numpy(case.trace, cuda_device)
+    backend.reset_counters()
+    out = tsim.simulate(trace, case.sim)
+    torch.cuda.synchronize()
+    assert backend.COUNTERS["variants"] == {"epoch_step:wide": 1}
+    state0, xs, tables, kw = tsim.epoch_inputs(trace, case.sim,
+                                               device=cuda_device)
+    got_state, got = _run_variant("wide", state0, xs, case.sim, tables, kw)
+    want_state, want = epoch_run_reference(state0, xs, case.sim, tables,
+                                           **kw)
+    _compare(got, want)
+    _compare(_state(got_state), _state(want_state))
+    for k, v in want.items():
+        assert torch.equal(out["records"][k][None], got[k]), k
 
 
 # ---------------------------------------------------------------------------
@@ -289,7 +331,7 @@ def test_noc_wrapper_rejects_what_the_kernel_does_not_run(cuda_device):
         nops.noc_run(arr, two, drain, buf)
     r = nops.MAX_NODES + 1
     z = torch.zeros(r, device=cuda_device)
-    with pytest.raises(ValueError, match="up to 128"):
+    with pytest.raises(ValueError, match=f"up to {nops.MAX_NODES}"):
         nops.noc_run(torch.zeros((8, r), device=cuda_device),
                      torch.zeros((r, r), device=cuda_device), z, z)
     with pytest.raises(ValueError, match="cpu"):
@@ -297,6 +339,104 @@ def test_noc_wrapper_rejects_what_the_kernel_does_not_run(cuda_device):
     with pytest.raises(ValueError, match="kernel"):
         nops.run_prepared(nops.prepare(arr[None], nm, drain, buf),
                           kernel="lane")
+    wide = _noc_case("mesh-12x12", cuda_device, 64)
+    with pytest.raises(ValueError, match="warp kernel supports up to 128"):
+        nops.run_prepared(nops.prepare(wide.args[0][None], *wide.args[1:],
+                                       **wide.kwargs), kernel="warp")
+
+
+@pytest.mark.parametrize("case", noc_cases.WIDE_NAMES)
+def test_noc_node_kernel_past_128_nodes(case, cuda_device):
+    """A 12 x 12 and a 16 x 16 mesh with four gateway sinks (148 and 260
+    nodes): one node-kernel launch, equal to the plain version at rtol
+    1e-5 / atol 1e-3."""
+    from repro_torch import backend
+
+    c = _noc_case(case, cuda_device)
+    backend.reset_counters()
+    got = nops.noc_run(*c.args, **c.kwargs)
+    torch.cuda.synchronize()
+    assert backend.COUNTERS["variants"] == {"noc_step:node": 1}
+    for a, b in zip(got, reference_noc_run(*c.args, **c.kwargs)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-3)
+    noc_cases.check_case(c, got, nops.noc_run)
+
+
+# ---------------------------------------------------------------------------
+# Streaming and fault sweeps on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", list(tsim.Arch), ids=lambda a: a.value)
+def test_chunked_session_equals_one_shot_on_the_card(arch, cuda_device):
+    sim = tsim.SimConfig().with_arch(arch)
+    tr = traffic.generate(traffic.ParsecSpec("canneal", 70), 5, dest=True,
+                          device=cuda_device)
+    one = tsim.simulate(tr, sim)
+    sess = tsim.SimSession.init(sim)
+    recs = [sess.step_chunk(c)["records"]
+            for c in traffic.chunk_trace(tr, 16, pad=True)]
+    for k, v in one["records"].items():
+        assert torch.equal(torch.cat([r[k] for r in recs])[:70], v), k
+
+
+def test_tick_lane_equals_standalone_session_on_the_card(cuda_device):
+    """Eight lanes with per-lane destination matrices and one shared fault
+    frame, a parked lane: each lane's records and sums are a standalone
+    session's bit for bit (one kernel launch a tick)."""
+    from repro_torch import backend
+    from repro_torch.core import faults
+
+    sim, t, lanes = tsim.SimConfig(), 16, 8
+    streams = [list(traffic.chunk_trace(traffic.generate(
+        traffic.ParsecSpec(traffic.APP_NAMES[i], 3 * t), 20 + i, dest=True,
+        device=cuda_device), t)) for i in range(lanes)]
+    frame = faults.compile_faults(
+        [faults.GatewayFault(chiplet=1, slot=0, start=2, end=9),
+         faults.LinkFlap(chiplet=2, p_down=0.3)], sim.cfg, t, seed=1)
+    states = tsim.init_session_states(sim, lanes)
+    tables = tsim.selection_tables_torch(sim.cfg, cuda_device)
+    solo = [tsim.SimSession.init(sim) for _ in range(lanes)]
+    for tick in range(3):
+        chunks = [s[tick] for s in streams]
+        batch = {k: torch.stack([torch.as_tensor(c[k]) for c in chunks])
+                 for k in ("ext_load", "mem_load", "int_load", "ext_frac",
+                           "dest")}
+        batch["t_mask"] = torch.ones((lanes, t), device=cuda_device)
+        if tick == 1:
+            batch["t_mask"][3] = 0.0
+            chunks[3] = dict(chunks[3], t_mask=batch["t_mask"][3])
+        backend.reset_counters()
+        states, recs, sums = tsim.session_tick(states, batch, tables, sim,
+                                               frame=frame)
+        assert backend.COUNTERS["launches"] == {"epoch_step": 1}
+        for k in range(lanes):
+            out = solo[k].step_chunk(faults.attach_faults(chunks[k], frame))
+            for n, v in out["records"].items():
+                assert torch.equal(recs[n][k], v), (tick, k, n)
+            mine = tsim.summary_from_sums({n: v[k] for n, v in sums.items()},
+                                          sim.cfg.n_chiplets)
+            for n, v in out["summary"].items():
+                assert torch.equal(mine[n], v), (tick, k, n)
+
+
+@pytest.mark.parametrize("arch", ARCHS, ids=lambda a: a.value)
+def test_sweep_faults_on_the_card_matches_the_cpu(arch, cuda_device):
+    from repro_torch.core import faults
+
+    sim = tsim.SimConfig().with_arch(arch)
+    tr = traffic.generate(traffic.ParsecSpec("dedup", 40), 3, dest=True,
+                          device="cpu")
+    frames = [faults.compile_faults(
+        [faults.LinkFlap(chiplet=k % 4, p_down=0.2),
+         faults.GatewayFault(chiplet=(k + 1) % 4, slot=k % 4, start=k)],
+        sim.cfg, 40, seed=k) for k in range(16)]
+    l_m = np.linspace(0.004, 0.03, 16).astype(np.float32)
+    got = tsim.sweep_faults({k: (v.to(cuda_device)
+                                 if isinstance(v, torch.Tensor) else v)
+                             for k, v in tr.items()}, sim, frames, l_m=l_m)
+    want = tsim.sweep_faults(tr, sim, frames, device="cpu", l_m=l_m)
+    for part in ("records", "summary"):
+        _compare({k: v.cpu() for k, v in got[part].items()}, want[part])
 
 
 # ---------------------------------------------------------------------------

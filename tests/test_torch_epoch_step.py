@@ -335,14 +335,35 @@ def test_split_recurrence_then_metrics_is_the_loop(case, arch):
                                        atol=1e-6, msg=k)
 
 
+# The fewest lanes at which "split" (C <= 16) or "warp" (17-128) runs
+# instead of "wide", by the most chiplets each entry covers, as measured on
+# the card; past the last entry "wide" runs whatever the lanes.
+WANT_MIN_LANES = {False: ((8, 1), (12, 16), (16, 32), (64, 512),
+                          (128, 1024)),
+                  True: ((4, 1), (8, 32), (16, 64), (32, 512), (48, 1024))}
+
+
 @pytest.mark.parametrize("faulted", [False, True])
-@pytest.mark.parametrize("c", [1, 4, 16, 17, 128])
+@pytest.mark.parametrize("c", [1, 4, 5, 8, 9, 12, 13, 16, 17, 32, 33, 48,
+                               49, 64, 65, 128, 129, 256, 1024])
 def test_variant_by_chiplet_count(c, faulted):
-    """"split" up to 16 chiplets, "warp" up to 128, whatever the fault
-    frames and destination matrices; nothing beyond."""
-    want = "split" if c <= ops.SPLIT_MAX_CHIPLETS else "warp"
+    """"split" up to 16 chiplets and "warp" at 17-128 once there are the
+    lanes at which they measured faster than "wide" on the card, "wide"
+    below and past 128 chiplets up to 1024; fault frames change nothing;
+    nothing beyond 1024."""
+    assert ops.MAX_CHIPLETS >= 1024
+    assert ops.MIN_LANES == WANT_MIN_LANES
     for dest in (False, True):
-        assert ops.variant(c, faulted, dest) == want
+        least = next((n for top, n in WANT_MIN_LANES[dest] if c <= top),
+                     None)
+        for lanes in (1, 8, 15, 16, 31, 32, 63, 64, 511, 512, 1023, 1024,
+                      32768):
+            if least is None or lanes < least:
+                want = "wide"
+            else:
+                want = "split" if c <= 16 else "warp"
+            assert ops.variant(c, faulted, dest, lanes) == want, (dest,
+                                                                  lanes)
     for bad in (0, ops.MAX_CHIPLETS + 1):
         with pytest.raises(ValueError, match="chiplets"):
-            ops.variant(bad, faulted, False)
+            ops.variant(bad, faulted, False, 1)

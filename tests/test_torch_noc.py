@@ -52,7 +52,7 @@ def _assert_equal(got, want):
 
 @pytest.mark.parametrize("w", [1, 2, 4, 16])
 @pytest.mark.parametrize("g", [1, 2, 3, 4])
-@pytest.mark.parametrize("radix", [2, 4, 6, 8])
+@pytest.mark.parametrize("radix", [2, 4, 6, 8, 12, 16])
 def test_build_topology_exact(radix, g, w):
     jcfg = jconst.NETWORK.with_topology(mesh_radix=radix)
     tcfg = tconst.NETWORK.with_topology(mesh_radix=radix)
@@ -188,14 +188,16 @@ def test_batch_equals_single_runs():
             assert torch.all(a[i, n:] == 0)
 
 
-@pytest.mark.parametrize("name", tcases.NAMES)
+@pytest.mark.parametrize("name", tcases.NAMES + tcases.WIDE_NAMES)
 def test_shared_kernel_cases_on_the_plain_version(name):
     """The cases that hold the kernel against the plain version on the card
-    (chip_smoke.py, tests/test_torch_cuda.py), at T = 256 on the CPU: the
-    plain version matches the jitted reference on each and keeps each
-    case's promise (dead lanes 0, the dying lane empty, all-ones
-    valid_mask_t bitwise static, a batch run equal to its run alone)."""
-    case, = tcases.kernel_cases("cpu", 256, names=[name])
+    (chip_smoke.py, tests/test_torch_cuda.py), at T = 256 on the CPU (the
+    12 x 12 and 16 x 16 meshes past 128 nodes at T = 64): the plain
+    version matches the jitted reference on each and keeps each case's
+    promise (dead lanes 0, the dying lane empty, all-ones valid_mask_t
+    bitwise static, a batch run equal to its run alone)."""
+    t = 64 if name in tcases.WIDE_NAMES else 256
+    case, = tcases.kernel_cases("cpu", t, names=[name])
     got = tops.noc_run(*case.args, **case.kwargs)
     jargs = [jnp.asarray(a.numpy()) for a in case.args]
     jkw = {k: jnp.asarray(v.numpy()) for k, v in case.kwargs.items()}

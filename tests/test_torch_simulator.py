@@ -27,6 +27,7 @@ from repro.core import traffic as jtr
 from repro_torch import interop
 from repro_torch import figures
 from repro_torch.core import simulator as tsim
+from repro_torch.kernels.epoch_step import cases as ecases
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = [a.value for a in jsim.Arch]
@@ -166,6 +167,22 @@ def test_fault_frames(arch):
     _match_out(tsim.simulate_batch([_port(t) for t in trs], tc,
                                    device="cpu"),
                jsim.simulate_batch(trs, jc))
+
+
+@pytest.mark.parametrize("name", ecases.WIDE_NAMES)
+def test_plain_path_past_128_chiplets_matches_the_reference(name):
+    """The cases the card holds the "wide" epoch_step design to (144 and
+    256 chiplets; clean, destination matrices, a fault frame with them,
+    RESIPI_ALL), through `simulate` on the CPU: the plain version equals
+    the reference's `simulate` at 1e-6, g and saturation exact."""
+    from repro.core.constants import NETWORK as JNET
+
+    case = ecases.wide_case(name, t=24)
+    jcfg = jsim.SimConfig(cfg=JNET.with_topology(
+        n_chiplets=case.sim.cfg.n_chiplets)).with_arch(
+            jsim.Arch(case.sim.arch.value))
+    got = tsim.simulate(_port(case.trace), case.sim, device="cpu")
+    _match_out(got, jsim.simulate(case.trace, jcfg))
 
 
 def test_kernel_gate_and_stats_on_cpu(monkeypatch):

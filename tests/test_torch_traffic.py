@@ -1,12 +1,15 @@
-"""Traffic parity: specs, destination matrices and trace transforms against
-the JAX reference, plus the properties of the port's own generator.
+"""Traffic parity: specs, destination matrices, trace transforms and the
+trace generators against the JAX reference.
 
 Specs and destination matrices are copies and must match exactly; the
 transforms must give the same arrays on the same reference-made traces.
-The port's generator draws other random bits than `jax.random`, so it is
-held to the distributional contract instead: non-negative loads, a sample
-mean within 5% of `expected_mean_ext_load`, and bit-identical output per
-seed.
+The port's generator draws with the threefry twin, so from the same key it
+gives the reference's trace: every synthetic family bit for bit; the PARSEC
+family bit for bit except where libm's `sinf` (the reference) and float64
+`sin` rounded (the port) part by an ulp in the phase, which moves at most
+one ulp of a few elements (counted and bounded below: rtol 1e-6). It also
+keeps the distributional contract: non-negative loads, a sample mean
+within 5% of `expected_mean_ext_load`, and bit-identical output per key.
 """
 import dataclasses
 
@@ -18,6 +21,7 @@ import torch
 from repro.core import traffic as jtr
 from repro.core.constants import NETWORK as JNET
 from repro_torch import interop
+from repro_torch import random as trandom
 from repro_torch.core import traffic as ttr
 from repro_torch.core.constants import NETWORK as TNET
 
@@ -155,7 +159,8 @@ SPECS_FOR_CALIBRATION = [
 def test_generator_contract(spec):
     """Non-negative, calibrated within 5% of the analytic mean, and
     reproducible per generator seed (64 chiplets keep the sample error of
-    the per-chiplet imbalance and on/off chains well under the bound)."""
+    the per-chiplet imbalance and on/off chains well under the bound); an int seed is the key
+    `prng_key(seed)`."""
     cfg = TNET.with_topology(n_chiplets=64)
     tr = ttr.generate(spec, 11, cfg, device="cpu")
     ext = tr["ext_load"]
@@ -166,7 +171,7 @@ def test_generator_contract(spec):
     want = ttr.expected_mean_ext_load(spec, cfg)
     got = float(ext.double().mean())
     assert abs(got - want) <= 0.05 * want, (got, want)
-    again = ttr.generate(spec, torch.Generator().manual_seed(11), cfg,
+    again = ttr.generate(spec, trandom.prng_key(11, device="cpu"), cfg,
                          device="cpu")
     for k in ("ext_load", "int_load", "mem_load", "ext_frac"):
         assert torch.equal(tr[k], again[k])
@@ -190,3 +195,91 @@ def test_generator_entry_points():
                         device="cpu")
     self_paired = ttr.permutation_destinations("transpose", 4) == np.arange(4)
     assert float(perm["ext_load"][:, self_paired].abs().sum()) == 0.0
+
+
+# Every family at several keys and widths: (spec, chiplets).
+FAMILY_CASES = [(ttr.ParsecSpec(app, 100), 4) for app in ttr.APP_NAMES] + [
+    (ttr.ParsecSpec("dedup", 40), 16),
+    (ttr.UniformSpec(n_intervals=64), 4),
+    (ttr.UniformSpec(mean_load=0.03, cv=0.0, n_intervals=16), 4),
+    (ttr.HotspotSpec(n_intervals=64), 4),
+    (ttr.HotspotSpec(n_hotspots=3, n_intervals=40), 16),
+    (ttr.HotspotSpec(n_hotspots=9, n_intervals=8), 9),
+    (ttr.BurstySpec(n_intervals=64), 4),
+    (ttr.BurstySpec(p_on=0.5, p_off=0.1, n_intervals=48), 16)] + [
+    (ttr.PermutationSpec(p, n_intervals=64), c)
+    for p in ttr.PERMUTATION_PATTERNS for c in (4, 9)]
+
+
+def _ulps(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return np.abs(a.view(np.int32).astype(np.int64)
+                  - b.view(np.int32).astype(np.int64))
+
+
+@pytest.mark.parametrize("spec,c", FAMILY_CASES,
+                         ids=[f"{s.name}-c{c}" for s, c in FAMILY_CASES])
+def test_generator_gives_the_reference_trace(spec, c):
+    """The port's trace from a key equals the reference's from the same
+    key (carried across with `interop.key_from_jax`): bitwise for every
+    synthetic family and every destination matrix, except `mem_load` past
+    4 chiplets, a sum over chiplets that XLA reorders at larger widths
+    (rtol 1e-6, at most 4 ulps there). PARSEC at rtol 1e-6: the phase's
+    sin parts by an ulp now and then, and the products after it carry that
+    on (at 4 chiplets, over the eight apps at these seeds, about 1% of the
+    elements differ, by at most 3 ulps, 2.7e-7 relative); at most 5% of
+    its `ext_load` and `int_load` elements may differ."""
+    js = getattr(jtr, type(spec).__name__)(**dataclasses.asdict(spec))
+    jcfg, tcfg = JNET.with_topology(n_chiplets=c), \
+        TNET.with_topology(n_chiplets=c)
+    for seed in (1, 2, 7, 11):
+        jk = jax.random.PRNGKey(seed)
+        want = _np_trace(jtr.generate(js, jk, jcfg, dest=True))
+        got = ttr.generate(spec, interop.key_from_jax(jk, "cpu"), tcfg,
+                           dest=True, device="cpu")
+        assert got["app"] == want["app"]
+        for k in ("ext_load", "mem_load", "int_load", "ext_frac", "dest"):
+            a, b = got[k].numpy(), want[k]
+            assert a.dtype == b.dtype and a.shape == b.shape, k
+            parsec = isinstance(spec, ttr.ParsecSpec) and k != "dest"
+            if parsec or (k == "mem_load" and c > 4):
+                ulps = _ulps(a, b)
+                assert ulps.max() <= 4, (k, int(ulps.max()))
+                if parsec and k != "mem_load":
+                    assert (ulps > 0).mean() <= 0.05, (k, (ulps > 0).mean())
+                np.testing.assert_allclose(a, b, rtol=1e-6, atol=0)
+            else:
+                np.testing.assert_array_equal(a, b, err_msg=k)
+
+
+def test_figure_workloads_are_the_reference_benchmarks():
+    """`figures.fig10_traces` / `fig11_traces` / `fig12_trace` draw what
+    `benchmarks/fig10_lm_dse.py`, `fig11_main.py` and `fig12_adaptivity.py`
+    draw (seeds 7, 1, 3), to within the PARSEC ulp note above."""
+    from repro_torch import figures
+
+    def close(got, want):
+        for k in ("ext_load", "mem_load", "int_load"):
+            np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                       rtol=1e-6, atol=0, err_msg=k)
+
+    want10 = jtr.all_app_traces(12, seed=7)
+    for got, app in zip(figures.fig10_traces(12, device="cpu"),
+                        jtr.APP_NAMES):
+        close(got, want10[app])
+    got11 = figures.fig11_traces(12, device="cpu")
+    for app in jtr.APP_NAMES:
+        close(got11[app], jtr.generate_trace(app, 12,
+                                             jax.random.PRNGKey(1)))
+    keys = jax.random.split(jax.random.PRNGKey(3), 3)
+    want12 = jtr.concat_traces([jtr.generate_trace(a, 10, k) for a, k in
+                                zip(figures.FIG12_SEQUENCE, keys)])
+    close(figures.fig12_trace(10, device="cpu"), want12)
+
+
+def test_generate_takes_keys_and_seeds_only():
+    spec = ttr.UniformSpec(n_intervals=4)
+    with pytest.raises(TypeError, match="key"):
+        ttr.generate(spec, torch.Generator().manual_seed(1), device="cpu")
+    with pytest.raises(ValueError, match="one threefry key"):
+        ttr.generate(spec, trandom.split(trandom.prng_key(1, device="cpu")),
+                     device="cpu")
