@@ -102,22 +102,48 @@ exits non-zero):
      figure at the float32 peak beside it), prefill and
      decode tokens/s and peak memory, and (information only) zamba2's
      decode-vs-prefill consistency;
-  7. a `kernels` JSON line (launches on the main paths, error against
+  7. the topology and placement DSE, a main path of its own
+     (`topology_phase`), every launch with one topology per lane: (a) the
+     reference's walkthrough scan (canneal, 16 intervals, 16-256 chiplets,
+     RESIPI; one "wide" launch of 7 lanes), held to its printed digits
+     (WALK_REFERENCE), and the same grid under PROWAVES and AWGR (plain
+     loop); (b) `sweep_topology_batch` of the 8 PARSEC apps with
+     destination matrices at 256 chiplets x n_chiplets {16..256} x
+     gateways {1..4} (224 lanes), RESIPI and RESIPI_ALL, lane (app 0, 256,
+     4) against an unpadded `simulate`; (c) the 8 apps at 16 chiplets x
+     {4, 8, 12, 16} x {1..4} x 64 l_m (8192 lanes, "split"); (d)
+     `sweep_workload` over one spec of each family zipped with 4-64
+     chiplets; (e) `sweep_placement` over 64 random placements and the
+     host `search_placement` (8 generations, one launch each), held to the
+     reference host engine's best placement and score (SEARCH_REFERENCE).
+     Each RESIPI / RESIPI_ALL sweep is one epoch_step launch; every launch
+     is held against the padded plain loop; then per launch shape its
+     device time, the plain loop's, the bound, the warm host ms and the
+     host stages (and at 64 chiplets the unpadded "warp" launch beside the
+     padded "wide" one);
+  8. a `kernels` JSON line (launches on the main paths, error against
      plain, times, the bound and the kernel variant that ran) for all four
      kernels; the simulator kernels' entries add the first design's time
      in the same run (`warp_ms`), the times per launch shape (`shapes`,
-     phase 5's among them) and the launches per main path.
+     phases 5's and 7's among them) and the launches per main path.
 
 Phases 3 and 4 are the first main path: the launch counters are zeroed
 before phase 3 and read after the last DSE, before any check or timing.
 Phase 5 is the second, zeroed before its streaming and read after its last
 `noc_run`. Each LLM run of phase 6 is a main path of its own, with the
 counters zeroed just before its prefill and read just after its last
-decode step.
+decode step. Phase 7 is the last, zeroed before its walkthrough scan and
+read after its placement search.
 `python3 chip_smoke.py --epoch-grid` builds epoch_step alone and times
 the whole design grid (GRID_FULL: 4-16 chiplets at 1-512 lanes, 17-128 at
 8-32 768, with and without destination matrices), the evidence for
-`ops.MIN_LANES`.
+`ops.MIN_LANES`. `python3 chip_smoke.py --rows-ab [--src DIR]` builds
+epoch_step alone and times, on the unpadded fault-free launch shapes of
+the main paths (ROWS_AB_SHAPES), the instantiations without topology rows
+(the launch constants) against those with rows that hold the same
+constants, in turns, and prints each build's ptxas report of epoch_step;
+`--src DIR` takes the port from DIR (another checkout's `src`) instead,
+where a tree without topology rows times the constants alone.
 
 The last line is {"ok": true, "device": {...}}. Without a card, or without
 the rest of the repository beside this file, it exits non-zero and prints
@@ -149,9 +175,13 @@ F32_FLOPS_PER_S = 67e12
 # Float operations of the epoch_step kernel, counted from its source per
 # lane-interval (memory-gateway latency, reductions, power), per chiplet
 # (loads, M/D/1 terms, controller), per chiplet pair when destination
-# matrices are on (recv, phi and the destination leg sum) and per gateway
-# slot (old and new Eq. 4 kappas and the switch test).
-OPS_PER_LANE, OPS_PER_CHIPLET, OPS_PER_PAIR, OPS_PER_SLOT = 90, 80, 6, 12
+# matrices are on and per gateway slot (old and new Eq. 4 kappas and the
+# switch test). Of a pair's six operations, four (w = ext * dest, the recv
+# sum, w * w, the fan-in sum) depend on the trace and its matrix alone, so
+# the least work counts them once per matrix; two (the destination leg's
+# product and sum) depend on the lane's g, so they count per lane.
+OPS_PER_LANE, OPS_PER_CHIPLET, OPS_PER_SLOT = 90, 80, 12
+OPS_PER_PAIR_MATRIX, OPS_PER_PAIR_LANE = 4, 2
 # noc_step against plain: the in-edge sums run in another order than the
 # plain version's products (ulp noise that accumulates over the cycles);
 # the reference's own bound for this kernel is rtol 1e-4, atol 1e-2.
@@ -229,6 +259,35 @@ FIG11_REFERENCE = {"latency": "33.6%", "power": "27.6%", "energy": "51.1%"}
 FIG10_REFERENCE_LM = "0.0060"
 FIG12_REFERENCE = {"resipi_settle": [3, 30], "prowaves_settle": [2, 30],
                    "max_gateways_used": 18}
+# Phase 7, the topology and placement DSE. (a) The reference's walkthrough
+# scan (examples/noc_reconfig_demo.py:76-94: canneal, 16 intervals from
+# PRNGKey(1) at 256 chiplets, RESIPI): latency, power and mean gateways per
+# chiplet count at the digits it prints, from the JAX package on the CPU.
+WALK_COUNTS = (16, 36, 64, 100, 144, 196, 256)
+WALK_REFERENCE = {16: ("5475.80", "8470", "49.6"),
+                  36: ("4201.31", "18631", "111.6"),
+                  64: ("3209.66", "32525", "196.2"),
+                  100: ("2465.18", "50345", "304.9"),
+                  144: ("1904.23", "72555", "440.2"),
+                  196: ("1510.85", "98414", "597.9"),
+                  256: ("1211.01", "128693", "782.4")}
+# (b) The topology DSE at 256 chiplets: 8 apps x these points (crossed).
+TOPO_C, TOPO_G = (16, 36, 64, 100, 144, 196, 256), (1, 2, 3, 4)
+# (c) The topology x knob DSE at 4-16 chiplets: 8 apps x these points
+# crossed with KNOB_LM l_m values (zipped into 1024 points).
+SPLIT_C, SPLIT_G, KNOB_LM = (4, 8, 12, 16), (1, 2, 3, 4), 64
+# (d) sweep_workload: one spec of each family, zipped with these counts.
+WORKLOAD_C = (4, 8, 16, 16, 32, 32, 64, 64)
+# (e) sweep_placement over seeded random placements on the Table-1 system,
+# and the host search with the walkthrough's settings
+# (noc_reconfig_demo.py:111-114: dedup, 24 intervals from PRNGKey(2),
+# 8 generations of 12, seed 0), held to the reference host engine's best
+# placement and score (the JAX package on the CPU).
+PLACEMENT_COUNT = 64
+SEARCH_GENERATIONS, SEARCH_POPULATION = 8, 12
+SEARCH_REFERENCE = {"best_placement": ((2, 1), (0, 2), (3, 3), (2, 0)),
+                    "best_score": 23.296194076538086,
+                    "default_score": 23.787277221679688}
 
 
 def fail(msg: str) -> None:
@@ -353,9 +412,10 @@ def epoch_work(n, t, c, g, b, dest: bool, frames: int = 0) -> tuple:
         + frames * (2 * t * c * g + t) * f
     written = b * t * (6 + 2 * c) * f + b * c * f \
         + (b * t * (1 + c) * f if frames else 0)
-    ops = b * t * (OPS_PER_LANE + c * OPS_PER_CHIPLET
-                   + (c * c * OPS_PER_PAIR if dest else 0)
-                   + c * g * OPS_PER_SLOT)
+    ops = t * (b * (OPS_PER_LANE + c * OPS_PER_CHIPLET
+                    + (c * c * OPS_PER_PAIR_LANE if dest else 0)
+                    + c * g * OPS_PER_SLOT)
+               + (n * c * c * OPS_PER_PAIR_MATRIX if dest else 0))
     return read + written, ops
 
 
@@ -510,6 +570,126 @@ def epoch_design_grid(dev, card: str, points, phase: str) -> dict:
         del state0, xs, tbl, kw, recs
         torch.cuda.empty_cache()
     return rows
+
+
+# Unpadded launch shapes of the main paths that the instantiations with and
+# without topology rows both take (no fault frames): (chiplets, destination
+# matrices, lanes, intervals, arch): a Fig. 11 lane, the design grid's 4
+# chiplets x 8 lanes with destination matrices (where the design choice
+# runs both "split" and "wide"), a session tick, the Fig. 10 DSE, single
+# lanes at 144 and 256 chiplets, and RESIPI_ALL at 256.
+ROWS_AB_SHAPES = ((4, False, 1, 100, "resipi"), (4, True, 8, 100, "resipi"),
+                  (4, False, 256, 32, "resipi"),
+                  (4, False, 32768, 100, "resipi"),
+                  (144, True, 1, 100, "resipi"), (256, True, 1, 100, "resipi"),
+                  (256, False, 1, 100, "resipi_all"))
+ROWS_AB_TURNS = 3
+
+
+def kernel_times(fn, reps: int = 10) -> dict:
+    """Information: device microseconds per call of each kernel that `fn`
+    launches, from `reps` calls under torch.profiler (empty when the
+    profiler records no device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        name = e.key.replace("void ", "").replace(
+            "(anonymous namespace)::", "").replace("at::native::", "") \
+            .split("<")[0].split("(")[0]
+        out[name] = out.get(name, 0.0) + us / reps
+    return out
+
+
+def epoch_rows_ab(dev, card: str) -> dict:
+    """Device ms of each ROWS_AB_SHAPES launch (the design ops.variant
+    picks; both "split" and "wide" at 4 chiplets x 8 lanes) through the
+    launch constants and, where the port takes topology rows, through rows
+    that hold the same constants (the two bit for bit equal), in turns
+    (constants, rows, ... ROWS_AB_TURNS times each; CUDA-graph replays,
+    median of 10 a turn)."""
+    import inspect
+
+    from repro_torch import backend, interop
+    from repro_torch.core import simulator as S
+    from repro_torch.core import topology
+    from repro_torch.core.noc import uniform_mesh_mean_hops
+    from repro_torch.kernels.epoch_step import cases as ecases
+    from repro_torch.kernels.epoch_step import ops
+
+    has_rows = "topo" in inspect.signature(ops.launch).parameters
+    ops.build()
+    entries = [(template_args(e), r, sp) for e, r, sp in
+               ptxas_entries(backend.build_log(ops.NAME) or "")]
+    say("ab", f"epoch_step ptxas (template args, registers, spill bytes): "
+              f"{entries}")
+    rows_out = {}
+    for c, dest, lanes_n, t, arch in ROWS_AB_SHAPES:
+        cfg = S.SimConfig().cfg.with_topology(n_chiplets=c)
+        csim = S.SimConfig(cfg=cfg).with_arch(S.Arch(arch))
+        rng = np.random.RandomState(c + lanes_n)
+        tr = ecases.make_trace(rng, t, c, cfg.max_gateways_per_chiplet,
+                               dest=dest, faults=False)
+        state0, xs, tbl, kw = S.epoch_inputs(
+            interop.trace_from_numpy(tr, dev), csim, device=dev,
+            l_m=np.linspace(0.004, 0.03, lanes_n).astype(np.float32))
+        f32 = dict(dtype=torch.float32, device=dev)
+        topo = {"n_chiplets": torch.full((lanes_n,), c, dtype=torch.int32,
+                                         device=dev),
+                "src_hops": tbl["src_hops"].expand(lanes_n, -1).contiguous(),
+                "gw_loss_db": tbl["gw_loss_db"].expand(lanes_n, -1)
+                .contiguous(),
+                "mesh_hops": torch.full(
+                    (lanes_n,), float(np.float32(uniform_mesh_mean_hops(cfg))),
+                    **f32),
+                "mesh_x": torch.full((lanes_n,), topology.feed_width(cfg),
+                                     **f32)}
+        designs = ["split", "wide"] if (c, dest, lanes_n) == (4, True, 8) \
+            else [ops.variant(c, False, dest, lanes_n)]
+        for kern in designs:
+            how = {"constants": {}}
+            if has_rows:
+                how["rows"] = {"topo": topo}
+                a = ops.launch(state0.ctl.g, xs, csim, tbl, kernel=kern, **kw)
+                b = ops.launch(state0.ctl.g, xs, csim, tbl, kernel=kern,
+                               topo=topo, **kw)
+                for k in ("scal", "g_eff", "gw_load", "g_final"):
+                    if not torch.equal(a[k], b[k]):
+                        fail(f"rows A/B {kern} at {c} chiplets: {k} differs "
+                             f"between the constants and the rows")
+            turns = {k: [] for k in how}
+            for _ in range(ROWS_AB_TURNS):
+                for k, extra in how.items():
+                    turns[k].append(time_graph(
+                        lambda: ops.launch(state0.ctl.g, xs,  # noqa: B023
+                                           csim, tbl, kernel=kern,  # noqa
+                                           **kw, **extra), reps=10))
+            label = (f"{kern} {c}{'d' if dest else ''}x{lanes_n}x{t}"
+                     f"{'' if arch == 'resipi' else ' ' + arch}")
+            per = {k: kernel_times(lambda: ops.launch(  # noqa: B023
+                state0.ctl.g, xs, csim, tbl, kernel=kern, **kw,  # noqa
+                **extra)) for k, extra in how.items()}
+            rows_out[label] = dict(turns, per_kernel_us=per)
+            say("ab", f"{label}: " + "; ".join(
+                f"{k} median {np.median(v):.4f} ms (turns "
+                f"{', '.join(f'{x:.4f}' for x in v)}; per kernel "
+                f"{', '.join(f'{n} {u:.2f} us' for n, u in per[k].items())})"
+                for k, v in turns.items()) + f"; card: {card}")
+        del state0, xs, tbl, kw
+        torch.cuda.empty_cache()
+    return {"rows_ab": rows_out, "has_rows": has_rows, "ptxas": entries}
 
 
 def noc_cycle_probe(nops, prep: dict, runs: list, ab_libs: dict,
@@ -1239,11 +1419,424 @@ def stream_phase(dev, card: str) -> dict:
             "variants": variants}
 
 
+def padded_epoch_work(n, t, c, g, lane_c, lane_g, pair_c=None) -> tuple:
+    """(bytes read once + written once, float ops) of one padded
+    epoch_step call (one topology per lane): `epoch_work`'s terms, plus
+    per lane its topology rows (chiplet count, the two table rows of g
+    levels, mesh hops, mesh feed, controller power) and its destination
+    matrix index, with one [C, C] matrix and its trace index per distinct
+    (trace, chiplet count) pair read instead of one matrix per trace
+    (`pair_c`: each matrix's chiplet count; None without destination
+    matrices). The operations count each lane's real chiplets only
+    (`lane_c`, with `lane_g` gateway slots), and each matrix's trace-only
+    pair terms once, over its real chiplets: what this run's data
+    needs."""
+    f = 4
+    b = len(lane_c)
+    dest = pair_c is not None
+    mats = len(pair_c) if dest else 0
+    read = (2 * n * t * c + 2 * n * t + mats * c * c) * f + mats * 4 \
+        + b * (4 + 5 * f + c * f) \
+        + b * (4 + 2 * g * f + 3 * f + (4 if dest else 0))
+    written = b * t * (6 + 2 * c) * f + b * c * f
+    lane_c = np.asarray(lane_c, np.float64)
+    lane_g = np.asarray(lane_g, np.float64)
+    ops_ = t * float(np.sum(OPS_PER_LANE + lane_c * OPS_PER_CHIPLET
+                            + (lane_c ** 2 * OPS_PER_PAIR_LANE if dest
+                               else 0.0)
+                            + lane_c * lane_g * OPS_PER_SLOT))
+    if dest:
+        ops_ += t * float(np.sum(np.asarray(pair_c, np.float64) ** 2)) \
+            * OPS_PER_PAIR_MATRIX
+    return read + written, ops_
+
+
+def topo_host_stages(S, ops, batch, sim, dev, grid, zipped=False) -> dict:
+    """Information: host-clock milliseconds of the stages of one warm
+    padded entry-point call, as `simulator._topo_run` runs them, each ended
+    by a synchronize (median of 3): the stages of `topology_inputs` (its
+    `on_stage` hook: `_prepare_topology_sweep` with the padded tables a
+    cache hit, the trace arrays with `dest` narrowed and renormalized once,
+    the lanes' knobs and topology rows, each (trace, chiplet count) pair's
+    destination matrix with the second renormalization, the initial
+    state), the kernel wrapper's launch, `_reassemble` and the summaries;
+    and `prepare` again with the padded-table caches cleared first
+    (`prepare_tables_uncached`: the table build of a first call)."""
+    from repro_torch.core import selection as tsel
+
+    stages = {}
+
+    def run(tables_cold: bool):
+        if tables_cold:
+            tsel.clear_padded_table_caches()
+        torch.cuda.synchronize()
+        marks = [("", time.perf_counter())]
+
+        def mark(name):
+            torch.cuda.synchronize()
+            marks.append((name, time.perf_counter()))
+
+        sim_p, state0, xs, kw, nreal = S.topology_inputs(
+            batch, sim, device=dev, zipped=zipped, on_stage=mark, **grid)
+        if tables_cold:
+            stages.setdefault("prepare_tables_uncached", []).append(
+                (marks[1][1] - marks[0][1]) * 1e3)
+            return
+        out = ops.launch(state0.ctl.g, xs, sim_p, None, **kw)
+        mark("launch")
+        _, recs = ops._reassemble(state0, out, xs, sim_p, False, kw["topo"])
+        mark("_reassemble")
+        S._summary_from_sums(S._record_sums(recs, xs[4][kw["lane_trace"]]),
+                             nreal)
+        mark("summaries")
+        for (_, a), (name, b) in zip(marks, marks[1:]):
+            stages.setdefault(name, []).append((b - a) * 1e3)
+
+    for _ in range(3):
+        run(False)
+    for _ in range(3):
+        run(True)
+    return {k: float(np.median(v)) for k, v in stages.items()}
+
+
+def topology_phase(dev, card: str) -> dict:
+    """Phase 7, the topology and placement DSE, a main path of its own
+    (counters zeroed before (a), read after (e)): (a) the reference's
+    walkthrough scan (canneal, 16 intervals from prng_key(1) at 256
+    chiplets, WALK_COUNTS under RESIPI: one padded launch of 7 lanes at
+    C = 256), held to WALK_REFERENCE at the printed digits, then the same
+    grid under PROWAVES and AWGR (the plain loop); (b) `sweep_topology_batch`
+    over the 8 PARSEC apps with destination matrices at 256 chiplets, T =
+    100, x TOPO_C x TOPO_G (28 points, 224 lanes), RESIPI and RESIPI_ALL;
+    (c) the 8 apps at 16 chiplets x SPLIT_C x SPLIT_G x KNOB_LM l_m values
+    zipped (1024 points, 8192 lanes: "split"); (d) `sweep_workload` over one
+    spec of each family (32-128 intervals, destination matrices) zipped
+    with WORKLOAD_C; (e) `sweep_placement` over PLACEMENT_COUNT seeded
+    random placements on the Table-1 system, and the host
+    `search_placement` with the walkthrough's settings, held to
+    SEARCH_REFERENCE. Each RESIPI / RESIPI_ALL sweep must be one epoch_step
+    launch; every launch is held against the padded plain loop (records,
+    final state; padded chiplet columns exactly 0), and lane (app 0, 256
+    chiplets, 4 gateways) of (b) against an unpadded `simulate`. Then per
+    new launch shape its device time, the plain loop's, the bound, the warm
+    host ms of the entry point and its host stages."""
+    from repro_torch import backend
+    from repro_torch import random as trandom
+    from repro_torch.core import selection as tsel
+    from repro_torch.core import topology, traffic
+    from repro_torch.core import simulator as S
+    from repro_torch.core.constants import NETWORK
+    from repro_torch.kernels.epoch_step import ops
+    from repro_torch.kernels.epoch_step.ref import epoch_run_reference
+
+    Arch = S.Arch
+    resipi = S.SimConfig()
+    cfg256 = NETWORK.with_topology(n_chiplets=max(TOPO_C))
+    cfg16 = NETWORK.with_topology(n_chiplets=max(SPLIT_C))
+    # Inputs (set-up, before the counters are zeroed).
+    walk = traffic.generate_trace("canneal", 16,
+                                  trandom.prng_key(1, device=dev), cfg256,
+                                  device=dev)
+    dse = list(traffic.all_app_traces(T_INTERVALS, 21, cfg256, dest=True,
+                                      device=dev).values())
+    dse_grid = {"n_chiplets": [c for c in TOPO_C for _ in TOPO_G],
+                "gateways_per_chiplet": [g for _ in TOPO_C for g in TOPO_G]}
+    small = list(traffic.all_app_traces(T_INTERVALS, 31, cfg16, dest=True,
+                                        device=dev).values())
+    per_cg = [(c, g) for c in SPLIT_C for g in SPLIT_G]
+    split_grid = {
+        "n_chiplets": [c for c, _ in per_cg for _ in range(KNOB_LM)],
+        "gateways_per_chiplet": [g for _, g in per_cg
+                                 for _ in range(KNOB_LM)],
+        "l_m": np.tile(np.linspace(0.004, 0.032, KNOB_LM, dtype=np.float32),
+                       len(per_cg))}
+    specs = [traffic.UniformSpec(n_intervals=32),
+             traffic.HotspotSpec(n_intervals=48),
+             traffic.PermutationSpec(pattern="transpose", n_intervals=64),
+             traffic.PermutationSpec(pattern="tornado", n_intervals=80),
+             traffic.PermutationSpec(pattern="bit_complement",
+                                     n_intervals=96),
+             traffic.PermutationSpec(pattern="neighbor", n_intervals=112),
+             traffic.BurstySpec(n_intervals=128),
+             traffic.ParsecSpec("dedup", T_INTERVALS)]
+    rng = np.random.RandomState(7)
+    routers = [tuple(int(v) for v in r)
+               for r in topology.router_coords(NETWORK)]
+    placements = [tsel.normalize_placement(
+        [routers[i] for i in rng.choice(len(routers), 4, replace=False)],
+        NETWORK, order="spread") for _ in range(PLACEMENT_COUNT)]
+    place_tr = traffic.generate(traffic.ParsecSpec("dedup", T_INTERVALS), 41,
+                                dest=True, device=dev)
+    search_tr = traffic.generate_trace("dedup", 24,
+                                       trandom.prng_key(2, device=dev),
+                                       device=dev)
+
+    calls, per_call = [], {}
+    kernel_epoch_run = ops.epoch_run
+    part = ""
+
+    def recorded_epoch_run(state, xs, sim, tables, **kw):
+        out = kernel_epoch_run(state, xs, sim, tables, **kw)
+        calls.append((part, state, xs, sim, tables, kw, out))
+        return out
+
+    def counted(label, fn):
+        before = backend.COUNTERS["launches"].get(ops.NAME, 0)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        per_call[label] = (backend.COUNTERS["launches"].get(ops.NAME, 0)
+                           - before, (time.perf_counter() - t0) * 1e3)
+        return out
+
+    entry = {
+        "walk-resipi": lambda: S.sweep_topology(
+            walk, resipi, device=dev, n_chiplets=list(WALK_COUNTS)),
+        "walk-prowaves": lambda: S.sweep_topology(
+            walk, resipi.with_arch(Arch.PROWAVES), device=dev,
+            n_chiplets=list(WALK_COUNTS)),
+        "walk-awgr": lambda: S.sweep_topology(
+            walk, resipi.with_arch(Arch.AWGR), device=dev,
+            n_chiplets=list(WALK_COUNTS)),
+        "dse-resipi": lambda: S.sweep_topology_batch(
+            dse, resipi, device=dev, **dse_grid),
+        "dse-resipi_all": lambda: S.sweep_topology_batch(
+            dse, resipi.with_arch(Arch.RESIPI_ALL), device=dev, **dse_grid),
+        "split-dse": lambda: S.sweep_topology_batch(
+            small, resipi, device=dev, **split_grid),
+        "workload": lambda: S.sweep_workload(
+            specs, resipi, seed=5, dest=True, device=dev,
+            n_chiplets=list(WORKLOAD_C)),
+        "placement": lambda: S.sweep_placement(place_tr, resipi, placements,
+                                               device=dev),
+        "search": lambda: S.search_placement(
+            search_tr, resipi, generations=SEARCH_GENERATIONS,
+            population=SEARCH_POPULATION, seed=0, engine="host",
+            device=dev)}
+    ops.epoch_run = recorded_epoch_run
+    torch.cuda.synchronize()
+    backend.reset_counters()                     # main path starts
+    outs = {}
+    for label, fn in entry.items():
+        part = label
+        outs[label] = counted(label, fn)
+    torch.cuda.synchronize()
+    launches = dict(backend.COUNTERS["launches"])      # main path ends
+    variants = dict(backend.COUNTERS["variants"])
+    loop_runs = backend.COUNTERS["loop_runs"]
+    ops.epoch_run = kernel_epoch_run
+
+    want_launches = {k: (SEARCH_GENERATIONS if k == "search"
+                         else 0 if k in ("walk-prowaves", "walk-awgr")
+                         else 1) for k in entry}
+    got_launches = {k: v[0] for k, v in per_call.items()}
+    if got_launches != want_launches:
+        fail(f"phase 7 epoch_step launches per call {got_launches}, "
+             f"expected {want_launches}")
+    want = {f"{ops.NAME}:wide+topo": 4,
+            f"{ops.NAME}:split+topo": 2 + SEARCH_GENERATIONS}
+    if variants != want:
+        fail(f"phase 7 main path kernel variants {variants}, expected "
+             f"{want}")
+    say("7", f"main path: {json.dumps(launches)} launches, variants "
+             f"{json.dumps(variants)}, {loop_runs} plain-loop runs "
+             f"(PROWAVES and AWGR); epoch_step launches per call "
+             f"{json.dumps(got_launches)}; host ms per call (first, cold "
+             f"caches): " + ", ".join(f"{k} {v[1]:.1f}"
+                                      for k, v in per_call.items())
+             + f"; card: {card}")
+
+    # (a) the reference's walkthrough at its printed digits.
+    summ = outs["walk-resipi"]["summary"]
+    for i, c in enumerate(WALK_COUNTS):
+        got = (f"{float(summ['mean_latency'][i]):.2f}",
+               f"{float(summ['mean_power_mw'][i]):.0f}",
+               f"{float(summ['mean_gateways'][i]):.1f}")
+        if got != WALK_REFERENCE[c]:
+            fail(f"walkthrough at {c} chiplets: latency / power / mean GT "
+                 f"{got}, the reference prints {WALK_REFERENCE[c]}")
+    say("7", "(a) walkthrough scan (canneal, 16 intervals, 16-256 "
+             "chiplets): latency / power mW / mean GT " + "; ".join(
+                 f"{c}: {' / '.join(WALK_REFERENCE[c])}"
+                 for c in WALK_COUNTS) + " == the reference's digits")
+    for label in ("walk-prowaves", "walk-awgr"):
+        for k, v in outs[label]["summary"].items():
+            if v.shape != (len(WALK_COUNTS),) or not torch.isfinite(v).all():
+                fail(f"{label} summary {k} malformed")
+    # (b), (c), (d), (e): shapes and finite summaries.
+    shapes = {"dse-resipi": (len(dse), len(TOPO_C) * len(TOPO_G)),
+              "dse-resipi_all": (len(dse), len(TOPO_C) * len(TOPO_G)),
+              "split-dse": (len(small), len(per_cg) * KNOB_LM),
+              "workload": (len(specs),), "placement": (PLACEMENT_COUNT,)}
+    for label, shape in shapes.items():
+        for k, v in outs[label]["summary"].items():
+            if tuple(v.shape) != shape or not torch.isfinite(v).all():
+                fail(f"{label} summary {k}: shape {tuple(v.shape)}, "
+                     f"expected {shape}, or not finite")
+    res = outs["search"]
+    if res["best_placement"] != SEARCH_REFERENCE["best_placement"] \
+            or not np.isclose(res["best_score"],
+                              SEARCH_REFERENCE["best_score"], rtol=1e-5) \
+            or not np.isclose(res["default_score"],
+                              SEARCH_REFERENCE["default_score"], rtol=1e-5):
+        fail(f"host search: best {res['best_placement']} at "
+             f"{res['best_score']!r} (default {res['default_score']!r}); "
+             f"the reference's host engine: {SEARCH_REFERENCE}")
+    say("7", f"(e) host search ({SEARCH_GENERATIONS} generations of "
+             f"{SEARCH_POPULATION}, {got_launches['search']} epoch_step "
+             f"launches, one a generation): best {res['best_placement']} at "
+             f"{res['best_score']:.6f} (default {res['default_score']:.6f}) "
+             f"== the reference host engine's "
+             f"{SEARCH_REFERENCE['best_placement']} at "
+             f"{SEARCH_REFERENCE['best_score']:.6f}")
+
+    # Lane (app 0, 256 chiplets, 4 gateways) of (b) against an unpadded
+    # simulate of that topology.
+    k_last = len(TOPO_C) * len(TOPO_G) - 1
+    single = S.simulate(dse[0], S.topology_point_config(
+        resipi, n_chiplets=TOPO_C[-1], gateways_per_chiplet=TOPO_G[-1]),
+        device=dev)
+    lane = {part: {k: v[0, k_last] for k, v in
+                   outs["dse-resipi"][part].items()}
+            for part in ("records", "summary")}
+    own_err = max(compare(lane["records"], single["records"],
+                          "(b) lane (app 0, 256, 4) vs simulate"),
+                  compare(lane["summary"], single["summary"],
+                          "(b) lane (app 0, 256, 4) summary vs simulate"))
+
+    # Every kernel call of the path against the padded plain loop.
+    err, checked = 0.0, {}
+    for name, state0, xs, csim, tbl, kw, (got_state, got) in calls:
+        t0 = time.perf_counter()
+        want_state, want_recs = epoch_run_reference(state0, xs, csim, tbl,
+                                                    **kw)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        e = max(compare(got, want_recs, f"phase 7 {name}"),
+                compare(state_fields(got_state), state_fields(want_state),
+                        f"phase 7 {name} state"))
+        dead = kw["topo"]["chip_mask"][:, None, :] == 0
+        for k in ("g", "gw_load", "wavelengths"):
+            if bool((got[k].masked_select(dead) != 0).any()):
+                fail(f"phase 7 {name}: a padded chiplet's {k} is not 0")
+        err = max(err, e)
+        n, m, s_ = checked.get(name, (0, 0.0, 0.0))
+        checked[name] = (n + 1, max(m, e), s_ + plain_s)
+    say("7", "every kernel call == the padded plain loop on its own inputs "
+             "(padded columns exactly 0): " + ", ".join(
+                 f"{k} {n} call(s) max abs err {m:.3g} (plain {s_:.1f} s)"
+                 for k, (n, m, s_) in checked.items())
+             + f"; (b) lane (app 0, 256 chiplets, 4 gateways) == unpadded "
+               f"simulate (max abs err {own_err:.3g})")
+
+    # Host times (warm, host clock, each call ended by a synchronize).
+    def host_ms(fn, reps):
+        out = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(out))
+
+    warm = {label: host_ms(fn, 1 if label == "search" else 3)
+            for label, fn in entry.items()}
+    say("7", "warm host ms of each entry point (host clock, median of 3; "
+             "the search once): " + ", ".join(f"{k} {v:.2f}"
+                                              for k, v in warm.items())
+             + f"; card: {card}")
+    stage_rows, idle = {}, {}
+    for label, batch, grid, zipped in (
+            ("dse-resipi", dse, dse_grid, False),
+            ("split-dse", small, split_grid, False)):
+        stage_rows[label] = topo_host_stages(S, ops, batch, resipi, dev,
+                                             grid, zipped)
+        say("7", f"{label} warm host stages (each ended by a synchronize; "
+                 f"median of 3): " + ", ".join(
+                     f"{k} {v:.3f} ms" for k, v in stage_rows[label].items()))
+        prof = device_breakdown(entry[label], f"{label} warm", top=4,
+                                phase="7")
+        idle[label] = None if prof is None else \
+            1.0 - sum(prof[1].values()) / 1e6 / prof[0]
+        say("7", f"{label} warm: device idle share "
+                 f"{'not measured' if idle[label] is None else f'{idle[label]:.1%}'}"
+                 f" of a profiled call; card: {card}")
+
+    # Device time per launch shape, beside the plain loop's and the bound.
+    shape_calls = {}
+    for c in calls:
+        key = c[0] if c[0] != "search" else "search-generation"
+        shape_calls.setdefault(key, c)
+    rows = {}
+    for label, (_, state0, xs, csim, tbl, kw, _) in shape_calls.items():
+        n_tr, t_len, c = xs[0].shape
+        n_lanes = int(kw["lane_trace"].shape[0])
+        dest = kw.get("dest") is not None
+        kern = ops.variant(c, False, dest, n_lanes, padded=True)
+        ms = time_graph(lambda: ops.launch(state0.ctl.g, xs,  # noqa: B023
+                                           csim, tbl, **kw))
+        plain = time_cuda(lambda: epoch_run_reference(  # noqa: B023
+            state0, xs, csim, tbl, **kw), 1)[0]
+        lane_c = kw["topo"]["n_chiplets"].cpu().numpy()
+        lane_g = kw["topo"]["g_max"].cpu().numpy()
+        mats = int(kw["dest"].shape[0]) if dest else 0
+        pair_c = None
+        if dest:
+            pair_c = np.zeros(mats, np.int64)
+            pair_c[kw["dest_index"].cpu().numpy()] = lane_c
+        nbytes, n_ops = padded_epoch_work(
+            n_tr, t_len, c, csim.cfg.max_gateways_per_chiplet, lane_c,
+            lane_g, pair_c)
+        bound, by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                        (n_ops / F32_FLOPS_PER_S * 1e3, "operations"))
+        row = {"variant": kern + "+topo", "lanes": n_lanes,
+               "intervals": t_len, "chiplets": c, "dest_matrices": mats,
+               "ms": ms, "plain_ms": plain, "bound_ms": bound,
+               "bound_by": by, "host_ms": warm.get(
+                   label if label != "search-generation" else "search")}
+        extra = ""
+        if c > ops.SPLIT_MAX_CHIPLETS and c <= ops.WARP_MAX_CHIPLETS:
+            # "warp" takes no topology rows: the unpadded warp launch at
+            # the same lanes and width (every lane at c chiplets, each
+            # lane's own matrix) beside the padded wide one.
+            ukw = {k: v for k, v in kw.items()
+                   if k not in ("topo", "dest_index", "pair_trace")}
+            utbl = S.selection_tables_torch(csim.cfg, dev)
+            row["unpadded_warp_ms"] = time_graph(
+                lambda: ops.launch(state0.ctl.g, xs, csim,  # noqa: B023
+                                   utbl, kernel="warp", **ukw))
+            row["unpadded_wide_ms"] = time_graph(
+                lambda: ops.launch(state0.ctl.g, xs, csim,  # noqa: B023
+                                   utbl, kernel="wide", **ukw))
+            extra = (f"; the unpadded launch at the same lanes and width: "
+                     f"warp {row['unpadded_warp_ms']:.4f} ms, wide "
+                     f"{row['unpadded_wide_ms']:.4f} ms")
+        rows[label] = row
+        say("7", f"epoch_step {label} launch ({kern}+topo; {n_lanes} "
+                 f"lane(s) x {t_len} intervals x {c} chiplets"
+                 f"{f', {mats} destination matrices' if dest else ''}): "
+                 f"{ms:.4f} ms (device: CUDA-graph replays, median of 5); "
+                 f"plain loop {plain:.2f} ms once; bound {bound:.4f} ms by "
+                 f"{by} ({nbytes / 1e6:.2f} MB, {n_ops / 1e9:.4f} GFLOP)"
+                 f"{extra}; card: {card}")
+    return {"epoch_launches": launches.get(ops.NAME, 0), "epoch_err": err,
+            "epoch_shapes": rows, "variants": variants,
+            "host_stages": stage_rows, "warm_host_ms": warm,
+            "idle_share": idle}
+
+
 def main() -> int:
-    grid_only = sys.argv[1:] == ["--epoch-grid"]
-    if sys.argv[1:] and not grid_only:
-        print("usage: chip_smoke.py [--epoch-grid]", file=sys.stderr)
+    global SRC
+    args = sys.argv[1:]
+    grid_only = args == ["--epoch-grid"]
+    rows_ab = args[:1] == ["--rows-ab"] and (
+        len(args) == 1 or (len(args) == 3 and args[1] == "--src"))
+    if args and not (grid_only or rows_ab):
+        print("usage: chip_smoke.py [--epoch-grid | --rows-ab [--src DIR]]",
+              file=sys.stderr)
         return 2
+    if rows_ab and len(args) == 3:
+        SRC = Path(args[2]).resolve()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false); this script measures the port on the card",
@@ -1287,10 +1880,14 @@ def main() -> int:
     print(card, flush=True)
     say("1", f"device {kind} x{count}; torch {torch.__version__} cuda "
              f"{torch.version.cuda}")
-    if grid_only:
-        ops.build()
-        grid = epoch_design_grid(dev, card, GRID_FULL, "grid")
-        print(json.dumps({"design_grid": grid}), flush=True)
+    if grid_only or rows_ab:
+        if grid_only:
+            ops.build()
+            result = {"design_grid": epoch_design_grid(dev, card, GRID_FULL,
+                                                       "grid")}
+        else:
+            result = epoch_rows_ab(dev, card)
+        print(json.dumps(result), flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": kind,
                                                  "count": count}}),
@@ -1884,23 +2481,30 @@ def main() -> int:
     # --- 6. LLM serving (a main path a model) --------------------------------
     llm = serve_llms(dev, card, fops, sops, llm_err)
 
-    # --- 7. kernels line ----------------------------------------------------
+    # --- 7. topology and placement DSE (a main path) ------------------------
+    p7 = topology_phase(dev, card)
+
+    # --- 8. kernels line ----------------------------------------------------
     def ran(name):
-        return "+".join(sorted({k.split(":")[1] for k in
+        return ",".join(sorted({k.split(":")[1] for k in
                                 list(variants) + list(p5["variants"])
+                                + list(p7["variants"])
                                 if k.startswith(name + ":")}))
 
     print(json.dumps({"kernels": [{
         "name": ops.NAME, "route": "cuda", "variant": ran(ops.NAME),
         "source": "src/repro_torch/kernels/epoch_step/csrc/epoch_step.cu",
         "replaces": "src/repro/kernels/epoch_step/kernel.py:48",
-        "launches": stats["epoch_step_launches"] + p5["epoch_launches"],
+        "launches": stats["epoch_step_launches"] + p5["epoch_launches"]
+        + p7["epoch_launches"],
         "launches_by_path": {"paper+dse": stats["epoch_step_launches"],
-                             "streaming+faults+f1": p5["epoch_launches"]},
-        "max_abs_err": max(max_err, p5["epoch_err"]), "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None, "warp_ms": warp_ms,
-        "shapes": dict(epoch_shapes, **p5["epoch_shapes"]),
+                             "streaming+faults+f1": p5["epoch_launches"],
+                             "topology+placement": p7["epoch_launches"]},
+        "max_abs_err": max(max_err, p5["epoch_err"], p7["epoch_err"]),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None, "warp_ms": warp_ms,
+        "shapes": dict(epoch_shapes, **p5["epoch_shapes"],
+                       **p7["epoch_shapes"]),
         "design_choice": p5["design_choice"]}, {
         "name": nops.NAME, "route": "cuda", "variant": ran(nops.NAME),
         "source": "src/repro_torch/kernels/noc_step/csrc/noc_step.cu",

@@ -60,7 +60,7 @@ def interposer_power_mw(active: torch.Tensor, wavelengths, *,
                         n_gateways: int,
                         power: PhotonicPower = PHOTONIC_POWER,
                         loss_db=0.0, mode: str = "pcm",
-                        n_chiplets=None) -> dict:
+                        gateway_count=None, n_chiplets=None) -> dict:
     """Total photonic interposer power for a given activity state.
 
     Args:
@@ -72,8 +72,11 @@ def interposer_power_mw(active: torch.Tensor, wavelengths, *,
       mode: "pcm" (ReSiPI: everything follows the PCM activity mask),
         "wdm" (PROWAVES: every provisioned gateway stays lit, per-gateway
         wavelength counts) or "static" (AWGR: everything always on).
-      n_chiplets: chiplet count for the Table 2 controller term (default:
-        the Table 1 system).
+      gateway_count: the actual gateway count ([...] per lane) when the
+        chain is padded for a topology sweep: it replaces `n_gateways` in
+        the count-dependent "static" terms, so padded slots add nothing.
+      n_chiplets: chiplet count for the Table 2 controller term, an int or
+        a [...] per-lane tensor (default: the Table 1 system).
 
     Returns a dict of [...] tensors: laser/tia/tuning/driver/controller/
     total mW.
@@ -87,7 +90,9 @@ def interposer_power_mw(active: torch.Tensor, wavelengths, *,
     # x * 0.1 for x / 10: the reference's compiled arithmetic.
     loss_scale = 10.0 ** (torch.as_tensor(loss_db, dtype=torch.float32,
                                           device=active.device) * 0.1)
-    gw_n = float(n_gateways)
+    gw_n = float(n_gateways) if gateway_count is None else \
+        torch.as_tensor(gateway_count, dtype=torch.float32,
+                        device=active.device)
 
     if mode == "pcm":
         lit_w = torch.sum(active_f * w, dim=-1)
@@ -103,24 +108,40 @@ def interposer_power_mw(active: torch.Tensor, wavelengths, *,
         lit_w = torch.sum(w, dim=-1)
         laser = lit_w * power.laser_mw_per_wavelength
         mods = lit_w
-        filters = torch.full_like(lit_w, np.float32(gw_n * gw_n))
+        filters = torch.full_like(lit_w, np.float32(gw_n * gw_n)) \
+            if gateway_count is None else gw_n * gw_n
     else:
         raise ValueError(f"unknown power mode: {mode}")
 
-    tia = filters if mode != "static" else torch.full_like(lit_w, gw_n)
+    if mode != "static":
+        tia = filters
+    else:
+        tia = torch.full_like(lit_w, gw_n) if gateway_count is None \
+            else gw_n
     tia = tia * power.tia_mw
     tuning = (mods + filters) * power.tuning_mw_per_mr
     driver = mods * power.driver_mw
 
     laser = laser * loss_scale
-    chips = NETWORK.n_chiplets if n_chiplets is None else n_chiplets
-    controller = (power.controller_lgc_uw * chips
-                  + power.controller_inc_uw) / 1000.0
+    controller = controller_mw(
+        NETWORK.n_chiplets if n_chiplets is None else n_chiplets, power)
     total = laser + tia + tuning + driver + controller
     return {"laser_mw": laser, "tia_mw": tia, "tuning_mw": tuning,
             "driver_mw": driver,
-            "controller_mw": torch.full_like(total, np.float32(controller)),
+            "controller_mw": torch.broadcast_to(
+                torch.as_tensor(controller, dtype=torch.float32,
+                                device=total.device), total.shape),
             "total_mw": total}
+
+
+def controller_mw(n_chiplets, power: PhotonicPower = PHOTONIC_POWER):
+    """The Table 2 controller term (172 uW per chiplet plus the interposer
+    controller) in mW: a Python float for an int chiplet count, float32
+    per lane for a tensor of counts (padded topology sweeps)."""
+    if isinstance(n_chiplets, torch.Tensor):
+        n_chiplets = n_chiplets.to(torch.float32)
+    return (power.controller_lgc_uw * n_chiplets
+            + power.controller_inc_uw) / 1000.0
 
 
 def reconfig_energy_nj(prev_active: torch.Tensor, new_active: torch.Tensor,

@@ -263,3 +263,117 @@ def mean_access_hops(tables: dict, g: torch.Tensor) -> torch.Tensor:
     """
     hops = tables["src_hops"]
     return hops[torch.clamp(g.long(), 1, hops.shape[0]) - 1]
+
+
+# ---------------------------------------------------------------------------
+# Padded tables for topology sweeps
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PaddedSelectionTables:
+    """Stacked, zero-padded tables for K topologies sharing one shape.
+
+    Every per-topology table is padded to (g_pad activation levels, r_pad
+    routers), so K topologies ride as K lanes of one padded run. Padded
+    entries are zero and carry validity masks.
+
+    src_map/dst_map: [K, g_pad, r_pad] int   — padded with gateway 0.
+    src_hops/dst_hops: [K, g_pad] float      — padded with 0.0 hops.
+    gw_loss_db:  [K, g_pad] float — per-level mean access loss, 0-padded.
+    gw_mask:     [K, g_pad] float — 1 where the activation level exists.
+    router_mask: [K, r_pad] float — 1 where the router exists.
+    n_gateways:  [K] int — real max gateways per chiplet per topology.
+    n_routers:   [K] int — real router count per topology.
+    """
+    src_map: np.ndarray
+    dst_map: np.ndarray
+    src_hops: np.ndarray
+    dst_hops: np.ndarray
+    gw_loss_db: np.ndarray
+    gw_mask: np.ndarray
+    router_mask: np.ndarray
+    n_gateways: np.ndarray
+    n_routers: np.ndarray
+
+    FIELDS = ("src_map", "dst_map", "src_hops", "dst_hops", "gw_loss_db",
+              "gw_mask", "router_mask", "n_gateways", "n_routers")
+
+    def as_torch(self, device) -> dict:
+        return {k: torch.as_tensor(getattr(self, k), device=device)
+                for k in self.FIELDS}
+
+
+def _pad_shape(cfgs) -> tuple:
+    return (max(c.max_gateways_per_chiplet for c in cfgs),
+            max(c.routers_per_chiplet for c in cfgs))
+
+
+def build_selection_tables_padded(cfgs, pad_to=None) -> PaddedSelectionTables:
+    """Build stacked zero-masked tables for a tuple of topologies.
+
+    `pad_to = (g_pad, r_pad)` fixes the padded activation-level and router
+    axes; None pads to the max over `cfgs`. Memoized per (cfgs, pad_to);
+    each topology's build is keyed on `n_chiplets=1`, since the tables are
+    a per-chiplet-mesh structure, so a chiplet scan over one mesh builds
+    its tables once. A `pad_to` smaller than a topology's tables raises.
+    """
+    cfgs = tuple(cfgs)
+    return _build_selection_tables_padded_cached(
+        cfgs, tuple(_pad_shape(cfgs) if pad_to is None else pad_to))
+
+
+@functools.lru_cache(maxsize=None)
+def _build_selection_tables_padded_cached(cfgs, pad_to
+                                          ) -> PaddedSelectionTables:
+    g_pad, r_pad = pad_to
+    k = len(cfgs)
+    src_map = np.zeros((k, g_pad, r_pad), np.int32)
+    dst_map = np.zeros((k, g_pad, r_pad), np.int32)
+    src_hops = np.zeros((k, g_pad), np.float32)
+    dst_hops = np.zeros((k, g_pad), np.float32)
+    gw_loss_db = np.zeros((k, g_pad), np.float32)
+    gw_mask = np.zeros((k, g_pad), np.float32)
+    router_mask = np.zeros((k, r_pad), np.float32)
+    n_gw = np.zeros((k,), np.int32)
+    n_rt = np.zeros((k,), np.int32)
+    for i, cfg in enumerate(cfgs):
+        t = build_selection_tables(dataclasses.replace(cfg, n_chiplets=1))
+        g, r = t.src_map.shape
+        if g > g_pad or r > r_pad:
+            raise ValueError(f"pad_to {pad_to} smaller than topology "
+                             f"{i} tables {(g, r)}")
+        src_map[i, :g, :r] = t.src_map
+        dst_map[i, :g, :r] = t.dst_map
+        src_hops[i, :g] = t.src_hops
+        dst_hops[i, :g] = t.dst_hops
+        gw_loss_db[i, :g] = t.gw_loss_db
+        gw_mask[i, :g] = 1.0
+        router_mask[i, :r] = 1.0
+        n_gw[i], n_rt[i] = g, r
+    return PaddedSelectionTables(
+        src_map=src_map, dst_map=dst_map, src_hops=src_hops,
+        dst_hops=dst_hops, gw_loss_db=gw_loss_db, gw_mask=gw_mask,
+        router_mask=router_mask, n_gateways=n_gw, n_routers=n_rt)
+
+
+def padded_selection_tables_torch(cfgs, pad_to=None, device=None) -> dict:
+    """Memoized device-resident view of the padded tables (the twin of the
+    reference's `padded_selection_tables_jax`): the same dict of tensors
+    for equal (cfgs, pad_to, device). `device=None` means the card."""
+    cfgs = tuple(cfgs)
+    return _padded_tables_torch_cached(
+        cfgs, tuple(_pad_shape(cfgs) if pad_to is None else pad_to),
+        str(resolve_device(device)))
+
+
+@functools.lru_cache(maxsize=None)
+def _padded_tables_torch_cached(cfgs, pad_to, device: str) -> dict:
+    return _build_selection_tables_padded_cached(cfgs, pad_to) \
+        .as_torch(device)
+
+
+def clear_padded_table_caches() -> None:
+    """Drop the memoized padded tables and their device views (so the next
+    padded sweep builds its tables anew, as a first call does)."""
+    _build_selection_tables_padded_cached.cache_clear()
+    _padded_tables_torch_cached.cache_clear()

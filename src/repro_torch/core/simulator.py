@@ -1,6 +1,6 @@
 """Epoch-level 2.5D network simulator (Level 1), batched over lanes.
 
-Port of `repro.core.simulator` (unpadded paths). It simulates the four
+Port of `repro.core.simulator`. It simulates the four
 compared interposer architectures (§4.1) over a traffic trace, one step per
 reconfiguration interval:
 
@@ -28,6 +28,14 @@ to its scan body. Entry points run on the card unless `device="cpu"`.
 Like the reference, `sweep` and `sweep_batch` read no fault frames; fault
 frames ride `simulate` and `simulate_batch`, and `sweep_faults` runs K
 frames over one trace as K lanes.
+
+Padded sweeps: `sweep_topology` / `sweep_topology_batch` / `shard_sweep`
+(one device), `sweep_workload` and `sweep_placement` run K topologies
+(chiplet counts, gateway slots, mesh radix, placements) as lanes padded to
+the grid maxima, each lane carrying its own topology (`lane_topology`); one
+`epoch_step` launch on the card for RESIPI / RESIPI_ALL, where the
+reference runs its scan body. `search_placement(engine="host")` scores one
+generation per `sweep_placement` call.
 
 Streaming: `SimSession` steps a carried `SimState` through trace chunks
 (`step_chunk`, `swap_placement`, `summary`) and `session_tick` advances B
@@ -57,8 +65,10 @@ from repro_torch.core.constants import (NETWORK, PHOTONIC_POWER,
 from repro_torch.core.gateway_controller import (ControllerConfig,
                                                  ControllerState, epoch_step)
 from repro_torch.core.noc import NocModel, uniform_mesh_mean_hops
-from repro_torch.core.selection import (build_selection_tables,
+from repro_torch.core.selection import (N_DEFAULT_EDGE_SLOTS,
+                                        build_selection_tables,
                                         mean_access_hops, normalize_placement,
+                                        padded_selection_tables_torch,
                                         resolve_gateway_positions,
                                         selection_tables_torch)
 
@@ -193,7 +203,8 @@ def _interval_metrics(g: torch.Tensor, lam: torch.Tensor,
                       intra: torch.Tensor, sim: SimConfig, tables: dict,
                       t_valid: torch.Tensor,
                       extra_db: Optional[torch.Tensor] = None,
-                      dest: Optional[torch.Tensor] = None) -> dict:
+                      dest: Optional[torch.Tensor] = None,
+                      topo: Optional[dict] = None) -> dict:
     """Latency/load metrics for one interval of B lanes.
 
     g [B, C] int; lam [B, 1] (one wavelength count per lane) or [B, C]
@@ -201,21 +212,44 @@ def _interval_metrics(g: torch.Tensor, lam: torch.Tensor,
     [B] (fault-path loss drift); dest [B, C, C]. Every returned metric is
     multiplied by `t_valid`, so a padded interval contributes exactly zero
     to every reduction. `sim` is a lane config (`_lane_sim`).
+
+    `topo` (the padded topology path, `lane_topology`) holds each lane's
+    topology: the chiplet axis is padded to the grid maximum, means run
+    over the lane's real chiplets (`chip_mask`), padded chiplets' latencies
+    are 0, and the hop tables and mesh scalars are the lane's own.
     """
     noc = sim.noc
     gw_load = ext / torch.clamp_min(g.to(_F32), 1.0)                 # [B, C]
     mem_gw_load = mem / sim.cfg.memory_gateways                      # [B]
 
-    src_hops = mean_access_hops(tables, g)                           # [B, C]
-    mean_src_hops = torch.mean(src_hops, dim=-1)                     # [B]
-    gw_db = tables["gw_loss_db"]
-    access_db = torch.mean(
-        gw_db[torch.clamp(g.long(), 1, gw_db.shape[0]) - 1], dim=-1)  # [B]
-    lam_mem = lam[:, 0] if lam.shape[-1] == 1 \
-        else torch.mean(lam, dim=-1)                                 # [B]
-    mesh_hops = torch.tensor(np.float32(uniform_mesh_mean_hops(sim.cfg)),
-                             device=ext.device)
-    mesh_feed = 2.0 * topology.feed_width(sim.cfg)
+    chip_mask = None if topo is None else topo["chip_mask"]          # [B, C]
+    if topo is None:
+        src_hops = mean_access_hops(tables, g)                       # [B, C]
+        mean_src_hops = torch.mean(src_hops, dim=-1)                 # [B]
+        gw_db = tables["gw_loss_db"]
+        access_db = torch.mean(
+            gw_db[torch.clamp(g.long(), 1, gw_db.shape[0]) - 1], dim=-1)
+        lam_mem = lam[:, 0] if lam.shape[-1] == 1 \
+            else torch.mean(lam, dim=-1)                             # [B]
+        mesh_hops = torch.tensor(
+            np.float32(uniform_mesh_mean_hops(sim.cfg)), device=ext.device)
+        mesh_feed = 2.0 * topology.feed_width(sim.cfg)
+    else:
+        lev = torch.clamp(g.long(), 1, topo["src_hops"].shape[1]) - 1
+        nreal = topo["nreal"]                                        # [B]
+        src_hops = torch.gather(topo["src_hops"], 1, lev)
+        mean_src_hops = torch.sum(src_hops * chip_mask, dim=-1) / nreal
+        access_db = torch.sum(torch.gather(topo["gw_loss_db"], 1, lev)
+                              * chip_mask, dim=-1) / nreal
+        if lam.shape[-1] == 1:
+            lam_mem = lam[:, 0]
+        else:
+            # Padded chiplets carry lambda = 0: 1.0 inside the latency
+            # math only (their latencies are masked to 0 below).
+            lam_mem = torch.sum(lam * chip_mask, dim=-1) / nreal
+            lam = torch.where(chip_mask > 0, lam, torch.ones_like(lam))
+        mesh_hops = topo["mesh_hops"][:, None]
+        mesh_feed = 2.0 * topo["mesh_x"][:, None]
     if extra_db is not None:
         access_db = access_db + extra_db
 
@@ -242,9 +276,15 @@ def _interval_metrics(g: torch.Tensor, lam: torch.Tensor,
                        * (1.0 / noc.burstiness))
         dst_gw_load = recv / torch.clamp_min(g.to(_F32), 1.0)
         dst_leg = noc.access_latency(src_hops, dst_gw_load, burst_scale)
+        if chip_mask is not None:
+            dst_leg = torch.where(chip_mask > 0, dst_leg,
+                                  torch.zeros_like(dst_leg))
         inter_lat = (noc.access_latency(src_hops, gw_load)
                      + noc.gateway_latency(gw_load, lam)
                      + torch.matmul(dest, dst_leg[:, :, None])[..., 0])
+    if chip_mask is not None:
+        inter_lat = torch.where(chip_mask > 0, inter_lat,
+                                torch.zeros_like(inter_lat))
     mem_lat = noc.inter_chiplet_latency(mem_gw_load[:, None],
                                         lam_mem[:, None],
                                         mean_src_hops[:, None], 1.0)[:, 0]
@@ -310,7 +350,8 @@ def _freeze(t_valid: torch.Tensor, new: SimState, old: SimState) -> SimState:
 
 
 def make_step(sim: SimConfig, tables: dict, knobs: Dict[str, torch.Tensor],
-              faulted: bool = False, dest: Optional[torch.Tensor] = None):
+              faulted: bool = False, dest: Optional[torch.Tensor] = None,
+              topo: Optional[dict] = None):
     """Build the per-interval step of B lanes for the chosen architecture.
 
     `knobs` holds the per-lane runtime knobs ([B] tensors, `default_knobs`).
@@ -321,6 +362,12 @@ def make_step(sim: SimConfig, tables: dict, knobs: Dict[str, torch.Tensor],
     the lanes' [B, C, C] destination matrices (per trace, constant in time).
     The step's input is the tuple (ext [B, C], mem [B], intra [B, C],
     ext_frac [B], t_valid [B]) plus the fault frames.
+
+    `topo` switches on the padded topology path (`lane_topology`): `sim.cfg`
+    is the padded shape (grid maxima) and each lane carries its own
+    topology. A padded chiplet injects nothing, holds g = 0 and lambda = 0
+    throughout, and so stays dark in every activity mask and power sum;
+    the controller power and AWGR's port count are the lane's own.
     """
     lane = _lane_sim(sim, knobs)
     cfg = sim.cfg
@@ -328,6 +375,9 @@ def make_step(sim: SimConfig, tables: dict, knobs: Dict[str, torch.Tensor],
     n_total = cfg.total_gateways
     gmax = cfg.max_gateways_per_chiplet
     n_c = cfg.n_chiplets
+    chip_mask = None if topo is None else topo["chip_mask"]
+    n_chips = n_c if topo is None else topo["n_chiplets"]
+    gw_count = None if topo is None else topo["total_gateways"]
 
     def _lit_mask(g_des, gw_ok, stuck_on):
         """(usable [B, C, G], powered chain [B, N_total] bool) under faults."""
@@ -344,14 +394,22 @@ def make_step(sim: SimConfig, tables: dict, knobs: Dict[str, torch.Tensor],
         gw_ok, stuck_on, drift_db = tr[5:] if faulted else (None,) * 3
         b = ext.shape[0]
         dev = ext.device
+        if chip_mask is not None:
+            # A lane's padded chiplets inject nothing.
+            ext = ext * chip_mask
+            intra = intra * chip_mask
         if sim.arch in KERNEL_ARCHS:
             g = state.ctl.g
             lam = lane.wavelengths[:, None]
         elif sim.arch == Arch.PROWAVES:
-            g = torch.ones((b, n_c), dtype=_I32, device=dev)
+            g = torch.ones((b, n_c), dtype=_I32, device=dev) \
+                if topo is None else (chip_mask > 0).to(_I32)
             lam = state.wavelengths.to(_F32)
         else:  # AWGR: all gateways, 1 lambda per port
-            g = torch.full((b, n_c), gmax, dtype=_I32, device=dev)
+            g = torch.full((b, n_c), gmax, dtype=_I32, device=dev) \
+                if topo is None else torch.where(
+                    chip_mask > 0, topo["g_max"][:, None].to(_I32),
+                    torch.zeros((), dtype=_I32, device=dev))
             lam = torch.ones((b, 1), dtype=_F32, device=dev)
 
         if faulted:
@@ -361,7 +419,8 @@ def make_step(sim: SimConfig, tables: dict, knobs: Dict[str, torch.Tensor],
             g_eff = g
 
         m = _interval_metrics(g_eff, lam, ext, mem, intra, lane, tables,
-                              t_valid, extra_db=drift_db, dest=dest)
+                              t_valid, extra_db=drift_db, dest=dest,
+                              topo=topo)
 
         # --- power ---------------------------------------------------------
         active = active_eff if faulted else _activity_mask(g, sim)
@@ -371,21 +430,22 @@ def make_step(sim: SimConfig, tables: dict, knobs: Dict[str, torch.Tensor],
             if faulted:
                 # A failed PROWAVES gateway takes its lasers down with it.
                 w = w * gw_ok[..., 0]
-            lam_mem = torch.mean(w, dim=-1, keepdim=True).expand(
-                b, cfg.memory_gateways)
+            lam_mem = torch.mean(w, dim=-1, keepdim=True) if topo is None \
+                else (torch.sum(w, dim=-1) / topo["nreal"])[:, None]
             pw = photonics.interposer_power_mw(
                 torch.ones((b, n_pw), dtype=torch.bool, device=dev),
-                torch.cat([w, lam_mem], dim=-1), n_gateways=n_pw,
-                mode="wdm", loss_db=m["access_db"], n_chiplets=n_c)
+                torch.cat([w, lam_mem.expand(b, cfg.memory_gateways)],
+                          dim=-1), n_gateways=n_pw,
+                mode="wdm", loss_db=m["access_db"], n_chiplets=n_chips)
         elif sim.arch == Arch.AWGR:
             pw = photonics.interposer_power_mw(
                 active, active.to(_F32), n_gateways=n_total,
                 loss_db=PHOTONIC_POWER.awgr_loss_db + m["access_db"],
-                mode="static", n_chiplets=n_c)
+                mode="static", gateway_count=gw_count, n_chiplets=n_chips)
         else:
             pw = photonics.interposer_power_mw(
                 active, lane.wavelengths, n_gateways=n_total, mode="pcm",
-                loss_db=m["access_db"], n_chiplets=n_c)
+                loss_db=m["access_db"], n_chiplets=n_chips)
 
         # --- controller update ---------------------------------------------
         reconf_nj = torch.zeros((b,), dtype=_F32, device=dev)
@@ -410,6 +470,11 @@ def make_step(sim: SimConfig, tables: dict, knobs: Dict[str, torch.Tensor],
             lam_new = _prowaves_update(state.wavelengths,
                                        m["inter_latency"], m["gw_load"],
                                        lane)
+            if chip_mask is not None:
+                # Padded chiplets stay at lambda = 0 (the cold branch
+                # would raise a dead lane to the wavelength floor).
+                lam_new = torch.where(chip_mask > 0, lam_new,
+                                      torch.zeros_like(lam_new))
             new_state = SimState(ctl=state.ctl, wavelengths=lam_new,
                                  prev_active=active)
         else:
@@ -417,7 +482,8 @@ def make_step(sim: SimConfig, tables: dict, knobs: Dict[str, torch.Tensor],
                                  prev_active=active)
 
         energy = pw["total_mw"] * m["latency"]
-        lam_rec = lam * torch.ones((b, n_c), dtype=_F32, device=dev)
+        lam_rec = lam * (torch.ones((b, n_c), dtype=_F32, device=dev)
+                         if chip_mask is None else chip_mask)
         tv_i = t_valid.to(_I32)[:, None]
         rec = {"latency": m["latency"], "power_mw": pw["total_mw"] * t_valid,
                "laser_mw": pw["laser_mw"] * t_valid, "energy": energy,
@@ -460,14 +526,30 @@ def reset_engine_stats() -> None:
     backend.reset_counters()
 
 
-def _initial_state(sim: SimConfig, knobs: Dict[str, torch.Tensor]
-                   ) -> SimState:
-    """Fresh unpadded state of B lanes; each lane's initial g is its own
-    `max_gateways` knob (§3.3: "initially set to the maximum allowed")."""
+def _initial_state(sim: SimConfig, knobs: Dict[str, torch.Tensor],
+                   topo: Optional[dict] = None) -> SimState:
+    """Fresh state of B lanes; each lane's initial g is its own
+    `max_gateways` knob (§3.3: "initially set to the maximum allowed").
+    With `topo` (padded lanes) a lane's padded chiplets start, and stay,
+    at g = 0 and lambda = 0, and nothing was active before."""
     cfg = sim.cfg
     c = cfg.n_chiplets
     g0 = knobs["max_gateways"].to(_I32)
     b, dev = g0.shape[0], g0.device
+    if topo is not None:
+        valid = topo["chip_mask"] > 0
+        zero = torch.zeros((), dtype=_I32, device=dev)
+        w0 = torch.full((b,), PROWAVES_MAX_WAVELENGTHS, dtype=_I32,
+                        device=dev) if sim.arch == Arch.PROWAVES \
+            else knobs["wavelengths"].to(_I32)
+        return SimState(
+            ctl=ControllerState(
+                g=torch.where(valid, g0[:, None], zero),
+                packets_seen=torch.zeros((b, c), dtype=_F32, device=dev),
+                epoch=torch.zeros((b,), dtype=_I32, device=dev)),
+            wavelengths=torch.where(valid, w0[:, None], zero),
+            prev_active=torch.zeros((b, cfg.total_gateways),
+                                    dtype=torch.bool, device=dev))
     if sim.arch == Arch.PROWAVES:
         lam0 = torch.full((b, c), PROWAVES_MAX_WAVELENGTHS, dtype=_I32,
                           device=dev)
@@ -487,15 +569,22 @@ def _initial_state(sim: SimConfig, knobs: Dict[str, torch.Tensor]
 def _loop(state: SimState, xs: tuple, sim: SimConfig, tables: dict, *,
           dest: Optional[torch.Tensor] = None, faulted: bool = False,
           lane_trace: Optional[torch.Tensor] = None,
-          knobs: Optional[Dict[str, torch.Tensor]] = None
+          knobs: Optional[Dict[str, torch.Tensor]] = None,
+          topo: Optional[dict] = None,
+          dest_index: Optional[torch.Tensor] = None,
+          pair_trace: Optional[torch.Tensor] = None
           ) -> Tuple[SimState, dict]:
     """The plain interval loop: `make_step` stepped over T.
 
     `xs` = (ext [N, T, C], mem [N, T], intra [N, T, C], ext_frac [N, T],
     t_mask [N, T]) plus (gw_ok [N, T, C, G], stuck_on [N, T, C, G],
     drift_db [N, T]) when `faulted`, loads already t_mask-multiplied; `dest`
-    is [N, C, C]. Lane b reads trace `lane_trace[b]` (default: lane n reads
-    trace n). Returns the final state and records [B, T, ...].
+    is [N, C, C], or [P, C, C] with `dest_index` [B] naming each lane's
+    matrix (the padded path's per-(trace, chiplet count) matrices) and
+    `pair_trace` [P] each matrix's trace (read by the kernel only). Lane b
+    reads trace `lane_trace[b]` (default: lane n reads trace n). `topo` is
+    the lanes' padded topology (`lane_topology`). Returns the final state
+    and records [B, T, ...].
     """
     backend.count_loop_run()
     n = xs[0].shape[0]
@@ -506,8 +595,10 @@ def _loop(state: SimState, xs: tuple, sim: SimConfig, tables: dict, *,
     if knobs is None:
         knobs = default_knobs(sim, int(lane_trace.shape[0]), dev)
     lanes = [a[lane_trace] for a in xs]
-    step = make_step(sim, tables, knobs, faulted=faulted,
-                     dest=None if dest is None else dest[lane_trace])
+    if dest is not None:
+        dest = dest[lane_trace if dest_index is None else dest_index.long()]
+    step = make_step(sim, tables, knobs, faulted=faulted, dest=dest,
+                     topo=topo)
     recs = []
     for t in range(lanes[0].shape[1]):
         state, rec = step(state, tuple(a[:, t] for a in lanes))
@@ -519,17 +610,21 @@ def _loop(state: SimState, xs: tuple, sim: SimConfig, tables: dict, *,
 def _scan_trace(state: SimState, xs: tuple, sim: SimConfig, tables: dict,
                 *, dest: Optional[torch.Tensor] = None, faulted: bool = False,
                 lane_trace: Optional[torch.Tensor] = None,
-                knobs: Optional[Dict[str, torch.Tensor]] = None
+                knobs: Optional[Dict[str, torch.Tensor]] = None,
+                topo: Optional[dict] = None,
+                dest_index: Optional[torch.Tensor] = None,
+                pair_trace: Optional[torch.Tensor] = None
                 ) -> Tuple[SimState, dict]:
     """Run the interval loop: the `epoch_step` kernel wrapper for the
     configurations it supports (the reference's gate, plus its >= 1
-    memory gateway precondition), the plain loop for everything else."""
+    memory gateway precondition; padded lanes included, where the
+    reference runs its scan body), the plain loop for everything else."""
+    kw = dict(dest=dest, faulted=faulted, lane_trace=lane_trace, knobs=knobs,
+              topo=topo, dest_index=dest_index, pair_trace=pair_trace)
     if sim.arch in KERNEL_ARCHS and sim.cfg.memory_gateways >= 1:
         from repro_torch.kernels.epoch_step.ops import epoch_run
-        return epoch_run(state, xs, sim, tables, dest=dest, faulted=faulted,
-                         lane_trace=lane_trace, knobs=knobs)
-    return _loop(state, xs, sim, tables, dest=dest, faulted=faulted,
-                 lane_trace=lane_trace, knobs=knobs)
+        return epoch_run(state, xs, sim, tables, **kw)
+    return _loop(state, xs, sim, tables, **kw)
 
 
 def _lane_total(x: torch.Tensor) -> torch.Tensor:
@@ -620,27 +715,38 @@ def _trace_faults(trace: dict, device
     return tuple(_as_f32(trace[k], device) for k in FAULT_KEYS)
 
 
+def _numeric_grid(name: str, values) -> np.ndarray:
+    """A swept numeric grid as numpy, rejecting non-numeric values."""
+    try:
+        a = values.detach().cpu().numpy() if isinstance(values, torch.Tensor) \
+            else np.asarray(values)
+    except (TypeError, ValueError) as e:
+        raise ValueError(f"swept field {name!r} must be a numeric grid "
+                         f"({e})") from None
+    if not (np.issubdtype(a.dtype, np.number) or a.dtype == np.bool_):
+        raise ValueError(f"swept field {name!r} must be a numeric grid, "
+                         f"got dtype {a.dtype}")
+    return a
+
+
+def _runtime_grid(name: str, values) -> np.ndarray:
+    """A runtime knob grid in the dtype the reference gives it (x64 off):
+    floats as float32, integers as int32 (a float64 grid would change
+    controller decisions)."""
+    a = _numeric_grid(name, values)
+    return a.astype(np.float32) if np.issubdtype(a.dtype, np.floating) \
+        else a.astype(np.int32)
+
+
 def _check_sweep_fields(fields, device) -> Dict[str, torch.Tensor]:
-    """Sweep grids as [K] tensors: float grids as float32 and integer
-    grids as int32 (a float64 grid would change controller decisions)."""
+    """Sweep grids as [K] tensors (`_runtime_grid`'s dtypes)."""
     if not fields:
         raise ValueError("sweep() needs at least one field=values pair")
     unknown = set(fields) - set(SWEEPABLE_FIELDS)
     if unknown:
         raise ValueError(f"non-sweepable fields: {sorted(unknown)} "
                          f"(sweepable: {SWEEPABLE_FIELDS})")
-    ov = {}
-    for k, v in fields.items():
-        a = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) \
-            else np.asarray(v)
-        if np.issubdtype(a.dtype, np.floating):
-            a = a.astype(np.float32)
-        elif np.issubdtype(a.dtype, np.integer) or a.dtype == np.bool_:
-            a = a.astype(np.int32)
-        else:
-            raise ValueError(f"swept field {k!r} must be a numeric grid, "
-                             f"got dtype {a.dtype}")
-        ov[k] = a
+    ov = {k: _runtime_grid(k, v) for k, v in fields.items()}
     shapes = {k: a.shape for k, a in ov.items()}
     if any(len(s) != 1 for s in shapes.values()) \
             or len({s[0] for s in shapes.values()}) != 1:
@@ -696,7 +802,7 @@ def stack_traces(traces: List[dict], *, pad: bool = False) -> dict:
 
 
 def epoch_inputs(traces, sim: SimConfig, *, device=None, faults=True,
-                 **fields):
+                 zipped=False, **fields):
     """What the entry points hand the interval loop, for N traces x K grid
     points (K = 1 without `fields`): `(state0, xs, tables, kwargs)` such
     that ``_scan_trace(state0, xs, sim, tables, **kwargs)`` — or the kernel
@@ -705,7 +811,9 @@ def epoch_inputs(traces, sim: SimConfig, *, device=None, faults=True,
 
     `traces` is one trace dict, a list of traces (ragged lengths pad under
     a `t_mask`) or a `stack_traces` dict. `faults=False` drops any fault
-    frame (the sweeps, like the reference's, read none).
+    frame (the sweeps, like the reference's, read none). `zipped=True`
+    pairs instead of crossing: N lanes, lane n on trace n with grid point
+    n (K must be N, or no grid).
     """
     dev = backend.resolve_device(device)
     if isinstance(traces, (list, tuple)):
@@ -719,9 +827,16 @@ def epoch_inputs(traces, sim: SimConfig, *, device=None, faults=True,
     ov = _check_sweep_fields(fields, dev) if fields else {}
     n = ext.shape[0]
     k = int(next(iter(ov.values())).shape[0]) if ov else 1
-    lane_trace = torch.arange(n, device=dev).repeat_interleave(k)
-    knobs = default_knobs(sim, n * k, dev,
-                          {f: v.repeat(n) for f, v in ov.items()})
+    if zipped:
+        if ov and k != n:
+            raise ValueError(f"zipped grids have length {k} but there are "
+                             f"{n} traces")
+        lane_trace = torch.arange(n, device=dev)
+        knobs = default_knobs(sim, n, dev, ov)
+    else:
+        lane_trace = torch.arange(n, device=dev).repeat_interleave(k)
+        knobs = default_knobs(sim, n * k, dev,
+                              {f: v.repeat(n) for f, v in ov.items()})
     # Masked intervals inject zero traffic (and record zeros downstream).
     ext = ext * t_mask[..., None]
     mem = mem * t_mask
@@ -736,16 +851,22 @@ def epoch_inputs(traces, sim: SimConfig, *, device=None, faults=True,
 
 
 def _run(traces, sim: SimConfig, shape, *, device, faults=True,
-         **fields) -> dict:
-    """Shared body of every entry point: N x K lanes through the interval
-    loop, then the mask-correct summaries; the lane axis of every result
-    is reshaped to `shape`."""
+         zipped=False, **fields) -> dict:
+    """Shared body of every entry point: N x K lanes (N zipped lanes)
+    through the interval loop, then the mask-correct summaries; the lane
+    axis of every result is reshaped to `shape`."""
     state0, xs, tables, kw = epoch_inputs(traces, sim, device=device,
-                                          faults=faults, **fields)
+                                          faults=faults, zipped=zipped,
+                                          **fields)
     _, recs = _scan_trace(state0, xs, sim, tables, **kw)
     lane_mask = xs[4][kw["lane_trace"]]
     summary = _summary_from_sums(_record_sums(recs, lane_mask),
                                  sim.cfg.n_chiplets)
+    return _shaped(recs, summary, shape)
+
+
+def _shaped(recs: dict, summary: dict, shape) -> dict:
+    """{"records", "summary"} with every lane axis reshaped to `shape`."""
     return {name: {k: v.reshape(shape + tuple(v.shape[1:]))
                    for k, v in part.items()}
             for name, part in (("records", recs), ("summary", summary))}
@@ -1054,3 +1175,652 @@ def summary_from_sums(sums: dict, n_chiplets: int) -> dict:
     """The summary of accumulated totals (a whole session or a partial
     one): valid-interval means."""
     return _summary_from_sums(sums, n_chiplets)
+
+
+# ---------------------------------------------------------------------------
+# Padded topology sweeps
+# ---------------------------------------------------------------------------
+
+# Shape-defining topology axes that `sweep_topology` pads to the grid
+# maxima: K topologies run as K lanes of one padded interval loop (one
+# `epoch_step` launch on the card for RESIPI / RESIPI_ALL). Each value of
+# `gateway_positions` is a placement (a tuple of (x, y) router coordinates
+# in activation order, or None for the default edge scheme).
+TOPOLOGY_SWEEPABLE_FIELDS = ("n_chiplets", "gateways_per_chiplet",
+                             "mesh_radix", "gateway_positions")
+
+
+def topology_point_config(sim: SimConfig, *, n_chiplets: int = None,
+                          gateways_per_chiplet: int = None,
+                          mesh_radix: int = None,
+                          gateway_positions=None) -> SimConfig:
+    """The unpadded SimConfig equal to one `sweep_topology` grid point.
+
+    The controller's gateway bounds are clamped to the topology's
+    per-chiplet gateway count, as the padded engine clamps them.
+    `gateway_positions` pins the point's placement (None keeps the base
+    config's, which a `mesh_radix` change resets to the default edge
+    scheme).
+    """
+    cfg = sim.cfg.with_topology(n_chiplets=n_chiplets,
+                                gateways_per_chiplet=gateways_per_chiplet,
+                                mesh_radix=mesh_radix)
+    if gateway_positions is not None:
+        cfg = cfg.with_placement(normalize_placement(gateway_positions))
+    g = cfg.max_gateways_per_chiplet
+    ctl = dataclasses.replace(
+        sim.ctl, max_gateways=min(sim.ctl.max_gateways, g),
+        min_gateways=min(sim.ctl.min_gateways, g))
+    return dataclasses.replace(sim, cfg=cfg, ctl=ctl)
+
+
+def _ndim(x) -> int:
+    return x.dim() if isinstance(x, torch.Tensor) else int(np.ndim(x))
+
+
+def _topo_grid_len(name: str, values) -> int:
+    """Length of one swept grid, rejecting scalars with a clear message."""
+    if name == "gateway_positions":
+        if not isinstance(values, (list, tuple)):
+            raise ValueError(
+                f"swept field {name!r} must be a list of placements "
+                f"(each a tuple of (x, y) pairs or None), got "
+                f"{type(values).__name__}")
+        return len(values)
+    a = _numeric_grid(name, values)
+    if a.ndim != 1:
+        raise ValueError(
+            f"swept field {name!r} must be a 1-D grid of values, got "
+            f"shape {a.shape} — wrap a single value as [{name}_value]")
+    return int(a.shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class _TopologyGrid:
+    """A prepared topology grid: the padded config and K points."""
+    sim: SimConfig          # the padded shape: the grid maxima
+    cfgs: tuple             # each point's NetworkConfig
+    topo: dict              # per point [K] / [K, G] tensors
+    knobs: dict             # per point [K] runtime knob grids (numpy)
+    n_chiplets: np.ndarray  # [K] int, on the host
+    c_max: int
+
+
+def _prepare_topology_sweep(sim: SimConfig, grids: dict,
+                            device) -> _TopologyGrid:
+    """Split grids into topology axes and runtime knobs; build the padded
+    config, the per-point topology rows (hop and access-loss tables, mesh
+    scalars, gateway totals) and the per-point controller clamps
+    (max = min(user max, g_k), min = min(user min, that max))."""
+    if not grids:
+        raise ValueError("sweep_topology() needs at least one field=values "
+                         f"pair from {TOPOLOGY_SWEEPABLE_FIELDS}")
+    lengths = {k: _topo_grid_len(k, v) for k, v in grids.items()}
+    topo_grids = {k: list(v) for k, v in grids.items()
+                  if k in TOPOLOGY_SWEEPABLE_FIELDS}
+    other = {k: v for k, v in grids.items()
+             if k not in TOPOLOGY_SWEEPABLE_FIELDS}
+    unknown = set(other) - set(SWEEPABLE_FIELDS)
+    if unknown:
+        raise ValueError(
+            f"non-sweepable fields: {sorted(unknown)} (topology: "
+            f"{TOPOLOGY_SWEEPABLE_FIELDS}, runtime: {SWEEPABLE_FIELDS})")
+    if not topo_grids:
+        raise ValueError("no topology fields swept — use sweep() for "
+                         "runtime-only grids")
+    if len(set(lengths.values())) != 1:
+        raise ValueError(f"swept fields must share one length, "
+                         f"got {lengths}")
+    k = next(iter(lengths.values()))
+
+    cfg = sim.cfg
+    cs = [int(x) for x in topo_grids.get("n_chiplets",
+                                         [cfg.n_chiplets] * k)]
+    gs = [int(x) for x in topo_grids.get(
+        "gateways_per_chiplet", [cfg.max_gateways_per_chiplet] * k)]
+    rs = [int(x) for x in topo_grids.get("mesh_radix", [cfg.mesh_x] * k)]
+    if "gateway_positions" in topo_grids:
+        ps = [normalize_placement(p)
+              for p in topo_grids["gateway_positions"]]
+    else:
+        # A mesh_radix change drops the base config's explicit placement
+        # (its coordinates belong to the old mesh), as with_topology and
+        # topology_point_config do.
+        ps = [normalize_placement(cfg.gateway_positions)
+              if r == cfg.mesh_x and r == cfg.mesh_y else None
+              for r in rs]
+    if min(cs) < 1 or min(gs) < 1 or min(rs) < 2:
+        raise ValueError(f"invalid topology grid: n_chiplets {cs}, "
+                         f"gateways {gs}, radix {rs}")
+    for i, (g, p) in enumerate(zip(gs, ps)):
+        avail = N_DEFAULT_EDGE_SLOTS if p is None else len(p)
+        if g > avail:
+            raise ValueError(
+                f"grid point {i}: gateways_per_chiplet={g} exceeds the "
+                f"{avail} placed gateway positions "
+                f"({'default edge scheme' if p is None else p})")
+
+    cfgs = tuple(dataclasses.replace(
+        cfg.with_topology(n_chiplets=c, gateways_per_chiplet=g,
+                          mesh_radix=r), gateway_positions=p)
+                 for c, g, r, p in zip(cs, gs, rs, ps))
+    c_max, g_max, r_max = max(cs), max(gs), max(rs)
+    ptab = padded_selection_tables_torch(cfgs, (g_max, r_max * r_max),
+                                         device)
+    f32 = dict(dtype=_F32, device=device)
+    topo = {
+        "n_chiplets": torch.tensor(cs, dtype=_I32, device=device),
+        "g_max": torch.tensor(gs, dtype=_I32, device=device),
+        "src_hops": ptab["src_hops"],                        # [K, g_max]
+        "gw_loss_db": ptab["gw_loss_db"],                    # [K, g_max]
+        "mesh_hops": torch.tensor(
+            [np.float32(uniform_mesh_mean_hops(c)) for c in cfgs], **f32),
+        "mesh_x": torch.tensor(rs, **f32),
+        "total_gateways": torch.tensor([c.total_gateways for c in cfgs],
+                                       **f32),
+    }
+    knobs = {f: _runtime_grid(f, v) for f, v in other.items()}
+    user_max = knobs.pop("max_gateways", sim.ctl.max_gateways)
+    user_min = knobs.pop("min_gateways", sim.ctl.min_gateways)
+    maxg = np.minimum(np.broadcast_to(np.asarray(user_max, np.int32), (k,)),
+                      np.asarray(gs, np.int32))
+    knobs["max_gateways"] = maxg
+    knobs["min_gateways"] = np.minimum(
+        np.broadcast_to(np.asarray(user_min, np.int32), (k,)), maxg)
+    sim_p = dataclasses.replace(sim, cfg=dataclasses.replace(
+        cfg, n_chiplets=c_max, max_gateways_per_chiplet=g_max,
+        mesh_x=r_max, mesh_y=r_max))
+    return _TopologyGrid(sim_p, cfgs, topo, knobs, np.asarray(cs, np.int64),
+                         c_max)
+
+
+def _topo_trace_arrays(trace_or_batch, c_max: int, device) -> tuple:
+    """`_trace_arrays` narrowed to the padded chiplet axis; refuses fault
+    frames and traces narrower than the grid."""
+    if _has_faults(trace_or_batch):
+        raise ValueError(
+            "fault frames are not supported on the padded-topology paths "
+            "(sweep_topology / shard_sweep): fault frames are compiled "
+            "against ONE topology's [C, G] slot grid and cannot be "
+            "re-padded per grid point. strip_faults(trace) first, or use "
+            "simulate / sweep_faults on a fixed topology.")
+    ext, mem, intra, ext_frac, t_mask, dest = _trace_arrays(trace_or_batch,
+                                                            device)
+    if ext.shape[-1] < c_max:
+        raise ValueError(
+            f"trace covers {ext.shape[-1]} chiplets but the grid needs "
+            f"{c_max}; generate it with cfg.with_topology(n_chiplets="
+            f"{c_max}) (see traffic.generate_trace)")
+    if dest is not None:
+        # Narrowed and re-normalized once here; each lane then masks it to
+        # its own chiplet count (`_pair_destinations`).
+        from repro_torch.core.traffic.transform import _renormalize_rows
+        dest = _renormalize_rows(dest[..., :c_max, :c_max])
+    return (ext[..., :c_max], mem, intra[..., :c_max], ext_frac, t_mask,
+            dest)
+
+
+def lane_topology(topo: dict, point: torch.Tensor, c_max: int) -> dict:
+    """Each lane's topology, the `topo` of the padded interval loop: the
+    point's rows (`n_chiplets`, `g_max` [B] int; `src_hops`, `gw_loss_db`
+    [B, G]; `mesh_hops`, `mesh_x`, `total_gateways` [B]) picked by
+    `point` [B], plus `chip_mask` [B, C] (1.0 on the lane's real chiplets)
+    and `nreal` [B] = max(sum(chip_mask), 1), the divisor of every mean
+    over chiplets."""
+    out = {k: v[point] for k, v in topo.items()}
+    mask = (torch.arange(c_max, device=point.device)[None, :]
+            < out["n_chiplets"][:, None]).to(_F32)
+    out["chip_mask"] = mask
+    out["nreal"] = torch.clamp_min(torch.sum(mask, dim=-1), 1.0)
+    return out
+
+
+def _pair_destinations(dest: torch.Tensor, lane_trace: np.ndarray,
+                       n_chip: np.ndarray, c_max: int):
+    """The destination matrix of each distinct (trace, chiplet count) pair
+    of the lanes: the trace's matrix with the padded chiplets' rows and
+    columns zeroed and the rows re-normalized. Returns (matrices [P, C, C],
+    each lane's pair index [B] int32, each pair's trace [P] int32)."""
+    keys = lane_trace.astype(np.int64) * (c_max + 1) + n_chip
+    uniq, inv = np.unique(keys, return_inverse=True)
+    dev = dest.device
+    pn = torch.as_tensor(uniq // (c_max + 1), device=dev)
+    pc = torch.as_tensor(uniq % (c_max + 1), device=dev)
+    m = (torch.arange(c_max, device=dev)[None, :] < pc[:, None]).to(_F32)
+    d = dest[pn] * m[:, None, :] * m[:, :, None]
+    row = torch.sum(d, dim=-1, keepdim=True)
+    pairs = torch.where(row > 0.0, d / torch.clamp_min(row, 1e-12),
+                        torch.zeros_like(d))
+    return (pairs,
+            torch.as_tensor(inv.reshape(-1).astype(np.int32), device=dev),
+            pn.to(_I32))
+
+
+def topology_inputs(batch, sim: SimConfig, *, device=None, zipped=False,
+                    on_stage=None, **grids):
+    """What the padded entry points hand the interval loop: `(sim_p,
+    state0, xs, kwargs, nreal)` such that ``_scan_trace(state0, xs, sim_p,
+    None, **kwargs)`` runs the grid. `batch` is one trace, a list of traces
+    or a `stack_traces` dict. N traces x K points run as N*K
+    trace-major lanes (lane n*K + k: trace n, point k); `zipped=True` runs
+    K lanes, lane k on trace k with point k (N must be K). `nreal` [B] is
+    each lane's real chiplet count (the wavelength summary's divisor).
+    `on_stage(name)`, if given, is called as each stage ends ("prepare",
+    "trace_arrays", "lanes", "dest_pairs", "initial_state"), for timing."""
+    stage = on_stage or (lambda name: None)
+    dev = backend.resolve_device(device)
+    grid = _prepare_topology_sweep(sim, grids, dev)
+    stage("prepare")
+    ext, mem, intra, ext_frac, t_mask, dest = _topo_trace_arrays(
+        _stacked(batch), grid.c_max, dev)
+    stage("trace_arrays")
+    if ext.dim() == 2:
+        ext, mem, intra, t_mask = ext[None], mem[None], intra[None], \
+            t_mask[None]
+        ext_frac = ext_frac.reshape(1)
+        dest = None if dest is None else dest[None]
+    n, k = int(ext.shape[0]), int(grid.n_chiplets.shape[0])
+    if zipped:
+        if n != k:
+            raise ValueError(f"{n} traces for {k} grid points: zipped "
+                             f"lanes need one trace per point")
+        lane_np, point_np = np.arange(k), np.arange(k)
+    else:
+        lane_np, point_np = np.repeat(np.arange(n), k), np.tile(np.arange(k),
+                                                                n)
+    lane_trace = torch.as_tensor(lane_np, device=dev)
+    point = torch.as_tensor(point_np, device=dev)
+    knobs = default_knobs(grid.sim, len(lane_np), dev,
+                          {f: torch.as_tensor(v[point_np], device=dev)
+                           for f, v in grid.knobs.items()})
+    topo = lane_topology(grid.topo, point, grid.c_max)
+    xs = (ext * t_mask[..., None], mem * t_mask, intra * t_mask[..., None],
+          ext_frac.reshape(n, 1).expand_as(mem), t_mask)
+    kwargs = dict(lane_trace=lane_trace, knobs=knobs, topo=topo)
+    stage("lanes")
+    if dest is not None:
+        kwargs["dest"], kwargs["dest_index"], kwargs["pair_trace"] = \
+            _pair_destinations(dest, lane_np, grid.n_chiplets[point_np],
+                               grid.c_max)
+    stage("dest_pairs")
+    state0 = _initial_state(grid.sim, knobs, topo)
+    stage("initial_state")
+    return grid.sim, state0, xs, kwargs, topo["nreal"]
+
+
+def _topo_run(batch, sim: SimConfig, shape, *, device, zipped=False,
+              **grids) -> dict:
+    """Shared body of the padded entry points: the grid's lanes through
+    the interval loop, then the summaries (mean wavelengths over each
+    lane's real chiplets); every result's lane axis reshaped to
+    `shape`."""
+    sim_p, state0, xs, kw, nreal = topology_inputs(
+        batch, sim, device=device, zipped=zipped, **grids)
+    _, recs = _scan_trace(state0, xs, sim_p, None, **kw)
+    summary = _summary_from_sums(
+        _record_sums(recs, xs[4][kw["lane_trace"]]), nreal)
+    return _shaped(recs, summary, shape)
+
+
+def _topo_points(grids) -> int:
+    return next(_topo_grid_len(k, v) for k, v in grids.items()) \
+        if grids else 0
+
+
+def sweep_topology(trace: dict, sim: SimConfig, *, device=None,
+                   **grids) -> dict:
+    """Topology DSE over shape-changing axes as one padded run, e.g.
+    ``sweep_topology(tr, sim, n_chiplets=[4, 16, 64],
+    gateways_per_chiplet=[4, 4, 2])``.
+
+    Every field (TOPOLOGY_SWEEPABLE_FIELDS, and any SWEEPABLE_FIELDS) is a
+    1-D grid of one common length K; the grids zip into K points, which run
+    as K lanes padded to the grid maxima (one `epoch_step` launch on the
+    card for RESIPI / RESIPI_ALL). Padded chiplets and gateway slots hold
+    zero load, g = 0 and lambda = 0 throughout, so they add exactly zero to
+    every reduction: a point padded to its own size equals unpadded
+    `simulate` of `topology_point_config(sim, ...)`. The trace must cover
+    max(n_chiplets) chiplets; point k reads its first n_chiplets columns.
+    Results carry a leading [K] axis; per-chiplet records are padded to
+    the grid maximum. Runs on the card unless `device="cpu"`.
+    """
+    if _ndim(trace["ext_load"]) != 2:
+        raise ValueError("sweep_topology takes one trace (ext_load [T, C]); "
+                         "use sweep_topology_batch for a batch")
+    return _topo_run(trace, sim, (_topo_points(grids),), device=device,
+                     **grids)
+
+
+def _check_devices(devices, what: str):
+    """The single-device case only: more than one device raises."""
+    devices = None if devices is None else list(devices)
+    if devices is not None and len(devices) > 1:
+        raise NotImplementedError(
+            f"{what} over {len(devices)} devices is not ported: sharding a "
+            f"sweep across cards is ROADMAP queue 1 item 8 (fleet and "
+            f"caching on torch.distributed); pass one device")
+    return devices[0] if devices else None
+
+
+def sweep_topology_batch(traces, sim: SimConfig, *, devices=None,
+                         device=None, **grids) -> dict:
+    """N traces x K topologies as N*K trace-major lanes of one padded run
+    ([N, K] results). `traces` is a list of same-width trace dicts (ragged
+    lengths pad under a `t_mask`) or a `stack_traces` dict. `devices` with
+    more than one entry raises (see `shard_sweep`)."""
+    if devices is not None and len(list(devices)) > 1:
+        return shard_sweep(traces, sim, devices=devices, device=device,
+                           **grids)
+    batch = _stacked(traces)
+    return _topo_run(batch, sim, (int(np.shape(batch["ext_load"])[0]),
+                                  _topo_points(grids)),
+                     device=device, **grids)
+
+
+def _sharding_note(out: dict, describe: dict) -> dict:
+    """Attach the sharding description to a sweep result: the pad-lane
+    count in the summary, the whole description under "sharding"."""
+    out = dict(out)
+    if "summary" in out and isinstance(out["summary"], dict):
+        out["summary"] = dict(out["summary"],
+                              pad_lanes=int(describe["pad_lanes"]))
+    out["sharding"] = dict(describe)
+    return out
+
+
+def shard_sweep(traces, sim: SimConfig, *, devices=None, device=None,
+                **grids) -> dict:
+    """The topology sweep of `sweep_topology` / `sweep_topology_batch` (a
+    single trace dict, or a list / stacked batch with a leading [N] axis),
+    with the reference's sharding description: `summary["pad_lanes"]` (0)
+    and a top-level `"sharding"` dict. Only the single-device case is
+    ported: `devices` with more than one entry raises NotImplementedError
+    (ROADMAP queue 1 item 8); one entry names the device to run on."""
+    one = _check_devices(devices, "shard_sweep")
+    device = one if device is None else device
+    batched = not (isinstance(traces, dict)
+                   and _ndim(traces["ext_load"]) == 2)
+    call = sweep_topology_batch if batched else sweep_topology
+    out = call(traces, sim, device=device, **grids)
+    return _sharding_note(out, {
+        "grid_points": int(out["summary"]["mean_latency"].shape[-1]),
+        "pad_lanes": 0, "devices": 1, "processes": 1})
+
+
+# ---------------------------------------------------------------------------
+# Workload sweeps
+# ---------------------------------------------------------------------------
+
+def _workload_keys(keys, seed: int, k: int, device) -> torch.Tensor:
+    """[K, 2] twin keys: `split(prng_key(seed), K)` by default, else the
+    given keys (a [K, 2] tensor or array of uint32 pairs)."""
+    from repro_torch import random as trandom
+
+    if keys is None:
+        return trandom.split(trandom.prng_key(seed, device=device), k)
+    if len(keys) != k:
+        raise ValueError(f"{len(keys)} keys for {k} specs")
+    if isinstance(keys, torch.Tensor):
+        return keys.to(device=device, dtype=torch.int64)
+    return torch.as_tensor(np.asarray(keys).astype(np.int64), device=device)
+
+
+def sweep_workload(specs, sim: SimConfig, *, seed: int = 0, keys=None,
+                   dest: bool = False, devices=None, gen_chiplets=None,
+                   device=None, **grids) -> dict:
+    """Workload DSE: K traffic specs as K lanes of one run, e.g.
+    ``sweep_workload([ParsecSpec("dedup", 64), UniformSpec(n_intervals=32)],
+    sim, device="cpu")``.
+
+    Spec k (a `traffic.TrafficSpec` or a PARSEC app name) is generated from
+    key k of `split(prng_key(seed), K)` (or of `keys`, [K, 2]), with its
+    destination matrix when `dest=True`; the K traces, mixed lengths
+    welcome, pad to the longest under a `t_mask`. Every grid zips lane for
+    lane with the specs: TOPOLOGY_SWEEPABLE_FIELDS grids make the run a
+    padded one (traces generated at the grid's widest `n_chiplets`, or at
+    `gen_chiplets`), SWEEPABLE_FIELDS grids alone an unpadded one on
+    `sim.cfg`. Results carry a leading [K] axis; lane k equals `simulate`
+    of its own trace. `devices` with more than one entry raises
+    NotImplementedError (ROADMAP queue 1 item 8).
+    """
+    one = _check_devices(devices, "sweep_workload")
+    device = one if device is None else device
+    specs = [traffic.as_spec(s) for s in specs]
+    if not specs:
+        raise ValueError("sweep_workload() needs at least one traffic spec")
+    k = len(specs)
+    dev = backend.resolve_device(device)
+    keys = _workload_keys(keys, seed, k, dev)
+    for name, v in grids.items():
+        n = _topo_grid_len(name, v)
+        if n != k:
+            raise ValueError(
+                f"grid {name!r} has length {n} but {k} workload specs "
+                f"were given — workload zips element-wise with every grid")
+    topo_grids = {g: v for g, v in grids.items()
+                  if g in TOPOLOGY_SWEEPABLE_FIELDS}
+    if topo_grids:
+        c_gen = max(int(c) for c in topo_grids.get(
+            "n_chiplets", [sim.cfg.n_chiplets]))
+        if gen_chiplets is not None:
+            if int(gen_chiplets) < c_gen:
+                raise ValueError(
+                    f"gen_chiplets={gen_chiplets} is smaller than the "
+                    f"grid's largest n_chiplets ({c_gen})")
+            c_gen = int(gen_chiplets)
+        gen_cfg = sim.cfg.with_topology(n_chiplets=c_gen)
+        traces = [traffic.generate(s, keys[i], gen_cfg, dest=dest,
+                                   device=dev) for i, s in enumerate(specs)]
+        return _topo_run(stack_traces(traces, pad=True), sim, (k,),
+                         device=dev, zipped=True, **grids)
+    unknown = set(grids) - set(SWEEPABLE_FIELDS)
+    if unknown:
+        raise ValueError(
+            f"non-sweepable fields: {sorted(unknown)} (topology: "
+            f"{TOPOLOGY_SWEEPABLE_FIELDS}, runtime: {SWEEPABLE_FIELDS})")
+    traces = [traffic.generate(s, keys[i], sim.cfg, dest=dest, device=dev)
+              for i, s in enumerate(specs)]
+    return _run(stack_traces(traces, pad=True), sim, (k,), device=dev,
+                faults=False, zipped=True, **grids)
+
+
+# ---------------------------------------------------------------------------
+# Placement sweeps and the host placement search
+# ---------------------------------------------------------------------------
+
+# The summary schema of `_summary_from_sums`, in a fixed order.
+SUMMARY_KEYS = ("mean_latency", "mean_power_mw", "mean_energy",
+                "mean_gateways", "mean_wavelengths", "saturated_frac",
+                "total_reconfig_nj", "valid_intervals")
+
+# Short objective names accepted by the placement search.
+PLACEMENT_OBJECTIVE_ALIASES = {"latency": "mean_latency",
+                               "power": "mean_power_mw",
+                               "energy": "mean_energy"}
+
+
+def check_placement_objective(objective: str) -> None:
+    """Validate a placement-search objective name."""
+    if objective == "inter_latency":
+        return
+    if PLACEMENT_OBJECTIVE_ALIASES.get(objective, objective) \
+            not in SUMMARY_KEYS:
+        raise ValueError(
+            f"unknown placement objective {objective!r} (use "
+            f"'inter_latency', 'latency', 'power', 'energy' or a summary "
+            f"key: {sorted(SUMMARY_KEYS)})")
+
+
+def rebuild_selection_tables(cfg: NetworkConfig, device=None) -> dict:
+    """An uncached table build (bypassing both caches) for baselines."""
+    return build_selection_tables.__wrapped__(cfg).as_torch(
+        backend.resolve_device(device))
+
+
+def sweep_placement(trace: dict, sim: SimConfig, placements, *,
+                    device=None, **grids) -> dict:
+    """K candidate gateway placements as K lanes of one padded run (sugar
+    for ``sweep_topology(..., gateway_positions=placements)``): each a tuple
+    of (x, y) router coordinates in activation order, or None for the
+    default edge scheme. Any other TOPOLOGY_SWEEPABLE_FIELDS /
+    SWEEPABLE_FIELDS grid of length K zips in. Lane k equals `simulate`
+    with ``cfg.with_placement(placements[k])``."""
+    return sweep_topology(trace, sim, device=device,
+                          gateway_positions=list(placements), **grids)
+
+
+def sweep_placement_batch(traces, sim: SimConfig, placements, *,
+                          device=None, **grids) -> dict:
+    """N traces x K placements ([N, K] results)."""
+    return sweep_topology_batch(traces, sim, device=device,
+                                gateway_positions=list(placements), **grids)
+
+
+def _placement_scores(summary: dict, inter_latency: np.ndarray,
+                      objective: str) -> np.ndarray:
+    """Per-lane scalar objective from host copies of a sweep's results."""
+    check_placement_objective(objective)
+    if objective == "inter_latency":
+        # Per-interval traffic-weighted inter-chiplet latency, [K, T] -> [K].
+        return np.mean(inter_latency, axis=-1)
+    return np.asarray(
+        summary[PLACEMENT_OBJECTIVE_ALIASES.get(objective, objective)])
+
+
+def search_placement(trace: dict, sim: SimConfig, *,
+                     objective: str = "inter_latency",
+                     generations: int = 10, population: int = 12,
+                     seed: int = 0, init=None, temperature: float = 0.05,
+                     cooling: float = 0.7, restart_frac: float = 0.25,
+                     engine: str = "device", blocked_positions=None,
+                     device=None) -> dict:
+    """Annealed gateway-placement search (the reference's host engine).
+
+    Per generation: the incumbent, single-gateway moves around it
+    (spread-reordered by the controller's activation rule) and random
+    restarts, drawn from `np.random.RandomState(seed)` in the reference's
+    order, are scored by one `sweep_placement` call (one `epoch_step`
+    launch on the card for RESIPI / RESIPI_ALL) and one device-to-host copy
+    of what the generation reads; the incumbent moves greedily downhill
+    and uphill with annealed probability, and the best placement ever
+    scored is kept. The default edge scheme is scored in generation 0.
+
+    `engine="host"` runs this loop. The reference's default,
+    `engine="device"` (the whole search as one compiled program), is not
+    ported yet and raises NotImplementedError (ROADMAP queue 1 item 5).
+    `blocked_positions` excludes routers from every proposal; an `init`
+    on a blocked router raises (repair it with `search.repair_placement`).
+
+    Returns {best_placement, best_score, best_summary, default_placement,
+    default_score, improvement_frac, history, ...}, one history entry per
+    generation.
+    """
+    if engine == "device":
+        raise NotImplementedError(
+            "search_placement(engine='device') is not ported yet: the "
+            "device engine (core/search.py and its twin draws) is the next "
+            "slice, ROADMAP queue 1 item 5; pass engine='host'")
+    if engine != "host":
+        raise ValueError(f"unknown engine {engine!r} (use 'device' or "
+                         f"'host')")
+    if population < 2:
+        raise ValueError("population must be >= 2 (incumbent + candidates)")
+    if generations < 1:
+        raise ValueError("generations must be >= 1")
+    check_placement_objective(objective)
+    import math
+
+    from repro_torch.core.search import repair_placement
+
+    cfg = sim.cfg
+    gmax = cfg.max_gateways_per_chiplet
+    blocked = {(int(x), int(y)) for (x, y) in (blocked_positions or ())}
+    coords = [(int(x), int(y)) for x, y in topology.router_coords(cfg)
+              if (int(x), int(y)) not in blocked]
+    if len(coords) < gmax:
+        raise ValueError(
+            f"{len(blocked)} blocked routers leave only {len(coords)} "
+            f"allowed positions for {gmax} gateways")
+    rng = np.random.RandomState(seed)
+
+    default_p = normalize_placement(resolve_gateway_positions(cfg), cfg)
+    if set(default_p) & blocked:
+        default_p = repair_placement(default_p, blocked, cfg)
+    parent = default_p if init is None else normalize_placement(init, cfg)
+    if set(parent) & blocked:
+        raise ValueError(
+            f"init placement occupies blocked routers "
+            f"{sorted(set(parent) & blocked)} — repair it first "
+            f"(search.repair_placement)")
+
+    def random_placement():
+        idx = rng.choice(len(coords), size=gmax, replace=False)
+        return normalize_placement([coords[i] for i in idx], cfg,
+                                   order="spread")
+
+    def mutate(p, moves):
+        pos = list(p)
+        occupied = set(pos)
+        for _ in range(moves):
+            i = int(rng.randint(len(pos)))
+            free = [c for c in coords if c not in occupied]
+            if not free:
+                break
+            occupied.remove(pos[i])
+            pos[i] = free[int(rng.randint(len(free)))]
+            occupied.add(pos[i])
+        return normalize_placement(pos, cfg, order="spread")
+
+    best_p, best_s, best_summary = None, np.inf, None
+    default_s = None
+    temp = temperature
+    history = []
+    for gen in range(generations):
+        moves = 2 if gen < max(1, generations // 3) else 1
+        cands = [parent]
+        if gen == 0 and parent != default_p:
+            cands.append(default_p)
+        while len(cands) < population:
+            cands.append(random_placement()
+                         if rng.rand() < restart_frac else
+                         mutate(parent, moves))
+        out = sweep_placement(trace, sim, cands, device=device)
+        # One device-to-host copy of everything the generation reads.
+        packed = torch.cat(
+            [torch.stack([out["summary"][k] for k in SUMMARY_KEYS], dim=1),
+             out["records"]["mean_inter_latency"]], dim=1).cpu().numpy()
+        summary = {k: packed[:, i] for i, k in enumerate(SUMMARY_KEYS)}
+        scores = _placement_scores(summary, packed[:, len(SUMMARY_KEYS):],
+                                   objective)
+        if gen == 0:
+            default_s = float(scores[cands.index(default_p)]
+                              if default_p in cands else scores[0])
+        ibest = int(np.argmin(scores))
+        if scores[ibest] < best_s:
+            best_p, best_s = cands[ibest], float(scores[ibest])
+            best_summary = {k: float(v[ibest]) for k, v in summary.items()}
+        # Annealed incumbent move: greedy downhill, probabilistic uphill.
+        delta = float(scores[ibest] - scores[0])
+        rel = delta / max(abs(float(scores[0])), 1e-12)
+        accepted = delta < 0 or (temp > 0
+                                 and rng.rand() < math.exp(-rel / temp))
+        if accepted:
+            parent = cands[ibest]
+        history.append({
+            "generation": gen,
+            "parent_score": float(scores[0]),
+            "best_candidate_score": float(scores[ibest]),
+            "best_score": float(best_s),
+            "accepted": bool(accepted),
+            "latency": float(summary["mean_latency"][ibest]),
+            "power_mw": float(summary["mean_power_mw"][ibest]),
+            "energy": float(summary["mean_energy"][ibest]),
+        })
+        temp *= cooling
+
+    return {"best_placement": best_p, "best_score": best_s,
+            "best_summary": best_summary,
+            "default_placement": default_p, "default_score": default_s,
+            "improvement_frac": 1.0 - best_s / max(default_s, 1e-12),
+            "objective": objective, "generations": generations,
+            "population": population, "engine": "host", "history": history}

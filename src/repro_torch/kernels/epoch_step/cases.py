@@ -81,3 +81,50 @@ def wide_case(name: str, t: int = 48) -> Case:
 
 def wide_cases(t: int = 48, names: Sequence[str] = WIDE_NAMES) -> List[Case]:
     return [wide_case(n, t) for n in names]
+
+
+# Padded calls (one topology per lane): the grid of each width, zipped
+# (n_chiplets, gateways_per_chiplet, l_m) points over three traces made at
+# the grid's widest point.
+PADDED_GRIDS = {
+    9: dict(n_chiplets=[4, 6, 9, 9], gateways_per_chiplet=[4, 2, 3, 4],
+            l_m=[0.006, 0.02, 0.0152, 0.01]),
+    16: dict(n_chiplets=[4, 8, 12, 16], gateways_per_chiplet=[1, 4, 2, 4],
+             l_m=[0.012, 0.006, 0.0152, 0.02]),
+    144: dict(n_chiplets=[16, 64, 100, 144],
+              gateways_per_chiplet=[4, 3, 4, 2],
+              l_m=[0.0152, 0.008, 0.02, 0.0152]),
+}
+PADDED_KINDS = ("clean", "dest", "ragged")
+PADDED_NAMES = tuple(f"pad{c}-{kind}" for c in PADDED_GRIDS
+                     for kind in PADDED_KINDS)
+
+
+class PaddedCase(NamedTuple):
+    name: str
+    traces: list         # numpy trace dicts at the grid's widest point
+    sim: SimConfig       # the unpadded base config
+    grid: dict           # sweep_topology grids (zipped)
+
+
+def padded_case(name: str, t: int = 24,
+                arch: Arch = Arch.RESIPI) -> PaddedCase:
+    """The padded case `name` of PADDED_NAMES over `t` intervals: three
+    traces (a ragged tail each; "ragged" adds an all-masked trace and one
+    with an interior gap) and the grid of its width."""
+    if name not in PADDED_NAMES:
+        raise KeyError(f"no padded epoch_step case {name!r} (have "
+                       f"{PADDED_NAMES})")
+    c_max = int(name[3:].split("-")[0])
+    kind = name.split("-")[1]
+    cfg = NETWORK.with_topology(n_chiplets=c_max)
+    rng = np.random.RandomState(PADDED_NAMES.index(name) + 300)
+    traces = [make_trace(rng, t, c_max, cfg.max_gateways_per_chiplet,
+                         dest=kind == "dest", faults=False)
+              for _ in range(3)]
+    if kind == "ragged":
+        traces[1]["t_mask"] = np.zeros(t, np.float32)
+        traces[2]["t_mask"][t // 4: t // 2] = 0.0
+    grid = {k: (np.float32(v) if k == "l_m" else list(v))
+            for k, v in PADDED_GRIDS[c_max].items()}
+    return PaddedCase(name, traces, SimConfig().with_arch(arch), grid)

@@ -3,7 +3,7 @@
 // Replaces the TPU Pallas kernel `_epoch_kernel` in
 // src/repro/kernels/epoch_step/kernel.py: T reconfiguration intervals of the
 // Level-1 simulator (the reference's simulator.make_step for RESIPI /
-// RESIPI_ALL, unpadded topology) in one call — M/D/1 latencies, optional
+// RESIPI_ALL, unpadded or padded topology) in one call — M/D/1 latencies, optional
 // destination resolution (recv = ext @ dest and the fan-in factor phi),
 // PCM-mode power with 10^(dB/10) laser scaling, the Eq. 5-7 gateway
 // controller (packets rescaled under faults), the Eq. 4 kappa chain in
@@ -57,6 +57,17 @@
 // lane is a chain of dependent divisions, shuffles and reductions, so it
 // is latency-bound: at C = 4, 28 of the 32 threads idle.
 //
+// Padded calls (the topology sweeps: one topology per lane) run "split" and
+// "wide" with topology rows (struct Topo): each lane's real chiplet count,
+// selection-table rows, mesh scalars, controller power and destination
+// matrix. A padded chiplet reads ext and intra as 0, so its g stays 0 and
+// it adds exactly 0 to every sum; the hop and access-loss means divide by
+// the real count. "Split" and "wide" are instantiated with and without the
+// rows (kTopo): an unpadded call runs the instantiations without them,
+// which read the launch constants only (rows holding the same constants
+// give the same bits but take longer: `chip_smoke.py --rows-ab`). "Warp"
+// takes no rows.
+//
 // Numerics: build with --fmad=false. The controller thresholds (load > l_m),
 // the kappa switch test and the saturation test are discrete, and every
 // float feeding them is computed op for op as the plain PyTorch version
@@ -84,6 +95,65 @@ struct Consts {
       ser_k, mesh_hops, mesh_feed, laser_mw, tia_mw, tuning_mw, driver_mw,
       controller_mw, reconfig_nj;
 };
+
+// Topology rows of a padded call (one topology per lane), all null on an
+// unpadded call. Lane b has n_chiplets[b] real chiplets of the C the
+// arrays are padded to: a padded chiplet injects nothing (its ext and
+// intra read as 0), its g stays 0, and the hop and access-loss means run
+// over the real chiplets only. Its selection-table rows, mesh scalars and
+// controller power are its own. dest_index[b] names the lane's destination
+// matrix (one per distinct trace and chiplet count; null: the trace's).
+struct Topo {
+  const int* n_chiplets;       // [B]
+  const float* src_hops;       // [B, G]
+  const float* gw_loss_db;     // [B, G]
+  const float* mesh_hops;      // [B]
+  const float* mesh_feed;      // [B]
+  const float* controller_mw;  // [B]
+  const int* dest_index;       // [B] or null
+};
+
+// What one lane reads of its topology: the real chiplet count and the mean
+// divisor, its table rows and scalars, and its destination matrix's index.
+// lane_topo<false> is the launch constants, so a design templated on kTopo
+// compiles its unpadded instantiations without the rows.
+struct LaneTopo {
+  int c;
+  float nreal;
+  const float* src_hops;
+  const float* gw_loss_db;
+  float mesh_hops, mesh_feed, controller_mw;
+  long dmat;
+};
+
+template <bool kTopo>
+__device__ __forceinline__ LaneTopo lane_topo(const Topo& tp, int b, long n,
+                                              int C, int G,
+                                              const float* src_hops,
+                                              const float* gw_loss_db,
+                                              const Consts& k) {
+  LaneTopo l;
+  if (kTopo) {
+    l.c = tp.n_chiplets[b];
+    l.nreal = fmaxf(static_cast<float>(l.c), 1.0f);
+    l.src_hops = tp.src_hops + static_cast<long>(b) * G;
+    l.gw_loss_db = tp.gw_loss_db + static_cast<long>(b) * G;
+    l.mesh_hops = tp.mesh_hops[b];
+    l.mesh_feed = tp.mesh_feed[b];
+    l.controller_mw = tp.controller_mw[b];
+  } else {
+    l.c = C;
+    l.nreal = static_cast<float>(C);
+    l.src_hops = src_hops;
+    l.gw_loss_db = gw_loss_db;
+    l.mesh_hops = k.mesh_hops;
+    l.mesh_feed = k.mesh_feed;
+    l.controller_mw = k.controller_mw;
+  }
+  l.dmat = kTopo && tp.dest_index != nullptr ? tp.dest_index[b] : n;
+  return l;
+}
+
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -477,7 +547,7 @@ constexpr int kMaxSplitChiplets = 16;
 // Each chiplet's controller is its own: g[c] moves on chiplet c's pressure
 // (its ext, or the larger of ext and recv[c] = sum_i ext[i] dest[i][c]) and
 // its own effective g. So one thread runs one (lane, chiplet) chain.
-template <int kC, bool kDest, bool kFaulted>
+template <int kC, bool kDest, bool kFaulted, bool kTopo>
 __global__ void __launch_bounds__(kSplitBlock)
 epoch_recurrence_kernel(const float* __restrict__ ext,       // [N, T, C]
                         const float* __restrict__ t_mask,    // [N, T]
@@ -489,7 +559,7 @@ epoch_recurrence_kernel(const float* __restrict__ ext,       // [N, T, C]
                         float* __restrict__ g_step,          // [B, T, C]
                         float* __restrict__ g_final,         // [B, C]
                         int B, int T, int C, int G, int fshared,
-                        float interval) {
+                        float interval, Topo tp) {
   const long item = static_cast<long>(blockIdx.x) * kSplitBlock + threadIdx.x;
   if (item >= static_cast<long>(B) * C) return;
   const int b = static_cast<int>(item / C);
@@ -498,12 +568,15 @@ epoch_recurrence_kernel(const float* __restrict__ ext,       // [N, T, C]
   const float lm = params[b * 5 + 0];
   const float maxg = params[b * 5 + 1];
   const float ming = params[b * 5 + 2];
+  // A padded chiplet (c >= cl) injects nothing; neither do padded sources.
+  const int cl = kTopo ? tp.n_chiplets[b] : C;
+  const long dm = kTopo && tp.dest_index != nullptr ? tp.dest_index[b] : n;
   // Destination column c: recv[c] sums ext[i] * dest[i][c] over sources i.
   constexpr int kRow = kDest ? kC : 1;
   float dcol[kRow];
 #pragma unroll
   for (int i = 0; i < kRow; ++i)
-    dcol[i] = kDest && i < C ? dest[(n * C + i) * C + c] : 0.0f;
+    dcol[i] = kDest && i < C ? dest[(dm * C + i) * C + c] : 0.0f;
   float g = g0[item];
 
   // Ring of trace rows: slot j holds interval t0 + j, reloaded with
@@ -517,7 +590,7 @@ epoch_recurrence_kernel(const float* __restrict__ ext,       // [N, T, C]
     tm_ring[j] = in_t ? __ldg(t_mask + nt) : 0.0f;
 #pragma unroll
     for (int i = 0; i < kRow; ++i)
-      e_ring[j][i] = in_t && (kDest ? i < C : true)
+      e_ring[j][i] = in_t && (kDest ? i < cl : (!kTopo || c < cl))
           ? __ldg(ext + nt * C + (kDest ? i : c)) : 0.0f;
   }
   for (int t0 = 0; t0 < T; t0 += kRecDepth) {
@@ -534,7 +607,7 @@ epoch_recurrence_kernel(const float* __restrict__ ext,       // [N, T, C]
       tm_ring[j] = in_t ? __ldg(t_mask + nn) : 0.0f;
 #pragma unroll
       for (int i = 0; i < kRow; ++i)
-        e_ring[j][i] = in_t && (kDest ? i < C : true)
+        e_ring[j][i] = in_t && (kDest ? i < cl : (!kTopo || c < cl))
             ? __ldg(ext + nn * C + (kDest ? i : c)) : 0.0f;
 
       float pressure = e[0];
@@ -587,7 +660,7 @@ __host__ inline size_t metrics_smem_bytes(int C, int G, int M, bool faulted) {
       * (kappa_table_len(C, G, M) + static_cast<size_t>(kSplitBlock) * per_item);
 }
 
-template <int kC, bool kDest, bool kFaulted, bool kController>
+template <int kC, bool kDest, bool kFaulted, bool kController, bool kTopo>
 __global__ void __launch_bounds__(kSplitBlock)
 epoch_metrics_kernel(const float* __restrict__ ext,       // [N, T, C]
                      const float* __restrict__ intra,     // [N, T, C]
@@ -609,7 +682,7 @@ epoch_metrics_kernel(const float* __restrict__ ext,       // [N, T, C]
                      float* __restrict__ gw_load_out,     // [B, T, C]
                      float* __restrict__ g_final,         // [B, C]
                      int B, int T, int C, int G, int M, int fshared,
-                     Consts k) {
+                     Consts k, Topo tp) {
   constexpr int kCols = kFaulted ? 7 : 6;
   extern __shared__ float smem[];
   const int n_kappa = kappa_table_len(C, G, M);
@@ -634,11 +707,13 @@ epoch_metrics_kernel(const float* __restrict__ ext,       // [N, T, C]
     const long n = lane_trace[b];
     const long nt = n * T + t;
     const long ft = fshared ? t : nt;   // fault-frame row
+    const LaneTopo lt =
+        lane_topo<kTopo>(tp, b, n, C, G, src_hops, gw_loss_db, k);
+    if (kTopo) k.controller_mw = lt.controller_mw;  // the lane's own
     const float bsat = params[b * 5 + 3];
     const float lam = params[b * 5 + 4];
     const float inv_bsat = 1.0f / bsat;
     const float s_eff = fmaxf(k.packet_bits / (lam * k.ser_k), k.flits);
-    const float cf = static_cast<float>(C);
     const float mf = static_cast<float>(M);
     const float gf = static_cast<float>(G);
     const float tm = t_mask[nt];
@@ -671,8 +746,9 @@ epoch_metrics_kernel(const float* __restrict__ ext,       // [N, T, C]
       e[q] = ge[q] = gwl[q] = src[q] = 0.0f;
       if (q >= C) continue;
       const long ntc = nt * C + q;
-      e[q] = ext[ntc];
-      const float in = intra[ntc];
+      const bool real = q < lt.c;
+      e[q] = real ? ext[ntc] : 0.0f;
+      const float in = real ? intra[ntc] : 0.0f;
       if (kFaulted) {
         float usable = 0.0f;
         int lit = 0;
@@ -693,26 +769,28 @@ epoch_metrics_kernel(const float* __restrict__ ext,       // [N, T, C]
       }
       gwl[q] = e[q] / fmaxf(ge[q], 1.0f);
       const int lev = min(static_cast<int>(fmaxf(ge[q], 1.0f)), G) - 1;
-      src[q] = src_hops[lev];
-      p_src += src[q];
-      p_db += gw_loss_db[lev];
+      src[q] = lt.src_hops[lev];
+      if (real) {
+        p_src += src[q];
+        p_db += lt.gw_loss_db[lev];
+      }
       p_ext += e[q];
       p_int += in;
       // intra-mesh latency (noc.NocModel.mesh_latency), weighted by load
-      const float link = in * k.flits / k.mesh_feed;
-      const float intra_lat = k.mesh_hops * k.rpc + k.flits
+      const float link = in * k.flits / lt.mesh_feed;
+      const float intra_lat = lt.mesh_hops * k.rpc + k.flits
           + md1(clampf(link, 0.0f, 1.0f), k.flits, inv_bsat, k);
       p_intra_w += intra_lat * in;
     }
-    const float mean_src = p_src / cf;
-    float access_db = p_db / cf;
+    const float mean_src = p_src / lt.nreal;
+    float access_db = p_db / lt.nreal;
     if (kFaulted) access_db = access_db + drift[ft];
 
     // --- inter-chiplet latency --------------------------------------------
     float inter_w = 0.0f;
     bool any_sat = false;
     if (kDest) {
-      const float* d = dest + n * C * C;
+      const float* d = dest + lt.dmat * C * C;
       float leg[kC];
 #pragma unroll
       for (int j = 0; j < kC; ++j) {
@@ -859,7 +937,7 @@ epoch_metrics_kernel(const float* __restrict__ ext,       // [N, T, C]
   }
 }
 
-template <int kC, bool kDest, bool kFaulted, bool kController>
+template <int kC, bool kDest, bool kFaulted, bool kController, bool kTopo>
 cudaError_t launch_split(const float* ext, const float* intra,
                          const float* mem, const float* t_mask,
                          const float* drift, const int* lane_trace,
@@ -869,20 +947,21 @@ cudaError_t launch_split(const float* ext, const float* intra,
                          const float* stuck_on, float* g_step, float* scal,
                          float* g_eff, float* g_des, float* gw_load,
                          float* g_final, int B, int T, int C, int G, int M,
-                         int fshared, const Consts& k, cudaStream_t stream) {
+                         int fshared, const Consts& k, const Topo& tp,
+                         cudaStream_t stream) {
   if (kController) {
     const long chains = static_cast<long>(B) * C;
-    epoch_recurrence_kernel<kC, kDest, kFaulted>
+    epoch_recurrence_kernel<kC, kDest, kFaulted, kTopo>
         <<<static_cast<unsigned>((chains + kSplitBlock - 1) / kSplitBlock),
            kSplitBlock, 0, stream>>>(
             ext, t_mask, lane_trace, params, g0, dest, gw_ok, g_step,
-            g_final, B, T, C, G, fshared, k.interval);
+            g_final, B, T, C, G, fshared, k.interval, tp);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   const long items = static_cast<long>(B) * T;
   const size_t shmem = metrics_smem_bytes(C, G, M, kFaulted);
-  auto kernel = epoch_metrics_kernel<kC, kDest, kFaulted, kController>;
+  auto kernel = epoch_metrics_kernel<kC, kDest, kFaulted, kController, kTopo>;
   if (shmem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -893,7 +972,7 @@ cudaError_t launch_split(const float* ext, const float* intra,
            kSplitBlock, shmem, stream>>>(
       ext, intra, mem, t_mask, drift, lane_trace, params, g0, src_hops,
       gw_loss_db, dest, gw_ok, stuck_on, g_step, scal, g_eff, g_des,
-      gw_load, g_final, B, T, C, G, M, fshared, k);
+      gw_load, g_final, B, T, C, G, M, fshared, k, tp);
   return cudaGetLastError();
 }
 
@@ -930,18 +1009,31 @@ constexpr int kMaxWideChiplets = 1024;           // MAX_CHIPLETS in ops.py
 // recv[n][t][c] = sum_i ext[n][t][i] dest[n][i][c], summed in index order
 // (the plain version's order), one thread per (trace, interval, chiplet):
 // the ext row is a broadcast load, the dest column coalesced across c.
+// With per-lane matrices (a padded call, kPairs) the items run over the P
+// matrices instead, matrix p reading trace pair_trace[p]'s ext: the
+// padded sources' rows of a matrix are 0, so they add exactly 0. The
+// unpadded instantiation indexes the trace's own row directly (ext + pt *
+// C), without the per-matrix trace index.
+template <bool kPairs>
 __global__ void __launch_bounds__(kSplitBlock)
 epoch_recv_kernel(const float* __restrict__ ext,    // [N, T, C]
-                  const float* __restrict__ dest,   // [N, C, C]
-                  float* __restrict__ recv,         // [N, T, C]
-                  int N, int T, int C) {
+                  const float* __restrict__ dest,   // [P, C, C]
+                  const int* __restrict__ pair_trace,  // [P] or null
+                  float* __restrict__ recv,         // [P, T, C]
+                  int P, int T, int C) {
   const long item = static_cast<long>(blockIdx.x) * kSplitBlock + threadIdx.x;
-  if (item >= static_cast<long>(N) * T * C) return;
-  const long nt = item / C;
-  const int c = static_cast<int>(item - nt * C);
-  const long n = nt / T;
-  const float* e_row = ext + nt * C;
-  const float* dcol = dest + n * C * C + c;
+  if (item >= static_cast<long>(P) * T * C) return;
+  const long pt = item / C;
+  const int c = static_cast<int>(item - pt * C);
+  const long p = pt / T;
+  const float* e_row;
+  if (kPairs) {
+    const long n = pair_trace != nullptr ? pair_trace[p] : p;
+    e_row = ext + (n * T + (pt - p * T)) * C;
+  } else {
+    e_row = ext + pt * C;
+  }
+  const float* dcol = dest + p * C * C + c;
   float r = 0.0f;
 #pragma unroll 8
   for (int i = 0; i < C; ++i) {
@@ -951,19 +1043,19 @@ epoch_recv_kernel(const float* __restrict__ ext,    // [N, T, C]
   recv[item] = r;
 }
 
-template <bool kDest, bool kFaulted>
+template <bool kDest, bool kFaulted, bool kTopo>
 __global__ void __launch_bounds__(kSplitBlock)
 epoch_wide_recurrence_kernel(const float* __restrict__ ext,       // [N, T, C]
                              const float* __restrict__ t_mask,    // [N, T]
                              const int* __restrict__ lane_trace,  // [B]
                              const float* __restrict__ params,    // [B, 5]
                              const float* __restrict__ g0,        // [B, C]
-                             const float* __restrict__ recv,      // [N, T, C]
+                             const float* __restrict__ recv,      // [P, T, C]
                              const float* __restrict__ gw_ok,     // [N, T, C, G]
                              float* __restrict__ g_step,          // [B, T, C]
                              float* __restrict__ g_final,         // [B, C]
                              int B, int T, int C, int G, int fshared,
-                             float interval) {
+                             float interval, Topo tp) {
   const long item = static_cast<long>(blockIdx.x) * kSplitBlock + threadIdx.x;
   if (item >= static_cast<long>(B) * C) return;
   const int b = static_cast<int>(item / C);
@@ -972,12 +1064,16 @@ epoch_wide_recurrence_kernel(const float* __restrict__ ext,       // [N, T, C]
   const float lm = params[b * 5 + 0];
   const float maxg = params[b * 5 + 1];
   const float ming = params[b * 5 + 2];
+  // A padded chiplet (c >= the lane's count) injects nothing.
+  const bool real = !kTopo || c < tp.n_chiplets[b];
+  const long dm = kTopo && tp.dest_index != nullptr ? tp.dest_index[b] : n;
   float g = g0[item];
   for (int t = 0; t < T; ++t) {
     const long nt = n * T + t;
     const float tm = __ldg(t_mask + nt);
-    const float own = __ldg(ext + nt * C + c);
-    const float pressure = kDest ? fmaxf(own, __ldg(recv + nt * C + c)) : own;
+    const float own = real ? __ldg(ext + nt * C + c) : 0.0f;
+    const float pressure = kDest
+        ? fmaxf(own, __ldg(recv + (dm * T + t) * C + c)) : own;
     float packets = pressure * interval;
     if (kFaulted) {
       const float* ok = gw_ok + ((fshared ? t : nt) * C + c) * G;
@@ -1050,7 +1146,7 @@ __host__ __device__ constexpr size_t wide_smem_bytes(int C) {
 static_assert(wide_smem_bytes(kMaxWideChiplets) <= 48 * 1024,
               "wide metrics block exceeds 48 KB of shared memory");
 
-template <bool kDest, bool kFaulted, bool kController>
+template <bool kDest, bool kFaulted, bool kController, bool kTopo>
 __global__ void __launch_bounds__(kWideBlock)
 epoch_wide_metrics_kernel(const float* __restrict__ ext,       // [N, T, C]
                           const float* __restrict__ intra,     // [N, T, C]
@@ -1072,7 +1168,7 @@ epoch_wide_metrics_kernel(const float* __restrict__ ext,       // [N, T, C]
                           float* __restrict__ gw_load_out,     // [B, T, C]
                           float* __restrict__ g_final,         // [B, C]
                           int B, int T, int C, int G, int M, int fshared,
-                          Consts k) {
+                          Consts k, Topo tp) {
   constexpr int kCols = kFaulted ? 7 : 6;
   extern __shared__ float smem[];
   float* s_e = smem;                 // [C] ext
@@ -1094,11 +1190,13 @@ epoch_wide_metrics_kernel(const float* __restrict__ ext,       // [N, T, C]
   const long n = lane_trace[b];
   const long nt = n * T + t;
   const long ft = fshared ? t : nt;  // fault-frame row
+  const LaneTopo lt =
+      lane_topo<kTopo>(tp, b, n, C, G, src_hops, gw_loss_db, k);
+  if (kTopo) k.controller_mw = lt.controller_mw;  // the lane's own
   const float bsat = params[b * 5 + 3];
   const float lam = params[b * 5 + 4];
   const float inv_bsat = 1.0f / bsat;
   const float s_eff = fmaxf(k.packet_bits / (lam * k.ser_k), k.flits);
-  const float cf = static_cast<float>(C);
   const float mf = static_cast<float>(M);
   const float gf = static_cast<float>(G);
   const float tm = t_mask[nt];
@@ -1123,8 +1221,9 @@ epoch_wide_metrics_kernel(const float* __restrict__ ext,       // [N, T, C]
     }
     const long ntc = nt * C + c;
     const long ftc = ft * C + c;
-    const float e = ext[ntc];
-    const float in = intra[ntc];
+    const bool real = c < lt.c;
+    const float e = real ? ext[ntc] : 0.0f;
+    const float in = real ? intra[ntc] : 0.0f;
     float ge;
     int lit_old;
     if (kFaulted) {
@@ -1147,14 +1246,16 @@ epoch_wide_metrics_kernel(const float* __restrict__ ext,       // [N, T, C]
     }
     const float gwl = e / fmaxf(ge, 1.0f);
     const int lev = min(static_cast<int>(fmaxf(ge, 1.0f)), G) - 1;
-    const float src = src_hops[lev];
-    p_src += src;
-    p_db += gw_loss_db[lev];
+    const float src = lt.src_hops[lev];
+    if (real) {
+      p_src += src;
+      p_db += lt.gw_loss_db[lev];
+    }
     p_ext += e;
     p_int += in;
     // intra-mesh latency (noc.NocModel.mesh_latency), weighted by load
-    const float link = in * k.flits / k.mesh_feed;
-    const float intra_lat = k.mesh_hops * k.rpc + k.flits
+    const float link = in * k.flits / lt.mesh_feed;
+    const float intra_lat = lt.mesh_hops * k.rpc + k.flits
         + md1(clampf(link, 0.0f, 1.0f), k.flits, inv_bsat, k);
     p_intra_w += intra_lat * in;
     p_sat = p_sat || (gwl * s_eff > bsat);
@@ -1187,8 +1288,8 @@ epoch_wide_metrics_kernel(const float* __restrict__ ext,       // [N, T, C]
     gw_load_out[btc] = gwl * tm;
     if (kFaulted) g_des_out[btc] = g * tm;
   }
-  const float mean_src = block_sum(p_src, s_red) / cf;
-  float access_db = block_sum(p_db, s_red) / cf;
+  const float mean_src = block_sum(p_src, s_red) / lt.nreal;
+  float access_db = block_sum(p_db, s_red) / lt.nreal;
   if (kFaulted) access_db = access_db + drift[ft];
   const float tot_ext = block_sum(p_ext, s_red) + 1e-9f;
   const float tot_int = block_sum(p_int, s_red) + 1e-9f;
@@ -1198,7 +1299,7 @@ epoch_wide_metrics_kernel(const float* __restrict__ ext,       // [N, T, C]
   // --- inter-chiplet latency ------------------------------------------------
   float p_inter_w = 0.0f;
   if (kDest) {
-    const float* d = dest + n * C * C;
+    const float* d = dest + lt.dmat * C * C;
     for (int j = tid; j < C; j += kWideBlock) {
       float r = 0.0f, sq = 0.0f;
 #pragma unroll 8
@@ -1316,7 +1417,7 @@ epoch_wide_metrics_kernel(const float* __restrict__ ext,       // [N, T, C]
   }
 }
 
-template <bool kDest, bool kFaulted, bool kController>
+template <bool kDest, bool kFaulted, bool kController, bool kTopo>
 cudaError_t launch_wide(const float* ext, const float* intra,
                         const float* mem, const float* t_mask,
                         const float* drift, const int* lane_trace,
@@ -1325,33 +1426,35 @@ cudaError_t launch_wide(const float* ext, const float* intra,
                         const float* dest, const float* gw_ok,
                         const float* stuck_on, float* g_step, float* scal,
                         float* g_eff, float* g_des, float* gw_load,
-                        float* g_final, float* recv, int N, int B, int T,
-                        int C, int G, int M, int fshared, const Consts& k,
+                        float* g_final, float* recv, const int* pair_trace,
+                        int P, int B, int T, int C, int G, int M,
+                        int fshared, const Consts& k, const Topo& tp,
                         cudaStream_t stream) {
   if (kController) {
     if (kDest) {
-      const long items = static_cast<long>(N) * T * C;
-      epoch_recv_kernel<<<static_cast<unsigned>(
+      const long items = static_cast<long>(P) * T * C;
+      epoch_recv_kernel<kTopo><<<static_cast<unsigned>(
                               (items + kSplitBlock - 1) / kSplitBlock),
-                          kSplitBlock, 0, stream>>>(ext, dest, recv, N, T, C);
+                          kSplitBlock, 0, stream>>>(ext, dest, pair_trace,
+                                                    recv, P, T, C);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return err;
     }
     const long chains = static_cast<long>(B) * C;
-    epoch_wide_recurrence_kernel<kDest, kFaulted>
+    epoch_wide_recurrence_kernel<kDest, kFaulted, kTopo>
         <<<static_cast<unsigned>((chains + kSplitBlock - 1) / kSplitBlock),
            kSplitBlock, 0, stream>>>(
             ext, t_mask, lane_trace, params, g0, recv, gw_ok, g_step,
-            g_final, B, T, C, G, fshared, k.interval);
+            g_final, B, T, C, G, fshared, k.interval, tp);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  epoch_wide_metrics_kernel<kDest, kFaulted, kController>
+  epoch_wide_metrics_kernel<kDest, kFaulted, kController, kTopo>
       <<<static_cast<unsigned>(static_cast<long>(B) * T), kWideBlock,
          wide_smem_bytes(C), stream>>>(
       ext, intra, mem, t_mask, drift, lane_trace, params, g0, src_hops,
       gw_loss_db, dest, gw_ok, stuck_on, g_step, scal, g_eff, g_des,
-      gw_load, g_final, B, T, C, G, M, fshared, k);
+      gw_load, g_final, B, T, C, G, M, fshared, k, tp);
   return cudaGetLastError();
 }
 
@@ -1359,18 +1462,28 @@ cudaError_t launch_wide(const float* ext, const float* intra,
 
 // kernel: 0 = "split" (C <= 16; g_step is the [B, T, C] float scratch,
 // used only when use_controller), 1 = "warp" (C <= 128; g_step unused),
-// 2 = "wide" (C <= 1024; g_step as for split, and recv the [N, T, C]
+// 2 = "wide" (C <= 1024; g_step as for split, and recv the [P, T, C]
 // float scratch of received loads, used only with destination matrices and
 // the controller). fault_shared: the fault
 // frame is one [T, C, G] / [T] frame that every trace shares (a session
 // tick's hardware frame), not [N, T, C, G] / [N, T].
+// Topology rows (a padded call, "split" and "wide" only): lane_chiplets
+// [B] int, lane_src_hops / lane_gw_loss_db [B, G], lane_mesh_hops /
+// lane_mesh_feed / lane_controller_mw [B]; then src_hops, gw_loss_db and
+// the mesh and controller constants go unread. dest_index [B] names each
+// lane's matrix among the P of `dest` (P = N and the trace's own when
+// null), pair_trace [P] each matrix's trace (the recv scratch's rows).
 extern "C" int epoch_step_launch(
     const float* ext, const float* intra, const float* mem,
     const float* t_mask, const float* drift, const int* lane_trace,
     const float* params, const float* g0, const float* src_hops,
     const float* gw_loss_db, const float* dest, const float* gw_ok,
     const float* stuck_on, float* scal, float* g_eff, float* g_des,
-    float* gw_load, float* g_final, float* g_step, float* recv, int N, int B,
+    float* gw_load, float* g_final, float* g_step, float* recv,
+    const int* lane_chiplets, const float* lane_src_hops,
+    const float* lane_gw_loss_db, const float* lane_mesh_hops,
+    const float* lane_mesh_feed, const float* lane_controller_mw,
+    const int* dest_index, const int* pair_trace, int N, int P, int B,
     int T, int C, int G, int M, int use_dest, int faulted,
     int use_controller, int kernel,
     int fault_shared, float interval, float burstiness, float rpc,
@@ -1380,14 +1493,24 @@ extern "C" int epoch_step_launch(
     float reconfig_nj, void* stream) {
   const int max_c = kernel == 0 ? kMaxSplitChiplets
       : kernel == 1 ? 32 * kMaxChipletsPerThread : kMaxWideChiplets;
+  const bool padded = lane_chiplets != nullptr;
   if (B < 1 || T < 1 || C < 1 || G < 1 || M < 1 || kernel < 0 || kernel > 2
-      || C > max_c || N < 1
+      || C > max_c || N < 1 || P < 1
       || (kernel != 1 && use_controller && g_step == nullptr)
-      || (kernel == 2 && use_controller && use_dest && recv == nullptr))
+      || (kernel == 2 && use_controller && use_dest && recv == nullptr)
+      || (padded && (kernel == 1 || faulted || lane_src_hops == nullptr
+                     || lane_gw_loss_db == nullptr
+                     || lane_mesh_hops == nullptr
+                     || lane_mesh_feed == nullptr
+                     || lane_controller_mw == nullptr))
+      || ((dest_index != nullptr || pair_trace != nullptr) && kernel == 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const Consts k{interval, burstiness, rpc, flight, feed_links, flits,
                  packet_bits, ser_k, mesh_hops, mesh_feed, laser_mw, tia_mw,
                  tuning_mw, driver_mw, controller_mw, reconfig_nj};
+  const Topo tp{lane_chiplets, lane_src_hops, lane_gw_loss_db,
+                lane_mesh_hops, lane_mesh_feed, lane_controller_mw,
+                dest_index};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int fs = fault_shared ? 1 : 0;
   const int variant = (use_dest ? 4 : 0) | (faulted ? 2 : 0)
@@ -1409,7 +1532,7 @@ extern "C" int epoch_step_launch(
 #define EPOCH_SPLIT_ARGS                                                    \
   ext, intra, mem, t_mask, drift, lane_trace, params, g0, src_hops,         \
       gw_loss_db, dest, gw_ok, stuck_on, g_step, scal, g_eff, g_des,        \
-      gw_load, g_final, B, T, C, G, M, fs, k, s
+      gw_load, g_final, B, T, C, G, M, fs, k, tp, s
 #define EPOCH_STEP_ARGS                                                     \
   ext, intra, mem, t_mask, drift, lane_trace, params, g0, src_hops,         \
       gw_loss_db, dest, gw_ok, stuck_on, scal, g_eff, g_des, gw_load,       \
@@ -1417,27 +1540,50 @@ extern "C" int epoch_step_launch(
 #define EPOCH_WIDE_ARGS                                                     \
   ext, intra, mem, t_mask, drift, lane_trace, params, g0, src_hops,         \
       gw_loss_db, dest, gw_ok, stuck_on, g_step, scal, g_eff, g_des,        \
-      gw_load, g_final, recv, N, B, T, C, G, M, fs, k, s
-#define SPLIT4(D, F, K) launch_split<4, D, F, K>(EPOCH_SPLIT_ARGS)
-#define SPLIT16(D, F, K) launch_split<16, D, F, K>(EPOCH_SPLIT_ARGS)
-#define WIDE(D, F, K) launch_wide<D, F, K>(EPOCH_WIDE_ARGS)
+      gw_load, g_final, recv, pair_trace, P, B, T, C, G, M, fs, k, tp, s
+  // Padded calls take no fault frames: "split" and "wide" instantiate their
+  // topology rows for the four fault-free combinations only.
+#define EPOCH_TOPO_CASES(CALL)                                              \
+  switch (variant) {                                                        \
+    case 0: err = CALL(false, false, false); break;                         \
+    case 1: err = CALL(false, false, true); break;                          \
+    case 4: err = CALL(true, false, false); break;                          \
+    case 5: err = CALL(true, false, true); break;                           \
+    default: err = cudaErrorInvalidValue; break;                            \
+  }
+#define SPLIT4(D, F, K) launch_split<4, D, F, K, false>(EPOCH_SPLIT_ARGS)
+#define SPLIT16(D, F, K) launch_split<16, D, F, K, false>(EPOCH_SPLIT_ARGS)
+#define SPLIT4T(D, F, K) launch_split<4, D, F, K, true>(EPOCH_SPLIT_ARGS)
+#define SPLIT16T(D, F, K) launch_split<16, D, F, K, true>(EPOCH_SPLIT_ARGS)
+#define WIDE(D, F, K) launch_wide<D, F, K, false>(EPOCH_WIDE_ARGS)
+#define WIDET(D, F, K) launch_wide<D, F, K, true>(EPOCH_WIDE_ARGS)
 #define WARP(D, F, K) launch<D, F, K>(EPOCH_STEP_ARGS)
-  if (kernel == 0 && C <= 4) {
+  if (kernel == 0 && C <= 4 && padded) {
+    EPOCH_TOPO_CASES(SPLIT4T)
+  } else if (kernel == 0 && padded) {
+    EPOCH_TOPO_CASES(SPLIT16T)
+  } else if (kernel == 0 && C <= 4) {
     EPOCH_CASES(SPLIT4)
   } else if (kernel == 0) {
     EPOCH_CASES(SPLIT16)
+  } else if (kernel == 2 && padded) {
+    EPOCH_TOPO_CASES(WIDET)
   } else if (kernel == 2) {
     EPOCH_CASES(WIDE)
   } else {
     EPOCH_CASES(WARP)
   }
 #undef WARP
+#undef WIDET
 #undef WIDE
+#undef SPLIT16T
+#undef SPLIT4T
 #undef SPLIT16
 #undef SPLIT4
 #undef EPOCH_STEP_ARGS
 #undef EPOCH_WIDE_ARGS
 #undef EPOCH_SPLIT_ARGS
+#undef EPOCH_TOPO_CASES
 #undef EPOCH_CASES
   return static_cast<int>(err);
 }

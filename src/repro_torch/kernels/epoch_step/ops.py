@@ -3,9 +3,10 @@ and out.
 
 `epoch_run(state, xs, sim, tables, ...)` stands in for the plain interval
 loop (`ref.epoch_run_reference`, i.e. `simulator._loop`) on the
-configurations the kernel supports — RESIPI / RESIPI_ALL, unpadded
-topology, at least one memory gateway, optional destination matrices and
-fault frames. Given CUDA tensors it runs `csrc/epoch_step.cu` once for all
+configurations the kernel supports — RESIPI / RESIPI_ALL, at least one
+memory gateway, optional destination matrices and fault frames, and
+padded lanes with one topology each (`topo`, the topology sweeps). Given
+CUDA tensors it runs `csrc/epoch_step.cu` once for all
 B lanes and T intervals and rebuilds the exact record dict and final
 `SimState` the loop produces; given CPU tensors it runs the plain version.
 There is no fallback: an unsupported configuration on CUDA tensors raises.
@@ -21,6 +22,14 @@ the metrics one block per lane and interval; every C up to MAX_CHIPLETS =
 1024). Each call counts one `epoch_step` launch, and one under
 `epoch_step:<variant>` (`backend.COUNTERS["variants"]`), whether the
 variant takes one kernel launch or two.
+
+Padded calls (`topo`: each lane's real chiplet count, selection-table rows,
+mesh scalars and controller power; `dest_index`: each lane's
+destination matrix among one per distinct trace and chiplet count, and
+`pair_trace`: each matrix's trace) run
+"split" or "wide" only: where `variant` would pick "warp" (17-128
+chiplets) they run "wide". They count under `epoch_step:<variant>+topo`.
+Fault frames never ride a padded call.
 
 A fault frame shared by every trace (one [T, C, G] frame expanded over the
 trace axis, as a session tick's hardware frame is) reaches the kernel once,
@@ -89,16 +98,18 @@ def build() -> ctypes.CDLL:
     lib = backend.build_library(NAME, SOURCE)
     fn = lib.epoch_step_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 20 + [_I] * 11 + [_F] * 16 + [_P]
+        fn.argtypes = [_P] * 28 + [_I] * 12 + [_F] * 16 + [_P]
         fn.restype = _I
     return lib
 
 
-def variant(c: int, faulted: bool, dest: bool, lanes: int) -> str:
+def variant(c: int, faulted: bool, dest: bool, lanes: int,
+            padded: bool = False) -> str:
     """The kernel that runs `lanes` lanes of C chiplets (with or without
     fault frames, which every variant takes): "split" (C <= 16) or "warp"
     (17-128) from `MIN_LANES` lanes on, "wide" otherwise, up to
-    MAX_CHIPLETS. Raises beyond."""
+    MAX_CHIPLETS. Raises beyond. A padded call (topology rows) never runs
+    "warp", which takes no rows: "wide" runs instead."""
     del faulted                        # every variant takes fault frames
     if not 1 <= c <= MAX_CHIPLETS:
         raise ValueError(f"epoch_step kernel supports 1 to {MAX_CHIPLETS} "
@@ -107,7 +118,9 @@ def variant(c: int, faulted: bool, dest: bool, lanes: int) -> str:
         if c <= top:
             if lanes < least:
                 return "wide"
-            return "split" if c <= SPLIT_MAX_CHIPLETS else "warp"
+            if c <= SPLIT_MAX_CHIPLETS:
+                return "split"
+            return "wide" if padded else "warp"
     return "wide"
 
 
@@ -142,7 +155,10 @@ def _ptr(x: Optional[torch.Tensor]):
 def epoch_run(state, xs: tuple, sim, tables: dict, *,
               dest: Optional[torch.Tensor] = None, faulted: bool = False,
               lane_trace: Optional[torch.Tensor] = None,
-              knobs: Optional[Dict[str, torch.Tensor]] = None
+              knobs: Optional[Dict[str, torch.Tensor]] = None,
+              topo: Optional[dict] = None,
+              dest_index: Optional[torch.Tensor] = None,
+              pair_trace: Optional[torch.Tensor] = None
               ) -> Tuple[object, dict]:
     """Run T intervals of B lanes fused; returns (final SimState, records).
 
@@ -153,24 +169,36 @@ def epoch_run(state, xs: tuple, sim, tables: dict, *,
         drift_db [N, T]) when `faulted`, loads already t_mask-multiplied.
       sim: SimConfig (static fields; the runtime knobs come from `knobs`).
       tables: selection tables (src_hops / gw_loss_db per level).
-      dest: optional [N, C, C] destination matrices.
+      dest: optional [N, C, C] destination matrices ([P, C, C] with
+        `dest_index`).
       lane_trace: [B] trace index per lane (default: lane n reads trace n).
       knobs: per-lane [B] knob tensors (default: the config's values).
+      topo: the padded path's per-lane topology
+        (`simulator.lane_topology`); `sim.cfg` is then the padded shape.
+      dest_index: [B] each lane's matrix among `dest`'s P.
+      pair_trace: [P] each matrix's trace, given with `dest_index`: every
+        lane of matrix p must read trace pair_trace[p] ("wide" computes
+        each matrix's received loads once, from that trace).
     """
     if xs[0].device.type == "cpu":
         return epoch_run_reference(state, xs, sim, tables, dest=dest,
                                    faulted=faulted, lane_trace=lane_trace,
-                                   knobs=knobs)
+                                   knobs=knobs, topo=topo,
+                                   dest_index=dest_index,
+                                   pair_trace=pair_trace)
     out = launch(state.ctl.g, xs, sim, tables, dest=dest, faulted=faulted,
-                 lane_trace=lane_trace, knobs=knobs)
-    return _reassemble(state, out, xs, sim, faulted)
+                 lane_trace=lane_trace, knobs=knobs, topo=topo,
+                 dest_index=dest_index, pair_trace=pair_trace)
+    return _reassemble(state, out, xs, sim, faulted, topo)
 
 
 def launch(g0: torch.Tensor, xs: tuple, sim, tables: dict, *,
            dest: Optional[torch.Tensor] = None, faulted: bool = False,
            lane_trace: Optional[torch.Tensor] = None,
            knobs: Optional[Dict[str, torch.Tensor]] = None,
-           kernel: Optional[str] = None) -> dict:
+           kernel: Optional[str] = None, topo: Optional[dict] = None,
+           dest_index: Optional[torch.Tensor] = None,
+           pair_trace: Optional[torch.Tensor] = None) -> dict:
     """Run the kernel once on CUDA tensors (arguments as `epoch_run`,
     `g0` [B, C] the initial gateway counts) and return its raw outputs:
     scal [B, T, n_cols(faulted)], g_eff / g_des / gw_load [B, T, C] (g_des
@@ -178,6 +206,7 @@ def launch(g0: torch.Tensor, xs: tuple, sim, tables: dict, *,
     knobs used. `kernel` names the variant (default `variant(...)`; tests
     and timing force the other on the same inputs). Runs on the current
     stream; never synchronizes."""
+    from repro_torch.core.photonics import controller_mw
     from repro_torch.core.simulator import Arch, default_knobs
 
     dev = xs[0].device
@@ -190,11 +219,18 @@ def launch(g0: torch.Tensor, xs: tuple, sim, tables: dict, *,
         lane_trace = torch.arange(n, device=dev)
     lane_trace = lane_trace.to(device=dev, dtype=torch.int32).contiguous()
     b = int(lane_trace.shape[0])
+    padded = topo is not None
+    if padded and faulted:
+        raise ValueError("epoch_step: fault frames are not supported on "
+                         "padded (topology-row) calls")
     if kernel is None:
-        kernel = variant(c, faulted, dest is not None, b)
+        kernel = variant(c, faulted, dest is not None, b, padded)
     elif kernel not in KERNELS or c > KERNEL_MAX_CHIPLETS[kernel]:
         raise ValueError(f"epoch_step: the {kernel} kernel does not take "
                          f"{c} chiplets")
+    elif padded and kernel == "warp":
+        raise ValueError("epoch_step: the warp kernel takes no topology "
+                         "rows; padded calls run split or wide")
     lib = build()
 
     ext, mem, intra, _ext_frac, t_mask = (_f32(a) for a in xs[:5])
@@ -205,9 +241,29 @@ def launch(g0: torch.Tensor, xs: tuple, sim, tables: dict, *,
     g0 = _f32(g0)
     cfg = sim.cfg
     g_slots = cfg.max_gateways_per_chiplet
-    srch = _f32(tables["src_hops"])
-    gwdb = _f32(tables["gw_loss_db"])
+    rows = (None,) * 6
+    srch = gwdb = None
+    if padded:
+        # One topology per lane: its real chiplet count, table rows, mesh
+        # scalars and controller power (the plain version's own floats).
+        rows = (topo["n_chiplets"].to(torch.int32).contiguous(),
+                _f32(topo["src_hops"]), _f32(topo["gw_loss_db"]),
+                _f32(topo["mesh_hops"]), _f32(2.0 * topo["mesh_x"]),
+                _f32(controller_mw(topo["n_chiplets"])))
+    else:
+        srch = _f32(tables["src_hops"])
+        gwdb = _f32(tables["gw_loss_db"])
     dmat = None if dest is None else _f32(dest)
+    n_mats = n if dmat is None else int(dmat.shape[0])
+    if (dest_index is None) != (pair_trace is None):
+        raise ValueError("epoch_step: dest_index and pair_trace go together")
+    if dest_index is not None:
+        if dmat is None:
+            raise ValueError("epoch_step: dest_index without dest")
+        dest_index = dest_index.to(device=dev, dtype=torch.int32) \
+            .contiguous()
+        pair_trace = pair_trace.to(device=dev, dtype=torch.int32) \
+            .contiguous()
     # One frame expanded over the trace axis (stride 0) goes in once.
     shared = faulted and all(a.stride(0) == 0 for a in xs[5:8])
     if faulted:
@@ -221,7 +277,14 @@ def launch(g0: torch.Tensor, xs: tuple, sim, tables: dict, *,
                            ("mem", mem, (n, t)), ("t_mask", t_mask, (n, t)),
                            ("intra", intra, (n, t, c)),
                            ("params", params, (b, len(PARAM_KNOBS))),
-                           ("dest", dmat, (n, c, c)),
+                           ("dest", dmat, (n_mats, c, c)),
+                           ("dest_index", dest_index, (b,)),
+                           ("pair_trace", pair_trace, (n_mats,)),
+                           ("topo n_chiplets", rows[0], (b,)),
+                           ("topo src_hops", rows[1], (b, g_slots)),
+                           ("topo gw_loss_db", rows[2], (b, g_slots)),
+                           ("topo mesh_hops", rows[3], (b,)),
+                           ("topo mesh_x", rows[4], (b,)),
                            ("gw_ok", gw_ok, fn + (t, c, g_slots)),
                            ("stuck_on", stuck_on, fn + (t, c, g_slots)),
                            ("drift_db", drift, fn + (t,))):
@@ -242,7 +305,7 @@ def launch(g0: torch.Tensor, xs: tuple, sim, tables: dict, *,
     # recurrence reads the received loads from a launch before it.
     g_step = torch.empty((b, t, c), **f32) \
         if kernel != "warp" and use_controller else None
-    recv = torch.empty((n, t, c), **f32) \
+    recv = torch.empty((n_mats, t, c), **f32) \
         if kernel == "wide" and use_controller and dmat is not None else None
     noc = sim.noc
     pwr = PHOTONIC_POWER
@@ -264,22 +327,25 @@ def launch(g0: torch.Tensor, xs: tuple, sim, tables: dict, *,
         _ptr(lane_trace), _ptr(params), _ptr(g0), _ptr(srch), _ptr(gwdb),
         _ptr(dmat), _ptr(gw_ok), _ptr(stuck_on), _ptr(out["scal"]),
         _ptr(out["g_eff"]), _ptr(out["g_des"]), _ptr(out["gw_load"]),
-        _ptr(out["g_final"]), _ptr(g_step), _ptr(recv), n, b, t, c, g_slots,
+        _ptr(out["g_final"]), _ptr(g_step), _ptr(recv), *map(_ptr, rows),
+        _ptr(dest_index), _ptr(pair_trace), n, n_mats, b, t, c, g_slots,
         cfg.memory_gateways, int(dmat is not None), int(faulted),
         int(use_controller), KERNELS[kernel], int(shared), *consts,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"epoch_step {kernel} kernel launch failed: CUDA "
                            f"error {err}")
-    backend.count_launch(NAME, kernel)
+    backend.count_launch(NAME, kernel + ("+topo" if padded else ""))
     return out
 
 
-def _reassemble(state, out: dict, xs: tuple, sim, faulted: bool):
+def _reassemble(state, out: dict, xs: tuple, sim, faulted: bool,
+                topo: Optional[dict] = None):
     """The loop's record dict and final SimState from the kernel outputs
     (energy = power x latency; integer g; bool saturated; packets_seen
     zeroed and epoch advanced by the valid count only where some interval
-    was valid; prev_active from the last valid fault frame)."""
+    was valid; prev_active from the last valid fault frame; the wavelength
+    record 0 on a padded lane's padded chiplets)."""
     from repro_torch.core.simulator import (Arch, SimState, _activity_mask)
     from repro_torch.core.gateway_controller import ControllerState
 
@@ -297,7 +363,9 @@ def _reassemble(state, out: dict, xs: tuple, sim, faulted: bool):
         "energy": power * latency,
         "reconfig_nj": scal[..., COL_RECONFIG],
         "g": out_g.to(torch.int32),
-        "wavelengths": lam[:, None, None] * torch.ones_like(out_g)
+        "wavelengths": lam[:, None, None]
+                       * (torch.ones_like(out_g) if topo is None
+                          else topo["chip_mask"][:, None, :])
                        * lane_mask[..., None],
         "gw_load": out_gwl,
         "mean_inter_latency": scal[..., COL_MEAN_INTER],

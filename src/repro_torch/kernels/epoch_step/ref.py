@@ -17,11 +17,17 @@ def epoch_run_reference(state, xs: tuple, sim, tables: dict, *,
                         dest: Optional[torch.Tensor] = None,
                         faulted: bool = False,
                         lane_trace: Optional[torch.Tensor] = None,
-                        knobs: Optional[Dict[str, torch.Tensor]] = None
+                        knobs: Optional[Dict[str, torch.Tensor]] = None,
+                        topo: Optional[dict] = None,
+                        dest_index: Optional[torch.Tensor] = None,
+                        pair_trace: Optional[torch.Tensor] = None
                         ) -> Tuple[object, dict]:
     """The plain interval loop over B lanes (see `simulator._loop` for the
-    argument layout); returns (final SimState, records [B, T, ...])."""
+    argument layout; `topo`, `dest_index` and `pair_trace` are the padded
+    path's per-lane topology and destination matrices); returns (final
+    SimState, records [B, T, ...])."""
     from repro_torch.core.simulator import _loop
 
     return _loop(state, xs, sim, tables, dest=dest, faulted=faulted,
-                 lane_trace=lane_trace, knobs=knobs)
+                 lane_trace=lane_trace, knobs=knobs, topo=topo,
+                 dest_index=dest_index, pair_trace=pair_trace)

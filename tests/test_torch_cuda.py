@@ -36,12 +36,19 @@ bounds (flash 2e-5 in float32, 3e-2 in bfloat16; SSD float32 outputs 1e-4,
 among them a causal S of 2049, 10 heads a group and a chunk of 64; the
 SIMT kernel for the rest); the SIMT kernel forced on the tensor-core
 kernel's inputs; the wrappers' refusals, and the two smoke models served on
-the card against the same models on the CPU. This file imports no JAX.
+the card against the same models on the CPU. Padded calls (one topology per
+lane, `kernels/epoch_step/cases.py`: 9, 16 and 144 chiplets, clean,
+destination matrices and a ragged t_mask) through every design that takes
+topology rows against the padded plain loop; an unpadded launch bit for bit
+the same launch through topology rows holding its constants; and
+`sweep_topology` on the card against the CPU and against `simulate`. This
+file imports no JAX.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import interop
 from repro_torch.core import simulator as tsim
 from repro_torch.core import traffic
 from repro_torch.kernels.epoch_step import cases as ecases
@@ -240,6 +247,136 @@ def test_wrapper_rejects_what_the_kernel_does_not_run(cuda_device):
     with pytest.raises(ValueError, match=str(ops.MAX_CHIPLETS)):
         ops.launch(torch.ones((1, c), device=cuda_device), (z, o, z, o, o),
                    wide, tables)
+
+
+PADDED_DESIGNS = [(name, design) for name in ecases.PADDED_NAMES
+                  for design in ("split", "wide")
+                  if design == "wide" or int(name[3:].split("-")[0])
+                  <= ops.SPLIT_MAX_CHIPLETS]
+
+
+def _padded_inputs(name, arch, dev):
+    case = ecases.padded_case(name, T, arch)
+    traces = [interop.trace_from_numpy(t, dev) for t in case.traces]
+    return tsim.topology_inputs(traces, case.sim, device=dev, **case.grid)
+
+
+@pytest.mark.parametrize("arch", ARCHS, ids=lambda a: a.value)
+@pytest.mark.parametrize("name,design", PADDED_DESIGNS)
+def test_padded_kernel_matches_the_padded_plain_loop(name, design, arch,
+                                                     cuda_device):
+    """One topology per lane (9, 16 and 144 chiplets; clean, destination
+    matrices, ragged t_mask with an all-masked trace): every design that
+    takes topology rows equals the padded plain loop, integer g and the
+    final state exactly, padded chiplet columns exactly 0."""
+    from repro_torch import backend
+
+    sim_p, state0, xs, kw, _ = _padded_inputs(name, arch, cuda_device)
+    backend.reset_counters()
+    got_state, got = ops._reassemble(
+        state0, ops.launch(state0.ctl.g, xs, sim_p, None, kernel=design,
+                           **kw), xs, sim_p, False, kw["topo"])
+    torch.cuda.synchronize()
+    assert backend.COUNTERS["variants"] == {f"epoch_step:{design}+topo": 1}
+    want_state, want = epoch_run_reference(state0, xs, sim_p, None, **kw)
+    _compare(got, want)
+    _compare(_state(got_state), _state(want_state))
+    mask = kw["topo"]["chip_mask"][:, None, :] == 0
+    for k in ("g", "gw_load", "wavelengths"):
+        assert torch.all(got[k].masked_select(mask) == 0), k
+
+
+def test_padded_calls_never_run_warp(cuda_device):
+    """17-128 chiplets: `variant` sends padded calls to "wide", and the
+    warp kernel refuses topology rows."""
+    assert ops.variant(64, False, False, 32768, padded=True) == "wide"
+    assert ops.variant(64, False, False, 32768) == "warp"
+    sim_p, state0, xs, kw, _ = _padded_inputs("pad9-clean", ARCHS[0],
+                                              cuda_device)
+    with pytest.raises(ValueError, match="warp kernel takes no topology"):
+        ops.launch(state0.ctl.g, xs, sim_p, None, kernel="warp", **kw)
+
+
+@pytest.mark.parametrize("design", ["split", "wide"])
+def test_padded_matrices_read_their_pair_trace(design, cuda_device):
+    """The destination matrices in reverse order (matrix p no longer that
+    of trace p): each design reads each matrix's trace from `pair_trace`
+    and still equals the padded plain loop; `dest_index` without
+    `pair_trace` raises."""
+    sim_p, state0, xs, kw, _ = _padded_inputs("pad16-dest", ARCHS[0],
+                                              cuda_device)
+    p = int(kw["dest"].shape[0])
+    rev = torch.arange(p - 1, -1, -1, device=cuda_device)
+    perm = dict(kw, dest=kw["dest"][rev], pair_trace=kw["pair_trace"][rev],
+                dest_index=(p - 1) - kw["dest_index"])
+    assert not torch.equal(perm["pair_trace"],
+                           torch.sort(perm["pair_trace"]).values)
+    got_state, got = ops._reassemble(
+        state0, ops.launch(state0.ctl.g, xs, sim_p, None, kernel=design,
+                           **perm), xs, sim_p, False, kw["topo"])
+    want_state, want = epoch_run_reference(state0, xs, sim_p, None, **kw)
+    _compare(got, want)
+    _compare(_state(got_state), _state(want_state))
+    with pytest.raises(ValueError, match="go together"):
+        ops.launch(state0.ctl.g, xs, sim_p, None, kernel=design,
+                   **dict(kw, pair_trace=None))
+
+
+@pytest.mark.parametrize("design", ["split", "wide"])
+@pytest.mark.parametrize("dest", [False, True], ids=["uniform", "dest"])
+def test_unpadded_launch_equals_its_topology_rows_bitwise(dest, design,
+                                                          cuda_device):
+    """An unpadded launch (null topology pointers: the launch constants)
+    gives bit for bit what the same launch gives through topology rows
+    that hold those constants."""
+    from repro_torch.core import topology
+    from repro_torch.core.noc import uniform_mesh_mean_hops
+    from repro_torch.core.photonics import controller_mw
+
+    sim = tsim.SimConfig()
+    cfg = sim.cfg
+    state0, xs, tables, kw = tsim.epoch_inputs(
+        _traces("dest" if dest else "clean", cuda_device), sim,
+        device=cuda_device)
+    b = int(state0.ctl.g.shape[0])
+    assert float(controller_mw(torch.tensor([cfg.n_chiplets]))) \
+        == float(np.float32(controller_mw(cfg.n_chiplets)))
+    f32 = dict(dtype=torch.float32, device=cuda_device)
+    rows = {"n_chiplets": torch.full((b,), cfg.n_chiplets, dtype=torch.int32,
+                                     device=cuda_device),
+            "src_hops": tables["src_hops"].expand(b, -1),
+            "gw_loss_db": tables["gw_loss_db"].expand(b, -1),
+            "mesh_hops": torch.full(
+                (b,), float(np.float32(uniform_mesh_mean_hops(cfg))), **f32),
+            "mesh_x": torch.full((b,), topology.feed_width(cfg), **f32)}
+    plain = ops.launch(state0.ctl.g, xs, sim, tables, kernel=design, **kw)
+    padded = ops.launch(state0.ctl.g, xs, sim, tables, kernel=design,
+                        topo=rows, **kw)
+    torch.cuda.synchronize()
+    for k in ("scal", "g_eff", "gw_load", "g_final"):
+        assert torch.equal(plain[k], padded[k]), k
+
+
+@pytest.mark.parametrize("arch", list(tsim.Arch), ids=lambda a: a.value)
+def test_sweep_topology_on_the_card(arch, cuda_device):
+    """The entry points on the card: a point padded to its own size equals
+    an unpadded `simulate` of that topology, and the grid equals the CPU
+    run; one epoch_step launch per call for RESIPI / RESIPI_ALL."""
+    case = ecases.padded_case("pad16-dest", T, tsim.Arch(arch))
+    tr = interop.trace_from_numpy(case.traces[0], cuda_device)
+    cpu = interop.trace_from_numpy(case.traces[0], "cpu")
+    tsim.reset_engine_stats()
+    got = tsim.sweep_topology(tr, case.sim, **case.grid)
+    assert tsim.engine_stats()["epoch_step_launches"] \
+        == int(arch in tsim.KERNEL_ARCHS)
+    want = tsim.sweep_topology(cpu, case.sim, device="cpu", **case.grid)
+    for part in ("records", "summary"):
+        _compare({k: v.cpu() for k, v in got[part].items()}, want[part])
+    own = tsim.sweep_topology(tr, case.sim, n_chiplets=[16])
+    single = tsim.simulate(tr, tsim.topology_point_config(case.sim,
+                                                          n_chiplets=16))
+    for part in ("records", "summary"):
+        _compare({k: v[0] for k, v in own[part].items()}, single[part])
 
 
 @pytest.mark.parametrize("name", ecases.WIDE_NAMES)
