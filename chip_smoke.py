@@ -121,19 +121,38 @@ exits non-zero):
      device time, the plain loop's, the bound, the warm host ms and the
      host stages (and at 64 chiplets the unpadded "warp" launch beside the
      padded "wide" one);
-  8. a `kernels` JSON line (launches on the main paths, error against
+  8. the device placement search, a main path of its own
+     (`search_phase`), every generation one "+topo" launch whose lanes are
+     every chain's candidates, and every generation loop run under
+     `torch.cuda.set_sync_debug_mode("error")`: (a) the reference
+     walkthrough's search (dedup, 24 intervals, 8 generations of 12), (b)
+     its island search (4 islands, one l_m each) and (c) the resilience
+     form (three blocked routers, `init` repaired off them), each held to
+     the reference device engine's placements, accepted flags and printed
+     scores (SEARCH_DEVICE_REFERENCE, ISLAND_REFERENCE,
+     RESILIENCE_REFERENCE); (d) 64 islands zipped with 64 l_m values x
+     32 x 16 generations at 100 intervals (2048 lanes a launch, "split");
+     (e) 8 islands x 12 x 8 at 256 chiplets with a destination matrix
+     ("wide"). Each search must make `generations` launches and one
+     `search_dispatches`; every launch is held against the padded plain
+     loop; then per launch shape its device time (CUDA-graph replays),
+     the plain loop's and the bound, the warm host ms per search and per
+     generation, candidate evaluations per second, the device idle share
+     of a profiled warm (d), and (a) beside the host engine;
+  9. a `kernels` JSON line (launches on the main paths, error against
      plain, times, the bound and the kernel variant that ran) for all four
      kernels; the simulator kernels' entries add the first design's time
      in the same run (`warp_ms`), the times per launch shape (`shapes`,
-     phases 5's and 7's among them) and the launches per main path.
+     phases 5's, 7's and 8's among them) and the launches per main path.
 
 Phases 3 and 4 are the first main path: the launch counters are zeroed
 before phase 3 and read after the last DSE, before any check or timing.
 Phase 5 is the second, zeroed before its streaming and read after its last
 `noc_run`. Each LLM run of phase 6 is a main path of its own, with the
 counters zeroed just before its prefill and read just after its last
-decode step. Phase 7 is the last, zeroed before its walkthrough scan and
-read after its placement search.
+decode step. Phase 7 is zeroed before its walkthrough scan and read after
+its placement search; phase 8, the last, before its search (a) and after
+(e).
 `python3 chip_smoke.py --epoch-grid` builds epoch_step alone and times
 the whole design grid (GRID_FULL: 4-16 chiplets at 1-512 lanes, 17-128 at
 8-32 768, with and without destination matrices), the evidence for
@@ -144,6 +163,7 @@ the main paths (ROWS_AB_SHAPES), the instantiations without topology rows
 constants, in turns, and prints each build's ptxas report of epoch_step;
 `--src DIR` takes the port from DIR (another checkout's `src`) instead,
 where a tree without topology rows times the constants alone.
+`python3 chip_smoke.py --search` builds epoch_step alone and runs phase 8.
 
 The last line is {"ok": true, "device": {...}}. Without a card, or without
 the rest of the repository beside this file, it exits non-zero and prints
@@ -288,6 +308,47 @@ SEARCH_GENERATIONS, SEARCH_POPULATION = 8, 12
 SEARCH_REFERENCE = {"best_placement": ((2, 1), (0, 2), (3, 3), (2, 0)),
                     "best_score": 23.296194076538086,
                     "default_score": 23.787277221679688}
+# Phase 8, the device placement search, held to the reference's device
+# engine (the JAX package on the CPU, jax 0.9.0): (a) the walkthrough's
+# search (noc_reconfig_demo.py:111-115, the same inputs as phase 7 (e));
+# (b) its island search (:147-151: dedup, 24 intervals from PRNGKey(3),
+# ISLAND_LM, 8 x 12, seed 0); (c) the resilience form: (a)'s trace with
+# RESILIENCE_BLOCKED failed and (a)'s best placement repaired off them as
+# `init`, 8 x 12, seed 1. Scores at the 3 digits the walkthrough prints,
+# and as floats for the relative gap printed beside them.
+SEARCH_DEVICE_REFERENCE = {
+    "best_placement": ((1, 2), (3, 1), (1, 1), (1, 3)),
+    "incumbent_placement": ((1, 2), (3, 1), (1, 1), (1, 3)),
+    "default_placement": ((1, 0), (2, 3), (0, 2), (3, 1)),
+    "best_score": 23.327125549316406, "default_score": 23.787277221679688,
+    "accepted": (True,) * 8}
+ISLAND_LM = (0.008, 0.0152, 0.024, 0.032)
+ISLAND_REFERENCE = {
+    "best_placements": (((1, 0), (2, 3), (0, 2), (3, 1)),
+                        ((1, 1), (2, 3), (3, 1), (0, 1)),
+                        ((2, 1), (1, 3), (1, 1), (3, 1)),
+                        ((1, 1), (2, 3), (2, 1), (1, 2))),
+    "best_scores": (18.459196090698242, 22.59000015258789,
+                    142.43789672851562, 143.79649353027344),
+    "default_scores": (18.459196090698242, 23.013578414916992,
+                       143.4962158203125, 145.13145446777344),
+    "accepted": ((True,) * 8,) * 4}
+RESILIENCE_BLOCKED = ((1, 2), (3, 1), (2, 2))
+RESILIENCE_REFERENCE = {
+    "init": ((2, 1), (0, 2), (1, 3), (1, 1)),
+    "best_placement": ((2, 1), (0, 2), (2, 3), (3, 0)),
+    "incumbent_placement": ((2, 1), (0, 2), (2, 3), (3, 0)),
+    "default_placement": ((2, 1), (0, 2), (1, 0), (2, 3)),
+    "best_score": 23.38286590576172, "default_score": 23.550085067749023,
+    "accepted": (True,) * 8}
+# (d) the full-width island DSE (a best floorplan per operating point):
+# dedup, 100 intervals from PRNGKey(5), DSE_ISLANDS islands zipped with as
+# many l_m points over [0.004, 0.032], population 32, 16 generations: 2048
+# lanes a launch. (e) past 16 chiplets: 256 chiplets, a trace with its
+# destination matrix (dedup, 100 intervals from PRNGKey(6)), 8 islands x
+# 12 x 8 generations.
+DSE_ISLANDS, DSE_POPULATION, DSE_GENERATIONS = 64, 32, 16
+WIDE_SEARCH_C, WIDE_SEARCH_ISLANDS = 256, 8
 
 
 def fail(msg: str) -> None:
@@ -1825,15 +1886,309 @@ def topology_phase(dev, card: str) -> dict:
             "idle_share": idle}
 
 
+def search_phase(dev, card: str) -> dict:
+    """Phase 8, the device placement search, a main path of its own
+    (counters zeroed before (a), read after (e)): (a) the walkthrough's
+    search, (b) its island search and (c) the resilience form, each held
+    to the reference device engine's placements, accepted flags and
+    printed scores (SEARCH_DEVICE_REFERENCE, ISLAND_REFERENCE,
+    RESILIENCE_REFERENCE); (d) DSE_ISLANDS islands x DSE_POPULATION x
+    DSE_GENERATIONS at 100 intervals ("split+topo", 2048 lanes a launch);
+    (e) WIDE_SEARCH_ISLANDS islands at WIDE_SEARCH_C chiplets with a
+    destination matrix ("wide+topo"). Every generation loop runs under
+    `torch.cuda.set_sync_debug_mode("error")`; each search must make
+    `generations` epoch_step launches and count one `search_dispatches`;
+    every launch is held against the padded plain loop on its inputs.
+    Then per launch shape its device time (CUDA-graph replays of one
+    generation's launch), the plain loop's and the bound; the warm host ms
+    per search and per generation, candidate evaluations per second, the
+    device idle share of a profiled warm (d), and (a) beside the host
+    engine on the same configuration."""
+    from repro_torch import backend
+    from repro_torch import random as trandom
+    from repro_torch.core import search as tsearch
+    from repro_torch.core import simulator as S
+    from repro_torch.core import traffic
+    from repro_torch.core.constants import NETWORK
+    from repro_torch.kernels.epoch_step import ops
+    from repro_torch.kernels.epoch_step.ref import epoch_run_reference
+
+    resipi = S.SimConfig()
+    cfg_wide = NETWORK.with_topology(n_chiplets=WIDE_SEARCH_C)
+    sim_wide = S.SimConfig(cfg=cfg_wide)
+    # Inputs (set-up, before the counters are zeroed).
+    tr_a = traffic.generate_trace("dedup", 24,
+                                  trandom.prng_key(2, device=dev),
+                                  device=dev)
+    tr_b = traffic.generate_trace("dedup", 24,
+                                  trandom.prng_key(3, device=dev),
+                                  device=dev)
+    tr_d = traffic.generate_trace("dedup", T_INTERVALS,
+                                  trandom.prng_key(5, device=dev),
+                                  device=dev)
+    tr_e = traffic.generate(traffic.ParsecSpec("dedup", T_INTERVALS),
+                            trandom.prng_key(6, device=dev), cfg_wide,
+                            dest=True, device=dev)
+    init_c = tsearch.repair_placement(
+        SEARCH_DEVICE_REFERENCE["best_placement"], RESILIENCE_BLOCKED,
+        NETWORK)
+    if init_c != RESILIENCE_REFERENCE["init"]:
+        fail(f"(c) repair_placement gave {init_c}, the reference "
+             f"{RESILIENCE_REFERENCE['init']}")
+    dse_lm = np.linspace(0.004, 0.032, DSE_ISLANDS, dtype=np.float32)
+    gens = {"a": SEARCH_GENERATIONS, "b": SEARCH_GENERATIONS,
+            "c": SEARCH_GENERATIONS, "d": DSE_GENERATIONS,
+            "e": SEARCH_GENERATIONS}
+    entry = {
+        "a": lambda: S.search_placement(
+            tr_a, resipi, generations=gens["a"],
+            population=SEARCH_POPULATION, seed=0, device=dev),
+        "b": lambda: S.search_placement_islands(
+            tr_b, resipi, generations=gens["b"],
+            population=SEARCH_POPULATION, seed=0, l_m=list(ISLAND_LM),
+            device=dev),
+        "c": lambda: S.search_placement(
+            tr_a, resipi, generations=gens["c"],
+            population=SEARCH_POPULATION, seed=1, init=init_c,
+            blocked_positions=RESILIENCE_BLOCKED, device=dev),
+        "d": lambda: S.search_placement_islands(
+            tr_d, resipi, generations=gens["d"], population=DSE_POPULATION,
+            seed=0, l_m=dse_lm, device=dev),
+        "e": lambda: S.search_placement_islands(
+            tr_e, sim_wide, islands=WIDE_SEARCH_ISLANDS,
+            generations=gens["e"], population=SEARCH_POPULATION, seed=0,
+            device=dev)}
+    lanes = {"a": SEARCH_POPULATION,
+             "b": len(ISLAND_LM) * SEARCH_POPULATION,
+             "c": SEARCH_POPULATION, "d": DSE_ISLANDS * DSE_POPULATION,
+             "e": WIDE_SEARCH_ISLANDS * SEARCH_POPULATION}
+
+    calls, per_call, loop_ms = [], {}, []
+    kernel_epoch_run, real_core = ops.epoch_run, tsearch._search_core
+    part = ""
+
+    def recorded_epoch_run(state, xs, sim, tables, **kw):
+        out = kernel_epoch_run(state, xs, sim, tables, **kw)
+        calls.append((part, state, xs, sim, tables, kw, out))
+        return out
+
+    def checked_core(*args, **kw):
+        # The generation loop: no host synchronization may happen inside.
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            return real_core(*args, **kw)
+        finally:
+            loop_ms.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.set_sync_debug_mode(0)
+
+    ops.epoch_run = recorded_epoch_run
+    tsearch._search_core = checked_core
+    torch.cuda.synchronize()
+    S.reset_engine_stats()                       # main path starts
+    outs = {}
+    try:
+        for label, fn in entry.items():
+            part = label
+            before = backend.COUNTERS["launches"].get(ops.NAME, 0)
+            dispatches = S.engine_stats()["search_dispatches"]
+            t0 = time.perf_counter()
+            outs[label] = fn()
+            torch.cuda.synchronize()
+            per_call[label] = (
+                backend.COUNTERS["launches"].get(ops.NAME, 0) - before,
+                S.engine_stats()["search_dispatches"] - dispatches,
+                (time.perf_counter() - t0) * 1e3, loop_ms[-1])
+        torch.cuda.synchronize()
+        launches = dict(backend.COUNTERS["launches"])   # main path ends
+        variants = dict(backend.COUNTERS["variants"])
+        loop_runs = backend.COUNTERS["loop_runs"]
+    finally:
+        ops.epoch_run = kernel_epoch_run
+        tsearch._search_core = real_core
+
+    got = {k: v[:2] for k, v in per_call.items()}
+    want = {k: (g, 1) for k, g in gens.items()}
+    if got != want:
+        fail(f"phase 8 (epoch_step launches, search_dispatches) per search "
+             f"{got}, expected {want}")
+    want_variants = {f"{ops.NAME}:split+topo": sum(
+                         g for k, g in gens.items() if k != "e"),
+                     f"{ops.NAME}:wide+topo": gens["e"]}
+    if variants != want_variants or loop_runs:
+        fail(f"phase 8 main path kernel variants {variants} and "
+             f"{loop_runs} plain-loop runs, expected {want_variants}, 0")
+    say("8", f"main path: {json.dumps(launches)} launches, variants "
+             f"{json.dumps(variants)}; per search (launches, dispatches): "
+             f"{json.dumps(got)}; every generation loop ran under "
+             f"set_sync_debug_mode('error'); host ms per search (first): "
+             + ", ".join(f"{k} {v[2]:.1f} (loop {v[3]:.1f})"
+                         for k, v in per_call.items()) + f"; card: {card}")
+
+    # (a), (c): the reference's device engine at its printed digits.
+    def held(label, res, ref):
+        flags = tuple(h["accepted"] for h in res["history"])
+        for key in ("best_placement", "incumbent_placement",
+                    "default_placement"):
+            if res[key] != ref[key]:
+                fail(f"({label}) {key} {res[key]}, the reference's "
+                     f"{ref[key]}")
+        if flags != ref["accepted"]:
+            fail(f"({label}) accepted flags {flags}, the reference's "
+                 f"{ref['accepted']}")
+        gaps = []
+        for key in ("best_score", "default_score"):
+            if f"{res[key]:.3f}" != f"{ref[key]:.3f}":
+                fail(f"({label}) {key} {res[key]!r}, the reference prints "
+                     f"{ref[key]:.3f}")
+            gaps.append(abs(res[key] - ref[key]) / abs(ref[key]))
+        say("8", f"({label}) best {res['best_placement']} at "
+                 f"{res['best_score']:.3f} (default "
+                 f"{res['default_placement']} {res['default_score']:.3f}), "
+                 f"incumbent {res['incumbent_placement']}, accepted "
+                 f"{sum(flags)}/{len(flags)} == the reference device "
+                 f"engine's (relative gap of the scores {max(gaps):.2g})")
+
+    held("a", outs["a"], SEARCH_DEVICE_REFERENCE)
+    held("c", outs["c"], RESILIENCE_REFERENCE)
+    if set(outs["c"]["best_placement"]) & set(RESILIENCE_BLOCKED):
+        fail("(c) the best placement sits on a blocked router")
+    res = outs["b"]
+    if res["island_best_placements"] != list(
+            ISLAND_REFERENCE["best_placements"]):
+        fail(f"(b) island best placements {res['island_best_placements']}, "
+             f"the reference's {ISLAND_REFERENCE['best_placements']}")
+    for key, ref_key in (("island_best_scores", "best_scores"),
+                         ("island_default_scores", "default_scores")):
+        got_s = [f"{v:.3f}" for v in res[key]]
+        want_s = [f"{v:.3f}" for v in ISLAND_REFERENCE[ref_key]]
+        if got_s != want_s:
+            fail(f"(b) {key} {got_s}, the reference prints {want_s}")
+    flags = tuple(tuple(bool(v) for v in row)
+                  for row in res["history"]["accepted"] > 0.5)
+    if flags != ISLAND_REFERENCE["accepted"]:
+        fail(f"(b) accepted flags {flags}")
+    say("8", "(b) island search, best per L_m " + "; ".join(
+        f"{lm}: {p} at {s:.3f}" for lm, p, s in zip(
+            ISLAND_LM, res["island_best_placements"],
+            res["island_best_scores"])) + " == the reference's")
+    for label, k in (("d", DSE_ISLANDS), ("e", WIDE_SEARCH_ISLANDS)):
+        res = outs[label]
+        best, dflt = res["island_best_scores"], res["island_default_scores"]
+        if best.shape != (k,) or not np.isfinite(best).all() \
+                or not (best <= dflt).all() \
+                or res["history"]["best_score"].shape != (k, gens[label]):
+            fail(f"({label}) island results malformed: best {best}, "
+                 f"default {dflt}")
+        say("8", f"({label}) {k} islands: best score {res['best_score']:.4f}"
+                 f" (island {res['best_island']}), improvement over the "
+                 f"default per island {np.mean(1 - best / dflt):.2%} mean, "
+                 f"{np.max(1 - best / dflt):.2%} max")
+
+    # Every kernel call of the path against the padded plain loop.
+    err, checked = 0.0, {}
+    for name, state0, xs, csim, tbl, kw, (got_state, got_recs) in calls:
+        want_state, want_recs = epoch_run_reference(state0, xs, csim, tbl,
+                                                    **kw)
+        e = max(compare(got_recs, want_recs, f"phase 8 ({name})"),
+                compare(state_fields(got_state), state_fields(want_state),
+                        f"phase 8 ({name}) state"))
+        err = max(err, e)
+        n, m = checked.get(name, (0, 0.0))
+        checked[name] = (n + 1, max(m, e))
+    say("8", "every kernel call == the padded plain loop on its own inputs: "
+             + ", ".join(f"({k}) {n} call(s) max abs err {m:.3g}"
+                         for k, (n, m) in checked.items()))
+
+    # Host times (warm, host clock, each search ended by a synchronize).
+    def host_ms(fn, reps):
+        out = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(out))
+
+    warm, per_gen = {}, {}
+    tsearch._search_core = checked_core
+    try:
+        for label, fn in entry.items():
+            loop_ms.clear()
+            warm[label] = host_ms(fn, 3)
+            per_gen[label] = float(np.median(loop_ms)) / gens[label]
+    finally:
+        tsearch._search_core = real_core
+    evals = {k: gens[k] * lanes[k] / (warm[k] / 1e3) for k in entry}
+    host_engine = host_ms(lambda: S.search_placement(
+        tr_a, resipi, generations=gens["a"], population=SEARCH_POPULATION,
+        seed=0, engine="host", device=dev), 3)
+    say("8", "warm host ms per search (median of 3) / per generation (the "
+             "generation loop's host time over the generations) / "
+             "candidate evaluations per second: " + "; ".join(
+                 f"({k}) {warm[k]:.2f} / {per_gen[k]:.3f} / {evals[k]:.0f}"
+                 for k in entry)
+             + f"; (a) through the host engine on the same configuration "
+               f"{host_engine:.2f} ms ({host_engine / warm['a']:.2f}x the "
+               f"device engine's); card: {card}")
+    prof = device_breakdown(entry["d"], "(d) warm search", top=6, phase="8")
+    idle = None if prof is None else \
+        1.0 - sum(prof[1].values()) / 1e6 / prof[0]
+    say("8", f"(d) warm search: device idle share "
+             f"{'not measured' if idle is None else f'{idle:.1%}'} of a "
+             f"profiled call; card: {card}")
+
+    # Device time per launch shape: one generation's launch.
+    rows = {}
+    for label in entry:
+        _, state0, xs, csim, tbl, kw, _ = next(c for c in calls
+                                              if c[0] == label)
+        n_tr, t_len, c = xs[0].shape
+        n_lanes = int(kw["lane_trace"].shape[0])
+        dest = kw.get("dest") is not None
+        kern = ops.variant(c, False, dest, n_lanes, padded=True)
+        ms = time_graph(lambda: ops.launch(state0.ctl.g, xs,  # noqa: B023
+                                           csim, tbl, **kw))
+        plain = time_cuda(lambda: epoch_run_reference(  # noqa: B023
+            state0, xs, csim, tbl, **kw), 1)[0]
+        g_slots = csim.cfg.max_gateways_per_chiplet
+        nbytes, n_ops = padded_epoch_work(
+            n_tr, t_len, c, g_slots, [c] * n_lanes, [g_slots] * n_lanes,
+            [c] if dest else None)
+        bound, by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                        (n_ops / F32_FLOPS_PER_S * 1e3, "operations"))
+        rows[f"search-{label}"] = {
+            "variant": kern + "+topo", "lanes": n_lanes,
+            "intervals": t_len, "chiplets": c,
+            "dest_matrices": int(dest), "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by,
+            "host_ms_per_generation": per_gen[label],
+            "host_ms_per_search": warm[label],
+            "evaluations_per_s": evals[label]}
+        say("8", f"epoch_step ({label}) generation launch ({kern}+topo; "
+                 f"{n_lanes} lanes x {t_len} intervals x {c} chiplets"
+                 f"{', a destination matrix' if dest else ''}): {ms:.4f} ms "
+                 f"(device: CUDA-graph replays, median of 5); plain loop "
+                 f"{plain:.2f} ms once; bound {bound:.4f} ms by {by} "
+                 f"({nbytes / 1e6:.3f} MB, {n_ops / 1e9:.5f} GFLOP); "
+                 f"card: {card}")
+    return {"epoch_launches": launches.get(ops.NAME, 0), "epoch_err": err,
+            "epoch_shapes": rows, "variants": variants,
+            "warm_host_ms": warm, "host_engine_ms": host_engine,
+            "idle_share": idle}
+
+
 def main() -> int:
     global SRC
     args = sys.argv[1:]
     grid_only = args == ["--epoch-grid"]
+    search_only = args == ["--search"]
     rows_ab = args[:1] == ["--rows-ab"] and (
         len(args) == 1 or (len(args) == 3 and args[1] == "--src"))
-    if args and not (grid_only or rows_ab):
-        print("usage: chip_smoke.py [--epoch-grid | --rows-ab [--src DIR]]",
-              file=sys.stderr)
+    if args and not (grid_only or rows_ab or search_only):
+        print("usage: chip_smoke.py [--epoch-grid | --search | --rows-ab "
+              "[--src DIR]]", file=sys.stderr)
         return 2
     if rows_ab and len(args) == 3:
         SRC = Path(args[2]).resolve()
@@ -1880,11 +2235,15 @@ def main() -> int:
     print(card, flush=True)
     say("1", f"device {kind} x{count}; torch {torch.__version__} cuda "
              f"{torch.version.cuda}")
-    if grid_only or rows_ab:
+    if grid_only or rows_ab or search_only:
         if grid_only:
             ops.build()
             result = {"design_grid": epoch_design_grid(dev, card, GRID_FULL,
                                                        "grid")}
+        elif search_only:
+            ops.build()
+            result = {"device_search": search_phase(dev, card)}
+            result["device_search"].pop("variants")
         else:
             result = epoch_rows_ab(dev, card)
         print(json.dumps(result), flush=True)
@@ -2484,11 +2843,15 @@ def main() -> int:
     # --- 7. topology and placement DSE (a main path) ------------------------
     p7 = topology_phase(dev, card)
 
-    # --- 8. kernels line ----------------------------------------------------
+    # --- 8. the device placement search (a main path) ----------------------
+    p8 = search_phase(dev, card)
+
+    # --- 9. kernels line ----------------------------------------------------
     def ran(name):
         return ",".join(sorted({k.split(":")[1] for k in
                                 list(variants) + list(p5["variants"])
                                 + list(p7["variants"])
+                                + list(p8["variants"])
                                 if k.startswith(name + ":")}))
 
     print(json.dumps({"kernels": [{
@@ -2496,15 +2859,17 @@ def main() -> int:
         "source": "src/repro_torch/kernels/epoch_step/csrc/epoch_step.cu",
         "replaces": "src/repro/kernels/epoch_step/kernel.py:48",
         "launches": stats["epoch_step_launches"] + p5["epoch_launches"]
-        + p7["epoch_launches"],
+        + p7["epoch_launches"] + p8["epoch_launches"],
         "launches_by_path": {"paper+dse": stats["epoch_step_launches"],
                              "streaming+faults+f1": p5["epoch_launches"],
-                             "topology+placement": p7["epoch_launches"]},
-        "max_abs_err": max(max_err, p5["epoch_err"], p7["epoch_err"]),
+                             "topology+placement": p7["epoch_launches"],
+                             "device search": p8["epoch_launches"]},
+        "max_abs_err": max(max_err, p5["epoch_err"], p7["epoch_err"],
+                           p8["epoch_err"]),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None, "warp_ms": warp_ms,
         "shapes": dict(epoch_shapes, **p5["epoch_shapes"],
-                       **p7["epoch_shapes"]),
+                       **p7["epoch_shapes"], **p8["epoch_shapes"]),
         "design_choice": p5["design_choice"]}, {
         "name": nops.NAME, "route": "cuda", "variant": ran(nops.NAME),
         "source": "src/repro_torch/kernels/noc_step/csrc/noc_step.cu",

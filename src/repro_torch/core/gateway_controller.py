@@ -60,6 +60,53 @@ def activation_order(positions, cfg: NetworkConfig = NETWORK) -> np.ndarray:
     return np.asarray(order, np.int64)
 
 
+def activation_order_torch(positions: torch.Tensor,
+                           cfg: NetworkConfig = NETWORK) -> torch.Tensor:
+    """Tensor twin of `activation_order` for placements [..., G, 2] (the
+    reference's `activation_order_jnp`), batched over leading axes: the
+    same greedy spread rule as an argmin over integer composite keys
+    (-min distance to the activated set, then centrality, then row index),
+    so it never leaves the device. `argmin` takes the first minimum, as
+    jax's does. Returns int64 [..., G] row permutations, equal to the
+    numpy rule's."""
+    from repro_torch.core import topology
+
+    pos = positions.long()
+    n = int(pos.shape[-2])
+    x, y = pos[..., 0], pos[..., 1]
+    idx = torch.arange(n, device=pos.device)
+    if cfg.coords is None:
+        # 2x the numpy rule's float centrality: integer, identical order.
+        cent2 = (torch.abs(2 * x - (cfg.mesh_x - 1))
+                 + torch.abs(2 * y - (cfg.mesh_y - 1)))
+        pair = torch.sum(torch.abs(pos[..., :, None, :]
+                                   - pos[..., None, :, :]), dim=-1)
+        big = 4 * (cfg.mesh_x + cfg.mesh_y)
+    else:
+        # Explicit layout: medoid centrality and BFS pair hops, gathered.
+        lut = topology.lut_tensors(cfg, pos.device)
+        cent2 = lut["centrality"][x, y]
+        rid = lut["router_index"][x, y]
+        pair = lut["hop"][rid[..., :, None], x[..., None, :],
+                          y[..., None, :]]
+        big = topology.max_hops(cfg) + 1
+    # Composite keys: b bounds the row index, a bounds (centrality, index).
+    b = n
+    a = topology.centrality_bound(cfg) * b
+    taken = int(np.iinfo(np.int32).max)
+    first = torch.argmin(cent2 * b + idx, dim=-1)
+    order = [first]
+    selected = idx == first[..., None]
+    for _ in range(1, n):
+        dmin = torch.amin(torch.where(selected[..., None, :], pair, big),
+                          dim=-1)
+        key = torch.where(selected, taken, -dmin * a + cent2 * b + idx)
+        nxt = torch.argmin(key, dim=-1)
+        order.append(nxt)
+        selected = selected | (idx == nxt[..., None])
+    return torch.stack(order, dim=-1)
+
+
 def t_p(cfg: ControllerConfig) -> torch.Tensor:
     """Eq. 6: activation threshold — constant L_m for every g."""
     return torch.as_tensor(cfg.l_m, dtype=torch.float32)

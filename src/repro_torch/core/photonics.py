@@ -3,7 +3,8 @@
 Port of `repro.core.photonics` (§3.2): the equal-power-share coupling-ratio
 schedule of the PCMC chain (Eq. 4), interposer power in the three modes of
 the compared architectures, PCM reconfiguration energy, and the
-placement-derived access-waveguide loss (design-time numpy).
+placement-derived access-waveguide loss (design-time numpy, and its
+tensor twin for placements that stay on the device).
 
 Every tensor function takes the gateway chain on the LAST axis, so leading
 axes are independent lanes. Eq. 4 note (as in the reference): kappa_i counts
@@ -54,6 +55,29 @@ def gateway_access_loss_db(gw_pos: np.ndarray,
         edge_hops = topology.edge_lut(cfg)[pos[:, 0], pos[:, 1]]
     return (edge_hops * cfg.router_pitch_mm
             * power.waveguide_db_per_mm).astype(np.float32)
+
+
+def gateway_access_loss_db_torch(gw_pos: torch.Tensor,
+                                 cfg: NetworkConfig = NETWORK,
+                                 power: PhotonicPower = PHOTONIC_POWER
+                                 ) -> torch.Tensor:
+    """Tensor twin of `gateway_access_loss_db` for placements [..., G, 2]
+    (the reference's `gateway_access_loss_db_jnp`): the same distance to
+    the nearest edge (the closed form on a derived mesh, the `edge` gather
+    table on an explicit layout) times the float32 constant router pitch x
+    waveguide dB/mm. Returns float32 [..., G] on the placements' device."""
+    from repro_torch.core import topology
+
+    pos = gw_pos.long()
+    x, y = pos[..., 0], pos[..., 1]
+    if cfg.coords is None:
+        edge_hops = torch.minimum(
+            torch.minimum(x, cfg.mesh_x - 1 - x),
+            torch.minimum(y, cfg.mesh_y - 1 - y))
+    else:
+        edge_hops = topology.lut_tensors(cfg, pos.device)["edge"][x, y]
+    return edge_hops.to(torch.float32) * float(
+        np.float32(cfg.router_pitch_mm * power.waveguide_db_per_mm))
 
 
 def interposer_power_mw(active: torch.Tensor, wavelengths, *,

@@ -9,7 +9,10 @@ routers nearest to its gateway (Fig. 8 a-d).
 
 The numpy builders are verbatim copies of the reference's (so the tables
 match it bit for bit); `selection_tables_torch` is the memoized
-device-resident view the simulator gathers from.
+device-resident view the simulator gathers from. `placement_tables_torch`
+and `placement_tables_from_lut_torch` build the two columns the epoch
+simulator reads for a batch of placements on the device (the device
+placement search's candidates), bit for bit the reference's jnp twins.
 """
 from __future__ import annotations
 
@@ -263,6 +266,135 @@ def mean_access_hops(tables: dict, g: torch.Tensor) -> torch.Tensor:
     """
     hops = tables["src_hops"]
     return hops[torch.clamp(g.long(), 1, hops.shape[0]) - 1]
+
+
+# ---------------------------------------------------------------------------
+# Tensor twins: tables of placements that stay on the device
+# ---------------------------------------------------------------------------
+
+def _class_hop_sums(dist: torch.Tensor, caps: torch.Tensor, d_pad: int,
+                    router_on=None) -> torch.Tensor:
+    """The balanced partition of every activation level at once, as the
+    sum over routers of each router's assigned hop distance [N, L] (int;
+    L = G levels, level l using gateways 0..l; a router left unassigned
+    adds 0, as in the reference twin).
+
+    `dist` [N, R, G] int router -> gateway hops; `caps` [L] the per-level
+    capacity ceil(R / g); `router_on` [R] bool masks padded routers. The
+    reference's class-column schedule: for each distance d (ascending),
+    for each gateway g (ascending), every level that has g takes its first
+    `cap - load` unassigned distance-d candidates of g in router order (a
+    masked cumsum over routers) - the numpy pair walk's result, exactly.
+    Each step is a handful of whole-batch operations on int32 tensors: the
+    (d, g) candidate masks, with the levels that lack g zeroed, are built
+    once up front.
+    """
+    n, r, g_n = dist.shape
+    dev = dist.device
+    i32 = torch.int32
+    hit = dist.movedim(-1, 0)[None] \
+        == torch.arange(d_pad, device=dev)[:, None, None, None]
+    if router_on is not None:
+        hit = hit & router_on
+    # [D, G, N, L, R]: gateway g's distance-d routers, on the levels >= g.
+    has_g = torch.arange(g_n, device=dev)[:, None] \
+        <= torch.arange(g_n, device=dev)[None, :]             # [G, L]
+    masks = (hit[:, :, :, None, :] & has_g[None, :, None, :, None]).to(i32)
+    masks = masks.reshape(d_pad * g_n, n, g_n, r).unbind(0)
+    free = torch.ones((n, g_n, r), dtype=i32, device=dev)
+    # Room left per (gateway, level), shaped to broadcast over routers.
+    room = [caps.to(i32)[None, :, None].expand(n, g_n, 1).clone()
+            for _ in range(g_n)]
+    hops = torch.zeros((n, g_n, 1), dtype=i32, device=dev)
+    for d in range(d_pad):
+        for g in range(g_n):
+            cand = free * masks[d * g_n + g]
+            rank = torch.cumsum(cand, dim=-1, dtype=i32)      # router order
+            take = cand * (rank <= room[g])
+            free -= take
+            cnt = torch.sum(take, dim=-1, keepdim=True, dtype=i32)
+            room[g] -= cnt
+            hops.add_(cnt, alpha=d)
+    return hops[..., 0]
+
+
+def _running_mean_db(per_gw_db: torch.Tensor) -> torch.Tensor:
+    """Level-g mean access loss [N, G]: the running sum over gateways in
+    index order divided by g (as XLA compiles the reference's
+    `cumsum(x) / levels`)."""
+    g_n = per_gw_db.shape[-1]
+    run = [per_gw_db[..., 0]]
+    for g in range(1, g_n):
+        run.append(run[-1] + per_gw_db[..., g])
+    levels = torch.arange(1, g_n + 1, dtype=torch.float32,
+                          device=per_gw_db.device)
+    return torch.stack(run, dim=-1) / levels
+
+
+def placement_tables_torch(positions: torch.Tensor,
+                           cfg: NetworkConfig = NETWORK) -> dict:
+    """Tensor twin of the `build_selection_tables` hot columns for
+    placements [..., G, 2] in activation order (the reference's
+    `placement_tables_jnp`, batched over leading axes): `src_hops` (mean
+    router -> gateway hops under the balanced partition) and `gw_loss_db`
+    (running-mean access loss), each float32 [..., G], on the placements'
+    device, never leaving it. Bit for bit the reference twin's."""
+    from repro_torch.core.photonics import gateway_access_loss_db_torch
+
+    pos = positions.long()
+    lead, g_n = pos.shape[:-2], int(pos.shape[-2])
+    pos = pos.reshape(-1, g_n, 2)
+    lut = topology.lut_tensors(cfg, pos.device)
+    routers = lut["coords"]
+    n_r = int(routers.shape[0])
+    if cfg.coords is None:
+        # Derived mesh: the Manhattan closed form (d in 0 .. mx + my - 2).
+        d_pad = cfg.mesh_x + cfg.mesh_y - 1
+        dist = torch.sum(torch.abs(routers[None, :, None, :]
+                                   - pos[:, None, :, :]), dim=-1)
+    else:
+        d_pad = topology.max_hops(cfg) + 1
+        dist = lut["hop"][:, pos[..., 0], pos[..., 1]].movedim(0, 1)
+    levels = torch.arange(1, g_n + 1, device=pos.device)
+    caps = (n_r + levels - 1) // levels                       # ceil(R/g)
+    hops = _class_hop_sums(dist, caps, d_pad)
+    # The sum is an exact integer; XLA compiles jnp.mean's division by the
+    # constant R as a multiplication by float32(1 / R).
+    src_hops = hops.to(torch.float32) * float(np.float32(1.0 / n_r))
+    gw_db = _running_mean_db(gateway_access_loss_db_torch(pos, cfg))
+    return {"src_hops": src_hops.reshape(lead + (g_n,)),
+            "gw_loss_db": gw_db.reshape(lead + (g_n,))}
+
+
+def placement_tables_from_lut_torch(positions, hop_lut, edge_lut,
+                                    router_mask, caps, *, d_pad: int,
+                                    db_per_hop: float) -> dict:
+    """`placement_tables_torch` with the topology as data (the reference's
+    `placement_tables_from_lut_jnp`, batched over placements [..., g_pad,
+    2]): `hop_lut` [r_pad, X, Y] router -> coordinate hops, `edge_lut`
+    [X, Y] boundary distances, `router_mask` [r_pad] (1 where the router
+    exists), `caps` [g_pad] per-level capacities ceil(R_real / g), `d_pad`
+    the distance loop bound, `db_per_hop` the access dB per hop. The same
+    class-column schedule over the real routers; `src_hops` is the sum
+    over real routers divided by their count."""
+    pos = torch.as_tensor(positions).long()
+    dev = pos.device
+    lead, g_n = pos.shape[:-2], int(pos.shape[-2])
+    pos = pos.reshape(-1, g_n, 2)
+    hop = torch.as_tensor(hop_lut, device=dev).long()
+    r_pad = int(hop.shape[0])
+    router_on = torch.as_tensor(router_mask, device=dev).reshape(r_pad) != 0
+    caps = torch.as_tensor(caps, device=dev).long().reshape(g_n)
+    n_real = torch.clamp_min(torch.sum(router_on.to(torch.float32)), 1.0)
+    dist = hop[:, pos[..., 0], pos[..., 1]].movedim(0, 1)
+    hops = _class_hop_sums(dist, caps, int(d_pad), router_on)
+    edge = torch.as_tensor(edge_lut, device=dev)
+    per_gw_db = edge[pos[..., 0], pos[..., 1]].to(torch.float32) \
+        * float(np.float32(db_per_hop))
+    return {"src_hops": (hops.to(torch.float32) / n_real)
+            .reshape(lead + (g_n,)),
+            "gw_loss_db": _running_mean_db(per_gw_db)
+            .reshape(lead + (g_n,))}
 
 
 # ---------------------------------------------------------------------------

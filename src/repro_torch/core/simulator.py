@@ -35,7 +35,10 @@ Padded sweeps: `sweep_topology` / `sweep_topology_batch` / `shard_sweep`
 the grid maxima, each lane carrying its own topology (`lane_topology`); one
 `epoch_step` launch on the card for RESIPI / RESIPI_ALL, where the
 reference runs its scan body. `search_placement(engine="host")` scores one
-generation per `sweep_placement` call.
+generation per `sweep_placement` call; the default `engine="device"`
+(`core/search.py`) builds and scores every generation on the device,
+through `placement_scoring` / `score_placement_tables` (one launch a
+generation, every chain's candidates as its lanes).
 
 Streaming: `SimSession` steps a carried `SimState` through trace chunks
 (`step_chunk`, `swap_placement`, `summary`) and `session_tick` advances B
@@ -511,19 +514,27 @@ def make_step(sim: SimConfig, tables: dict, knobs: Dict[str, torch.Tensor],
 # Engine core
 # ---------------------------------------------------------------------------
 
+# Device placement searches run (`core/search.py`): one per search, counted
+# once its last generation is launched, whatever the island count.
+_STATS = {"search_dispatches": 0}
+
+
 def engine_stats() -> dict:
-    """Kernel launches and builds, plain-loop runs and table builds."""
+    """Kernel launches and builds, plain-loop runs, table builds and
+    device placement searches."""
     launches = dict(backend.COUNTERS["launches"])
     return {"epoch_step_launches": launches.get("epoch_step", 0),
             "kernel_launches": launches,
             "kernel_builds": dict(backend.COUNTERS["builds"]),
             "loop_runs": backend.COUNTERS["loop_runs"],
             "selection_table_builds":
-                build_selection_tables.cache_info().misses}
+                build_selection_tables.cache_info().misses,
+            "search_dispatches": _STATS["search_dispatches"]}
 
 
 def reset_engine_stats() -> None:
     backend.reset_counters()
+    _STATS["search_dispatches"] = 0
 
 
 def _initial_state(sim: SimConfig, knobs: Dict[str, torch.Tensor],
@@ -628,34 +639,37 @@ def _scan_trace(state: SimState, xs: tuple, sim: SimConfig, tables: dict,
 
 
 def _lane_total(x: torch.Tensor) -> torch.Tensor:
-    """Per-lane sum of [B, T] over T in a fixed pairwise order (halving the
-    interval axis, odd lengths padded with 0.0): lane b's total is the same
-    float whatever B is and on either device."""
+    """Per-lane sums of [B, T, ...] over T in a fixed pairwise order (the
+    interval axis padded with 0.0 to a power of two, then halved; the same
+    tree as halving with one 0.0 appended at each odd length): lane b's
+    total is the same float whatever B is and on either device."""
+    t = x.shape[1]
+    width = 1 << max(t - 1, 0).bit_length()
+    if width != t:
+        x = torch.cat([x, x.new_zeros((x.shape[0], width - t)
+                                      + x.shape[2:])], dim=1)
     while x.shape[1] > 1:
-        if x.shape[1] % 2:
-            x = torch.cat([x, torch.zeros_like(x[:, :1])], dim=1)
         x = x[:, 0::2] + x[:, 1::2]
     return x[:, 0]
+
+
+_FLOAT_SUMS = ("latency", "power_mw", "energy", "reconfig_nj")
 
 
 def _record_sums(recs: dict, t_mask: torch.Tensor) -> dict:
     """Mask-correct per-lane record totals ([B] each); records are already
     t_valid-masked, so plain sums ignore padded intervals. Counts and
     integer-valued records sum exactly in any order; the float records go
-    through `_lane_total`."""
+    through `_lane_total`, all four in one pass."""
     def tot(k):
         r = recs[k]
         return torch.sum(r, dim=tuple(range(1, r.dim())))
-    return {
-        "latency": _lane_total(recs["latency"]),
-        "power_mw": _lane_total(recs["power_mw"]),
-        "energy": _lane_total(recs["energy"]),
-        "gateways": tot("g").to(_F32),
-        "wavelengths": tot("wavelengths"),
-        "saturated": torch.sum(recs["saturated"].to(_F32), dim=1),
-        "reconfig_nj": _lane_total(recs["reconfig_nj"]),
-        "valid_intervals": torch.sum(t_mask, dim=1),
-    }
+    floats = _lane_total(torch.stack([recs[k] for k in _FLOAT_SUMS], dim=2))
+    out = dict(zip(_FLOAT_SUMS, floats.unbind(dim=1)))
+    out.update(gateways=tot("g").to(_F32), wavelengths=tot("wavelengths"),
+               saturated=torch.sum(recs["saturated"].to(_F32), dim=1),
+               valid_intervals=torch.sum(t_mask, dim=1))
+    return out
 
 
 def _summary_from_sums(sums: dict, n_chiplets_for_lambda) -> dict:
@@ -1687,6 +1701,97 @@ def _placement_scores(summary: dict, inter_latency: np.ndarray,
         summary[PLACEMENT_OBJECTIVE_ALIASES.get(objective, objective)])
 
 
+@dataclasses.dataclass(frozen=True)
+class PlacementScoring:
+    """What `score_placement_tables` reads, built once per device search
+    (before its generation loop, so the loop copies nothing to the card):
+    B lanes of one trace on `sim.cfg`'s own topology that differ only in
+    their placement's two table columns."""
+    sim: SimConfig
+    state0: SimState
+    xs: tuple               # (ext, mem, intra, ext_frac, t_mask) [1, T, ...]
+    kwargs: dict            # lane_trace, knobs, dest, dest_index, pair_trace
+    topo: dict              # the lanes' topology rows but the two columns
+    t_mask: torch.Tensor    # [B, T]
+
+
+def placement_scoring(trace: dict, sim: SimConfig, lanes: int, *,
+                      device=None,
+                      overrides: Optional[Dict[str, torch.Tensor]] = None
+                      ) -> PlacementScoring:
+    """The inputs of `score_placement_tables` for `lanes` lanes of one
+    trace (loads t_mask-multiplied; a destination matrix as the trace
+    gives it, as the reference's device engine prices it); `overrides`
+    holds per-lane [B] knob tensors (`default_knobs`). The lanes' topology
+    is `sim.cfg`'s for every lane, the padded loop's `topo` without
+    padding: `n_chiplets`, `g_max`, `mesh_hops`, `mesh_x` (the mesh-feed
+    width) and `total_gateways` expanded over the lanes, `chip_mask` all
+    ones and `nreal` the chiplet count."""
+    dev = backend.resolve_device(device)
+    ext, mem, intra, ext_frac, t_mask, dest = _trace_arrays(trace, dev)
+    if ext.dim() != 2:
+        raise ValueError("a placement search takes one trace (ext_load "
+                         "[T, C])")
+    cfg = sim.cfg
+    c = int(ext.shape[-1])
+    if c != cfg.n_chiplets:
+        raise ValueError(f"trace covers {c} chiplets but the config has "
+                         f"{cfg.n_chiplets}")
+    xs = (ext[None] * t_mask[None, :, None], mem[None] * t_mask[None],
+          intra[None] * t_mask[None, :, None],
+          torch.broadcast_to(ext_frac, mem.shape)[None], t_mask[None])
+    knobs = default_knobs(sim, lanes, dev, overrides)
+    i32 = dict(dtype=_I32, device=dev)
+    f32 = dict(dtype=_F32, device=dev)
+    mask = torch.ones((lanes, c), **f32)
+    topo = {"n_chiplets": torch.full((lanes,), c, **i32),
+            "g_max": torch.full((lanes,), cfg.max_gateways_per_chiplet,
+                                **i32),
+            "mesh_hops": torch.full(
+                (lanes,), float(np.float32(uniform_mesh_mean_hops(cfg))),
+                **f32),
+            "mesh_x": torch.full((lanes,), topology.feed_width(cfg), **f32),
+            "total_gateways": torch.full((lanes,), cfg.total_gateways,
+                                         **f32),
+            "chip_mask": mask,
+            "nreal": torch.clamp_min(torch.sum(mask, dim=-1), 1.0)}
+    kwargs = {"lane_trace": torch.zeros((lanes,), dtype=torch.long,
+                                        device=dev), "knobs": knobs}
+    if dest is not None:
+        kwargs.update(dest=dest[None],
+                      dest_index=torch.zeros((lanes,), **i32),
+                      pair_trace=torch.zeros((1,), **i32))
+    return PlacementScoring(sim, _initial_state(sim, knobs, topo), xs,
+                            kwargs, topo, xs[4].expand(lanes, -1))
+
+
+def score_placement_tables(scoring: PlacementScoring,
+                           src_hops: torch.Tensor, gw_loss_db: torch.Tensor,
+                           objective: str) -> tuple:
+    """Score B placements from their table columns (`src_hops`,
+    `gw_loss_db` [B, G], e.g. `selection.placement_tables_torch`) as B
+    lanes of one interval loop: one `epoch_step` launch on CUDA tensors
+    for RESIPI / RESIPI_ALL, the plain loop on CPU tensors. Returns
+    (scores [B], summaries [B, len(SUMMARY_KEYS)]) on the device, reading
+    nothing back: the objective is the mean over every interval of
+    `mean_inter_latency` (its sum times float32(1/T), as XLA compiles
+    `jnp.mean`) or a summary key."""
+    topo = dict(scoring.topo, src_hops=src_hops, gw_loss_db=gw_loss_db)
+    _, recs = _scan_trace(scoring.state0, scoring.xs, scoring.sim, None,
+                          topo=topo, **scoring.kwargs)
+    summary = _summary_from_sums(_record_sums(recs, scoring.t_mask),
+                                 topo["nreal"])
+    summaries = torch.stack([summary[k] for k in SUMMARY_KEYS], dim=1)
+    if objective == "inter_latency":
+        inter = recs["mean_inter_latency"]
+        scores = torch.sum(inter, dim=1) \
+            * float(np.float32(1.0 / inter.shape[1]))
+    else:
+        scores = summary[PLACEMENT_OBJECTIVE_ALIASES.get(objective,
+                                                         objective)]
+    return scores, summaries
+
+
 def search_placement(trace: dict, sim: SimConfig, *,
                      objective: str = "inter_latency",
                      generations: int = 10, population: int = 12,
@@ -1694,20 +1799,25 @@ def search_placement(trace: dict, sim: SimConfig, *,
                      cooling: float = 0.7, restart_frac: float = 0.25,
                      engine: str = "device", blocked_positions=None,
                      device=None) -> dict:
-    """Annealed gateway-placement search (the reference's host engine).
+    """Annealed gateway-placement search.
 
     Per generation: the incumbent, single-gateway moves around it
     (spread-reordered by the controller's activation rule) and random
-    restarts, drawn from `np.random.RandomState(seed)` in the reference's
-    order, are scored by one `sweep_placement` call (one `epoch_step`
-    launch on the card for RESIPI / RESIPI_ALL) and one device-to-host copy
-    of what the generation reads; the incumbent moves greedily downhill
-    and uphill with annealed probability, and the best placement ever
-    scored is kept. The default edge scheme is scored in generation 0.
+    restarts are scored; the incumbent moves greedily downhill and uphill
+    with annealed probability, and the best placement ever scored is
+    kept. The default edge scheme is scored in generation 0. Two engines:
 
-    `engine="host"` runs this loop. The reference's default,
-    `engine="device"` (the whole search as one compiled program), is not
-    ported yet and raises NotImplementedError (ROADMAP queue 1 item 5).
+      * `engine="device"` (the default, `search.search_placement_device`):
+        proposals, table columns, scoring, acceptance and history stay on
+        the device, the draws those of the reference's device engine (the
+        threefry twin); one `epoch_step` launch per generation on the card
+        (RESIPI / RESIPI_ALL), no host synchronization between
+        generations, one device-to-host copy per search. For parallel
+        chains see `search_placement_islands`.
+      * `engine="host"`: candidates drawn from `np.random.RandomState(seed)`
+        in the reference host engine's order, each generation scored by
+        one `sweep_placement` call and read back once.
+
     `blocked_positions` excludes routers from every proposal; an `init`
     on a blocked router raises (repair it with `search.repair_placement`).
 
@@ -1716,10 +1826,14 @@ def search_placement(trace: dict, sim: SimConfig, *,
     generation.
     """
     if engine == "device":
-        raise NotImplementedError(
-            "search_placement(engine='device') is not ported yet: the "
-            "device engine (core/search.py and its twin draws) is the next "
-            "slice, ROADMAP queue 1 item 5; pass engine='host'")
+        from repro_torch.core.search import search_placement_device
+
+        return search_placement_device(
+            trace, sim, objective=objective, generations=generations,
+            population=population, seed=seed, init=init,
+            temperature=temperature, cooling=cooling,
+            restart_frac=restart_frac, blocked_positions=blocked_positions,
+            device=device)
     if engine != "host":
         raise ValueError(f"unknown engine {engine!r} (use 'device' or "
                          f"'host')")
@@ -1824,3 +1938,12 @@ def search_placement(trace: dict, sim: SimConfig, *,
             "improvement_frac": 1.0 - best_s / max(default_s, 1e-12),
             "objective": objective, "generations": generations,
             "population": population, "engine": "host", "history": history}
+
+
+def __getattr__(name):
+    # The device search's entry points, as the reference re-exports them
+    # (core/search.py imports this module, so not at its top).
+    if name in ("search_placement_device", "search_placement_islands"):
+        from repro_torch.core import search as _search
+        return getattr(_search, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -39,6 +39,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 from repro_torch.core.constants import NETWORK, NetworkConfig
 
@@ -366,9 +367,31 @@ def default_positions(cfg: NetworkConfig) -> np.ndarray:
     return _ro(pos[np.asarray(chosen)].astype(np.int32))
 
 
+def lut_tensors(cfg: NetworkConfig, device) -> dict:
+    """The gather tables the tensor twins read, as int64 tensors on
+    `device` (memoized per (cfg, device), so a search builds them once,
+    before its generation loop, and never copies a table to the device
+    inside it): `coords` [R, 2], `router_index` [X, Y], `hop` [R, X, Y],
+    `edge` [X, Y] and `centrality` [X, Y]."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        # One entry for "cuda" and the tensors' "cuda:<current>".
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _lut_tensors(cfg, str(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _lut_tensors(cfg: NetworkConfig, device: str) -> dict:
+    tables = {"coords": router_coords(cfg),
+              "router_index": router_index_lut(cfg), "hop": hop_lut(cfg),
+              "edge": edge_lut(cfg), "centrality": centrality_lut(cfg)}
+    return {k: torch.as_tensor(np.asarray(v, np.int64), device=device)
+            for k, v in tables.items()}
+
+
 def clear_topology_caches() -> None:
     """Drop every memoized geometry table (test isolation helper)."""
     for f in (router_coords, router_index_lut, hop_matrix, hop_lut,
               max_hops, mean_hops, edge_distance, edge_lut, centrality_int,
-              centrality_lut, default_positions):
+              centrality_lut, default_positions, _lut_tensors):
         f.cache_clear()

@@ -29,6 +29,9 @@ ulp in about 2% of arguments.
 """
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import functools
 import math
 import struct
 
@@ -104,6 +107,50 @@ def uniform(key: torch.Tensor, shape) -> torch.Tensor:
     bits = random_bits(key, shape)
     f = ((bits >> (32 - _F32_MANTISSA)) | _ONE_F32_BITS).to(torch.int32)
     return f.view(torch.float32) - 1.0
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """`jax.random.fold_in(key, data)`: threefry2x32 of the counter pair
+    (0, data) under `key` (a uint32 `data` seeds the key [0, data]).
+    `data` is an int or an int tensor broadcasting against the key's
+    leading axes; returns [..., 2]."""
+    data = torch.as_tensor(data, dtype=torch.int64,
+                           device=key.device) & _MASK
+    b1, b2 = _threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(data),
+                           data)
+    return torch.stack([b1, b2], dim=-1)
+
+
+def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:
+    """`jax.random.bernoulli(key, p, shape)` (mode "low", p float32):
+    `uniform(key, shape) < p`."""
+    return uniform(key, shape) < float(np.float32(p))
+
+
+def randint(key: torch.Tensor, shape, minval: int,
+            maxval: int) -> torch.Tensor:
+    """`jax.random.randint(key, shape, minval, maxval)` (int32): two
+    32-bit words from the two halves of `split(key)`, folded into the span
+    as (hi mod span) * (2**32 mod span) + lo mod span, mod span, in uint32
+    arithmetic (int64 masked to 32 bits)."""
+    minval, maxval = int(minval), int(maxval)
+    keys = split(key)
+    hi = random_bits(keys[..., 0, :], shape)
+    lo = random_bits(keys[..., 1, :], shape)
+    span = maxval - minval if maxval > minval else 1
+    mult = (2 ** 16) % span
+    mult = (mult * mult) % span
+    off = (((hi % span) * mult) & _MASK) + lo % span
+    off = (off & _MASK) % span
+    return (minval + off).to(torch.int32)
+
+
+def top_k(x: torch.Tensor, k: int) -> tuple:
+    """`jax.lax.top_k(x, k)` over the last axis: (values, indices), the k
+    largest in descending order, ties to the lower index first (a stable
+    descending sort; `torch.topk` promises no order among ties)."""
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
 
 
 def uniform_range(key: torch.Tensor, shape, minval: float,
@@ -256,6 +303,31 @@ def normal_erf_inv(key: torch.Tensor, shape) -> torch.Tensor:
     times sqrt(2). XLA folds that factor into a constant that multiplies
     the draw, so a generator mirroring such a fold starts here."""
     return erf_inv(uniform_range(key, shape, _NORMAL_LO, 1.0))
+
+
+_F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
+    """`jax.random.gumbel(key, shape)` (float32, mode "low", jax's
+    default): `-log(-log(u))` for u uniform on [tiny, 1), with XLA's log."""
+    return -xla_log(-xla_log(uniform_range(key, shape, _F32_TINY, 1.0)))
+
+
+@functools.lru_cache(maxsize=None)
+def _libm_powf():
+    lib = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+    fn = lib.powf
+    fn.restype = ctypes.c_float
+    fn.argtypes = [ctypes.c_float, ctypes.c_float]
+    return fn
+
+
+def xla_powf(x: float, y: float) -> float:
+    """XLA's float32 `x ** y` on the CPU (a host scalar): its code calls
+    the C library's `powf`, and flushes a denormal result to zero."""
+    out = _libm_powf()(float(np.float32(x)), float(np.float32(y)))
+    return 0.0 if abs(out) < _F32_TINY else out
 
 
 def normal(key: torch.Tensor, shape) -> torch.Tensor:

@@ -41,7 +41,10 @@ lane, `kernels/epoch_step/cases.py`: 9, 16 and 144 chiplets, clean,
 destination matrices and a ragged t_mask) through every design that takes
 topology rows against the padded plain loop; an unpadded launch bit for bit
 the same launch through topology rows holding its constants; and
-`sweep_topology` on the card against the CPU and against `simulate`. This
+`sweep_topology` on the card against the CPU and against `simulate`. The
+device placement search (one chain, blocked routers, islands with
+destination matrices, 32 chiplets) on the card against the same search on
+the CPU, its generation loop under `set_sync_debug_mode("error")`. This
 file imports no JAX.
 """
 import numpy as np
@@ -377,6 +380,80 @@ def test_sweep_topology_on_the_card(arch, cuda_device):
                                                           n_chiplets=16))
     for part in ("records", "summary"):
         _compare({k: v[0] for k, v in own[part].items()}, single[part])
+
+
+SEARCH_CARD_CASES = {
+    # (chiplets, destination matrix, islands, search keywords)
+    "single": (4, False, None, dict(generations=4, population=6, seed=1)),
+    "blocked": (4, False, None, dict(
+        generations=3, population=5, seed=2,
+        init=((1, 1), (2, 2), (1, 2), (2, 1)),
+        blocked_positions=[(1, 0), (3, 1)])),
+    "islands": (4, True, 3, dict(generations=4, population=6, seed=3,
+                                 l_m=[0.008, 0.012, 0.02])),
+    "wide": (32, True, 2, dict(generations=3, population=4, seed=0)),
+}
+
+
+@pytest.mark.parametrize("case", list(SEARCH_CARD_CASES))
+def test_device_search_on_the_card_matches_the_cpu(case, cuda_device,
+                                                   monkeypatch):
+    """The device placement search on the card: the same placements and
+    accepted flags as on the CPU, scores at 1e-6; one epoch_step launch
+    per generation, islands included, and one `search_dispatches`; the
+    generation loop raises nothing under set_sync_debug_mode("error")."""
+    from repro_torch import backend
+    from repro_torch.core import search as tsearch
+    from repro_torch.core.constants import NETWORK
+
+    c, dest, islands, kw = SEARCH_CARD_CASES[case]
+    cfg = NETWORK.with_topology(n_chiplets=c)
+    sim = tsim.SimConfig(cfg=cfg)
+    trace = traffic.generate(traffic.ParsecSpec("dedup", 16), 7, cfg,
+                             dest=dest, device=cuda_device)
+    cpu = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+           for k, v in trace.items()}
+    real_core = tsearch._search_core
+
+    def checked_core(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real_core(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    def run(tr, device):
+        if islands is None:
+            return tsim.search_placement(tr, sim, device=device, **kw)
+        return tsim.search_placement_islands(tr, sim, islands=islands,
+                                             device=device, **kw)
+
+    monkeypatch.setattr(tsearch, "_search_core", checked_core)
+    tsim.reset_engine_stats()
+    got = run(trace, cuda_device)
+    assert backend.COUNTERS["launches"] == {"epoch_step": kw["generations"]}
+    assert set(backend.COUNTERS["variants"]) == {
+        "epoch_step:" + ("split" if c <= ops.SPLIT_MAX_CHIPLETS
+                         else "wide") + "+topo"}
+    assert tsim.engine_stats()["search_dispatches"] == 1
+    want = run(cpu, "cpu")
+    keys = ["best_placement", "default_placement"] + (
+        ["incumbent_placement"] if islands is None
+        else ["island_best_placements", "island_incumbents", "best_island"])
+    for key in keys:
+        assert got[key] == want[key], key
+    for key in ("best_score", "default_score") + (
+            () if islands is None
+            else ("island_best_scores", "island_default_scores")):
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-6,
+                                   err_msg=key)
+    if islands is None:
+        assert [h["accepted"] for h in got["history"]] \
+            == [h["accepted"] for h in want["history"]]
+    else:
+        np.testing.assert_array_equal(got["history"]["accepted"],
+                                      want["history"]["accepted"])
 
 
 @pytest.mark.parametrize("name", ecases.WIDE_NAMES)

@@ -208,11 +208,13 @@ def test_host_search_follows_the_reference_trajectory(monkeypatch, case):
 def test_search_engines_and_parameters():
     tr = _port(_trace(seed=7))
     tc = tsim.SimConfig()
-    # The reference's default engine is the device one: not ported yet.
-    with pytest.raises(NotImplementedError, match="next\\s+slice"):
-        tsim.search_placement(tr, tc, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tsim.search_placement(tr, tc, engine="device", device="cpu")
+    # The reference's default engine is the device one.
+    default = tsim.search_placement(tr, tc, generations=2, population=3,
+                                    device="cpu")
+    assert default["engine"] == "device"
+    assert default == tsim.search_placement(tr, tc, engine="device",
+                                            generations=2, population=3,
+                                            device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         tsim.search_placement(tr, tc, engine="gpu", device="cpu")
     for kw, msg in ((dict(population=1), "population"),
