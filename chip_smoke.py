@@ -139,11 +139,35 @@ exits non-zero):
      the plain loop's and the bound, the warm host ms per search and per
      generation, candidate evaluations per second, the device idle share
      of a profiled warm (d), and (a) beside the host engine;
-  9. a `kernels` JSON line (launches on the main paths, error against
+  9. serving and resilience, a main path of its own (`serve_phase`): (a)
+     the reference's two serving walkthroughs on the card
+     (`repro_torch.serve.cases`: the `ResilienceRuntime` fault-storm
+     recovery and the 2-lane `SessionServer` under the same storm), held
+     to STORM_WALK_REFERENCE and SERVER_WALK_REFERENCE (heal chunk / tick,
+     moved gateways, PCM nJ, stall cycles, placements, submit signals,
+     every counter of `metrics()`), every completed session's
+     `replay_standalone` equal to its summary; (b) the launcher
+     (`repro_torch.launch.serve.main`) with its defaults and with a storm
+     and the healer, held to LAUNCH_REFERENCE; (c) a `SessionServer` of
+     256 lanes x 32 intervals serving 1024 sessions of the 8 PARSEC apps
+     (a quarter with destination matrices) through a router storm healed
+     by the device search, until drained. Each serve dispatch must be one
+     epoch_step "split" launch and each heal `generations` "split+topo"
+     ones; the first launch of each kind is held to the plain loop (a
+     tick with a dead gateway slot is a kind of its own), 16 of (c)'s
+     sessions replay exactly, half of them served through the storm and
+     across the heal; then (c)'s served intervals per second end to end
+     (submissions included) and the tick layer's alone, host ms per tick
+     by stage (pack, dispatch = launch +
+     read-back, outcomes and rollback, heal), p50/p99 dispatch wall, the
+     device idle share of 4 profiled ticks, the heals' ms and the tick
+     launch's device time, plain time and bound;
+  10. a `kernels` JSON line (launches on the main paths, error against
      plain, times, the bound and the kernel variant that ran) for all four
      kernels; the simulator kernels' entries add the first design's time
      in the same run (`warp_ms`), the times per launch shape (`shapes`,
-     phases 5's, 7's and 8's among them) and the launches per main path.
+     phases 5's, 7's, 8's and 9's among them) and the launches per main
+     path.
 
 Phases 3 and 4 are the first main path: the launch counters are zeroed
 before phase 3 and read after the last DSE, before any check or timing.
@@ -151,8 +175,8 @@ Phase 5 is the second, zeroed before its streaming and read after its last
 `noc_run`. Each LLM run of phase 6 is a main path of its own, with the
 counters zeroed just before its prefill and read just after its last
 decode step. Phase 7 is zeroed before its walkthrough scan and read after
-its placement search; phase 8, the last, before its search (a) and after
-(e).
+its placement search; phase 8 before its search (a) and after (e); phase
+9, the last, before its walkthroughs and after (c) drains.
 `python3 chip_smoke.py --epoch-grid` builds epoch_step alone and times
 the whole design grid (GRID_FULL: 4-16 chiplets at 1-512 lanes, 17-128 at
 8-32 768, with and without destination matrices), the evidence for
@@ -163,7 +187,8 @@ the main paths (ROWS_AB_SHAPES), the instantiations without topology rows
 constants, in turns, and prints each build's ptxas report of epoch_step;
 `--src DIR` takes the port from DIR (another checkout's `src`) instead,
 where a tree without topology rows times the constants alone.
-`python3 chip_smoke.py --search` builds epoch_step alone and runs phase 8.
+`python3 chip_smoke.py --search` builds epoch_step alone and runs phase 8,
+`python3 chip_smoke.py --serve` builds epoch_step alone and runs phase 9.
 
 The last line is {"ok": true, "device": {...}}. Without a card, or without
 the rest of the repository beside this file, it exits non-zero and prints
@@ -171,7 +196,9 @@ no result.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import io
 import json
 import re
 from concurrent.futures import ThreadPoolExecutor
@@ -230,6 +257,11 @@ GRID_FULL = ([(c, d, n) for c in (4, 5, 8, 12, 16) for d in (False, True)
                 for d in (False, True)
                 for n in (8, 64, 256, 512, 1024, 2048, 4096, 32768)])
 GRID_SLACK = 1.25
+# Turns per design at each grid point, in alternation; the gate reads the
+# median of each design's turns, so one turn that a passing disturbance of
+# the card slows (one of two turns once read 0.2035 ms where the other and
+# every earlier run read ~0.055) does not decide it.
+GRID_TURNS = 3
 # Lanes up to which the grid holds both designs to the plain version (past
 # it, to each other: the plain version at 128 chiplets x 32 768 lanes with
 # destination matrices would take minutes).
@@ -349,6 +381,82 @@ RESILIENCE_REFERENCE = {
 # 12 x 8 generations.
 DSE_ISLANDS, DSE_POPULATION, DSE_GENERATIONS = 64, 32, 16
 WIDE_SEARCH_C, WIDE_SEARCH_ISLANDS = 256, 8
+# Phase 9, serving and resilience, held to the reference (the JAX package
+# on the CPU, jax 0.9.0). (a) examples/noc_reconfig_demo.py's two
+# walkthroughs (`serve.cases`): the fault-storm recovery (:237, latency
+# and baseline per chunk at the printed digits, each heal as (chunk, moved
+# gateways, PCM nJ, stall cycles)) and the session server (:300, each
+# submission's (signal, reason), per tick (in flight, queue depth,
+# degraded, breach, latency at the printed digits), each heal as (tick,
+# moved gateways, PCM nJ, new placement), and every counter of metrics()).
+STORM_WALK_REFERENCE = {
+    "victims": ((1, 0), (2, 3)),
+    "latency": ("18.10", "18.10", "18.41", "17.91", "18.84", "70.39",
+                "28.17", "19.21"),
+    "baseline": ("18.10", "18.10", "18.18", "18.11", "18.30", "18.30",
+                 "18.30", "18.52"),
+    "breach": (False,) * 5 + (True, True, False),
+    "heals": ((6, 6, 12.0, 100),),
+    "placement": ((2, 0), (1, 3), (3, 2), (0, 2)),
+    "bill": (12.0, 100, 1)}
+SERVER_WALK_REFERENCE = {
+    "submits": (("accept", ""), ("throttle", ""), ("accept", ""),
+                ("throttle", ""), ("throttle", ""), ("throttle", ""),
+                ("shed", "shed_queue_full"), ("shed", "shed_queue_full")),
+    "ticks": ((2, 0, False, False, "18.37"), (2, 3, False, False, "17.95"),
+              (2, 3, True, False, "18.26"), (2, 3, True, True, "31.93"),
+              (0, 3, True, True, "22.22"), (1, 1, True, False, "18.56"),
+              (2, 0, True, False, "18.58"), (2, 0, False, False, "18.96"),
+              (2, 0, False, True, "34.36"), (2, 0, False, False, "18.59"),
+              (1, 0, False, False, "18.33"), (1, 0, False, False, "19.68"),
+              (0, 0, False, False, "19.71")),
+    "heals": ((4, 4, 8.0, ((2, 1), (1, 3), (0, 2), (3, 1))),),
+    "metrics": {"submitted": 8, "admitted": 5, "completed": 5,
+                "shed_queue_full": 3, "shed_memory": 0, "shed_priority": 0,
+                "displaced": 1, "deadline_expired": 0, "idle_evicted": 0,
+                "retries": 0, "retry_exhausted": 0, "dispatches": 18,
+                "coalesced_dispatches": 5, "served_chunks": 34,
+                "degraded_ticks": 5, "heals": 1, "ticks": 13,
+                "queue_depth": 0, "queued_intervals": 0,
+                "sessions_in_flight": 0, "degraded": False,
+                "availability": "77%", "baseline_latency": "19.0208",
+                "replacements": 1, "total_pcm_nj": 8.0,
+                "total_stall_cycles": 100}}
+# (b) `python -m repro.launch.serve` (seed 0) with its defaults and with a
+# storm and the healer: every counter it prints (drain = the ticks of
+# `drain()`).
+LAUNCH_RUNS = {"defaults": [],
+               "storm": ["--storm-at", "6", "--heal", "--arrival-rate", "4",
+                         "--deadline", "6", "--lanes", "4"]}
+LAUNCH_REFERENCE = {
+    "defaults": {"submitted": 58, "admitted": 58, "completed": 58,
+                 "ticks": 26, "drain": 2, "served_chunks": 141,
+                 "dispatches": 25, "coalesced_dispatches": 0,
+                 "degraded_ticks": 0, "shed_queue_full": 0,
+                 "shed_memory": 0, "shed_priority": 0, "displaced": 0,
+                 "deadline_expired": 0, "idle_evicted": 0, "retries": 0,
+                 "heals": 0},
+    "storm": {"submitted": 100, "admitted": 65, "completed": 59,
+              "ticks": 29, "drain": 5, "served_chunks": 148,
+              "dispatches": 42, "coalesced_dispatches": 13,
+              "degraded_ticks": 13, "shed_queue_full": 12,
+              "shed_memory": 0, "shed_priority": 15, "displaced": 10,
+              "deadline_expired": 14, "idle_evicted": 0, "retries": 0,
+              "heals": 0, "availability": "93%"}}
+# (c) a server at the size a DSE user runs it: SERVE_LANES lanes x
+# SERVE_CHUNK intervals (phase 5's tick shape), queue SERVE_QUEUE,
+# SERVE_SESSIONS sessions (`serve.cases.dse_traces`) arriving
+# SERVE_PER_TICK a tick, routers under two live gateways dead from the
+# SERVE_STORM_DISPATCH-th dispatch, the healer on; SERVE_PROFILED ticks
+# from tick SERVE_PROFILE_AT under the profiler; SERVE_REPLAYS completed
+# sessions replayed (half with destination matrices; half served through
+# the storm and across the heal).
+SERVE_LANES, SERVE_CHUNK, SERVE_QUEUE = 256, 32, 512
+SERVE_SESSIONS, SERVE_PER_TICK, SERVE_STORM_DISPATCH = 1024, 64, 16
+SERVE_PROFILE_AT, SERVE_PROFILED, SERVE_REPLAYS = 12, 4, 16
+SERVE_SUMMARY_KEYS = ("mean_latency", "mean_power_mw", "mean_energy",
+                      "mean_gateways", "mean_wavelengths", "saturated_frac",
+                      "total_reconfig_nj", "valid_intervals")
 
 
 def fail(msg: str) -> None:
@@ -576,9 +684,10 @@ def epoch_design_grid(dev, card: str, points, phase: str) -> dict:
     """Time "wide" against the design ops.variant would otherwise run at
     each (chiplets, destination matrices, lanes) point: one trace of
     T_INTERVALS intervals, the lanes an l_m sweep over it, both designs in
-    turns (device time, CUDA-graph replays), both held to the plain version
-    (up to GRID_PLAIN_LANES lanes) or to each other. Fails where the design
-    ops.variant picks takes more than GRID_SLACK times the other's time."""
+    GRID_TURNS alternating turns (device time, CUDA-graph replays), both
+    held to the plain version (up to GRID_PLAIN_LANES lanes) or to each
+    other. Fails where the median turn of the design ops.variant picks
+    takes more than GRID_SLACK times the other's."""
     from repro_torch import interop
     from repro_torch.core import simulator as S
     from repro_torch.kernels.epoch_step import cases as ecases
@@ -598,7 +707,7 @@ def epoch_design_grid(dev, card: str, points, phase: str) -> dict:
             l_m=np.linspace(0.004, 0.03, lanes_n).astype(np.float32))
         other = "split" if c <= ops.SPLIT_MAX_CHIPLETS else "warp"
         row = {}
-        for kern in (other, "wide", other, "wide"):
+        for kern in (other, "wide") * GRID_TURNS:
             run = lambda: ops.launch(state0.ctl.g, xs, csim, tbl,  # noqa
                                      kernel=kern, **kw)
             row.setdefault(kern, []).append(time_graph(run))
@@ -621,8 +730,8 @@ def epoch_design_grid(dev, card: str, points, phase: str) -> dict:
             row, chiplets=c, dest=dest, lanes=lanes_n, chosen=chosen,
             chosen_over_fastest=ratio)
         say(phase, f"design choice, {label} x {T_INTERVALS} intervals: "
-                   + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.4f} ms"
-                               for k, v in row.items())
+                   + ", ".join(f"{k} " + " / ".join(f"{x:.4f}" for x in v)
+                               + " ms" for k, v in row.items())
                    + f" (device, in turns; {held}); ops.variant picks "
                      f"{chosen}, {ratio:.3f}x the faster; card: {card}")
         if ratio > GRID_SLACK:
@@ -841,16 +950,26 @@ def device_breakdown(fn, label: str, top: int = 6, phase: str = "6"):
     wall time, the summed device time of its kernels, the device's busy
     share (kernels run one at a time on one stream) and the kernels that
     take the most device time. Returns (wall seconds, {kernel: device
-    microseconds}), or None when the profiler recorded no device time."""
+    microseconds}), or None when the profiler recorded no device time. A
+    failure of `fn` itself is raised, not reported as "not measured"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    raised = []
+
+    def call():
+        try:
+            fn()
+        except BaseException as e:       # the work's own failure
+            raised.append(e)
+            raise
 
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            fn()
+            call()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         kernels = {}
@@ -862,6 +981,8 @@ def device_breakdown(fn, label: str, top: int = 6, phase: str = "6"):
                 us = e.self_cuda_time_total
             kernels[e.key] = kernels.get(e.key, 0.0) + us
     except Exception as e:                   # information only
+        if raised:
+            raise
         say(phase, f"{label}: device breakdown not measured ({e!r})")
         return None
     busy = sum(kernels.values()) / 1e6
@@ -2179,16 +2300,405 @@ def search_phase(dev, card: str) -> dict:
             "idle_share": idle}
 
 
+def serve_phase(dev, card: str) -> dict:
+    """Phase 9, serving and resilience, a main path of its own (counters
+    zeroed before (a), read after (c)): (a) the reference's two serving
+    walkthroughs on the card (`serve.cases`), held to
+    STORM_WALK_REFERENCE and SERVER_WALK_REFERENCE; (b) the launcher
+    (`repro_torch.launch.serve.main`) with LAUNCH_RUNS, held to
+    LAUNCH_REFERENCE; (c) a `SessionServer` at a DSE user's size
+    (SERVE_LANES x SERVE_CHUNK, SERVE_SESSIONS sessions of the 8 PARSEC
+    apps, a quarter with destination matrices, a router storm healed by
+    the device search) run until drained. Every serve dispatch must be one
+    epoch_step launch ("split"), every heal `generations` "split+topo"
+    ones; the first launch of each kind (walkthrough, launcher, (c)'s
+    plain and destination ticks, each before the storm and under it with
+    a dead gateway slot, a heal generation) is held to the plain loop;
+    every completed session of (a) and SERVE_REPLAYS of (c) replay
+    exactly, half of (c)'s served through the dead-gateway frames and
+    across the heal's placement change. Then (c)'s served intervals per
+    second end to end (submissions and ticks) and the tick layer's alone,
+    host ms per tick by stage, p50/p99 dispatch wall, the device idle share of
+    SERVE_PROFILED profiled ticks and the heals' ms, and the tick launch's
+    device time, plain time and bound."""
+    from repro_torch import backend
+    from repro_torch.core import simulator as S
+    from repro_torch.kernels.epoch_step import ops
+    from repro_torch.kernels.epoch_step.ref import epoch_run_reference
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import cases
+    from repro_torch.serve.engine import replay_standalone
+    from repro_torch.serve.policies import ServerPolicy
+    from repro_torch.serve.scheduler import SessionRequest
+
+    # Inputs (set-up, before the counters are zeroed): (c)'s sessions,
+    # drawn on the host as a client would (the launcher in (b) draws its
+    # traces on the card and the server copies them to the host at feed).
+    t_phase = time.perf_counter()
+    dse = cases.dse_traces(SERVE_SESSIONS, "cpu")
+    gen_s = time.perf_counter() - t_phase
+
+    calls, seen = [], set()
+    kernel_epoch_run = ops.epoch_run
+    part = ""
+
+    def recorded_epoch_run(state, xs, sim, tables, **kw):
+        kind = (part, kw.get("topo") is not None,
+                kw.get("dest") is not None, bool(kw.get("faulted")))
+        # A tick's fault frame is shared by its lanes: whether lane 0's
+        # has a dead gateway slot (the storm before its heal) makes a kind
+        # of its own, read (one synchronize) until both are recorded.
+        dead = kind[3] and not kind[1] and not (
+            kind + (False,) in seen and kind + (True,) in seen) \
+            and bool((xs[5][0] < 0.5).any())
+        out = kernel_epoch_run(state, xs, sim, tables, **kw)
+        kind += (dead,)
+        if kind not in seen:                  # the first of each kind
+            seen.add(kind)
+            calls.append((kind, state, xs, sim, tables, kw, out))
+        return out
+
+    policy = ServerPolicy(lanes=SERVE_LANES, chunk_intervals=SERVE_CHUNK,
+                          queue_capacity=SERVE_QUEUE)
+    stage = dict.fromkeys(("pack", "dispatch", "settle", "heal"), 0.0)
+    served, launch_deltas, heal_ms, rows = [0.0], [], [], []
+    dest_dispatches = [0]
+
+    def timed(name, fn):
+        def inner(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                dt = time.perf_counter() - t
+                stage[name] += dt
+                if name == "heal":
+                    heal_ms.append(dt * 1e3)
+        return inner
+
+    ops.epoch_run = recorded_epoch_run
+    torch.cuda.synchronize()
+    S.reset_engine_stats()                       # main path starts
+    try:
+        # (a) the walkthroughs
+        part = "walkthrough"
+        storm = cases.fault_storm_recovery(dev)
+        walk = cases.session_server(dev)
+        # (b) the launcher
+        part = "launcher"
+        launched = {}
+        for name, argv in LAUNCH_RUNS.items():
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                server = launch_serve.main(argv + ["--device", dev.type])
+            launched[name] = (server, buf.getvalue().splitlines())
+        # (c) the DSE-size server, run until drained
+        part = "dse"
+        big = cases.dse_server(policy, dev,
+                               storm_dispatch=SERVE_STORM_DISPATCH)
+        real_launch, real_settle = big._launch, big._settle
+
+        def counted_launch(packed):
+            before = backend.COUNTERS["launches"].get(ops.NAME, 0)
+            out = real_launch(packed)
+            launch_deltas.append(
+                backend.COUNTERS["launches"].get(ops.NAME, 0) - before)
+            dest_dispatches[0] += "dest" in packed["batch"]
+            return out
+
+        def counted_settle(packed, out, now):
+            served[0] += float(
+                out["sums"]["valid_intervals"][packed["ready"]].sum())
+            return real_settle(packed, out, now)
+
+        big._pack = timed("pack", big._pack)
+        big._launch = timed("dispatch", counted_launch)
+        big._settle = timed("settle", counted_settle)
+        big._heal = timed("heal", big._heal)
+        submitted = 0
+
+        def step(profiled=False):
+            nonlocal submitted
+            t_a = time.perf_counter()
+            for tr, pr in dse[submitted:submitted + SERVE_PER_TICK]:
+                big.submit(SessionRequest(trace=tr, priority=pr))
+            submitted = min(submitted + SERVE_PER_TICK, len(dse))
+            t_b = time.perf_counter()
+            before, s0 = dict(stage), served[0]
+            big.tick()
+            rows.append(dict({k: stage[k] - before[k] for k in stage},
+                             submit=t_b - t_a,
+                             tick=time.perf_counter() - t_b,
+                             served=served[0] - s0, profiled=profiled))
+
+        prof, prof_s = None, 0.0
+        t_run = time.perf_counter()
+        while submitted < len(dse) or len(big.queue) \
+                or big.sessions_in_flight:
+            if big.tick_count == SERVE_PROFILE_AT and prof is None:
+                t_prof = time.perf_counter()
+                prof = device_breakdown(
+                    lambda: [step(True) for _ in range(SERVE_PROFILED)],
+                    f"(c) {SERVE_PROFILED} ticks from tick "
+                    f"{SERVE_PROFILE_AT}", top=6, phase="9") or False
+                prof_s = time.perf_counter() - t_prof
+            else:
+                step()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+        launches = dict(backend.COUNTERS["launches"])   # main path ends
+        variants = dict(backend.COUNTERS["variants"])
+        loop_runs = backend.COUNTERS["loop_runs"]
+    finally:
+        ops.epoch_run = kernel_epoch_run
+
+    # (a) against the reference's numbers.
+    ev = storm["events"]
+    got = {"victims": storm["victims"],
+           "latency": tuple(f"{e['latency']:.2f}" for e in ev),
+           "baseline": tuple(f"{e['baseline']:.2f}" for e in ev),
+           "breach": tuple(e["breach"] for e in ev),
+           "heals": tuple((i, e["healed"]["moved_gateways"],
+                           e["healed"]["pcm_nj"],
+                           e["healed"]["stall_cycles"])
+                          for i, e in enumerate(ev) if e["healed"]),
+           "placement": storm["placement"],
+           "bill": (storm["total_pcm_nj"], storm["total_stall_cycles"],
+                    storm["replacements"])}
+    if got != STORM_WALK_REFERENCE:
+        fail(f"(a) fault-storm walkthrough {got}, the reference's "
+             f"{STORM_WALK_REFERENCE}")
+    server = walk["server"]
+    m = server.metrics()
+    got_m = {k: m[k] for k in SERVER_WALK_REFERENCE["metrics"]}
+    got_m["availability"] = f"{m['availability']:.0%}"
+    got_m["baseline_latency"] = f"{m['baseline_latency']:.4f}"
+    got = {"submits": tuple(walk["submits"]),
+           "ticks": tuple((e["in_flight"], e["queue_depth"], e["degraded"],
+                           e["breach"], f"{e['latency']:.2f}")
+                          for e in server.events),
+           "heals": tuple((e["tick"], e["healed"]["moved_gateways"],
+                           e["healed"]["pcm_nj"],
+                           e["healed"]["new_placement"])
+                          for e in server.events if e["healed"]),
+           "metrics": got_m}
+    if got != SERVER_WALK_REFERENCE:
+        fail(f"(a) session-server walkthrough {got}, the reference's "
+             f"{SERVER_WALK_REFERENCE}")
+
+    def replayed(srv, sessions, what):
+        for sess in sessions:
+            ref = replay_standalone(srv.sim, sess, device=dev)
+            mine = sess.summary()
+            bad = [k for k in SERVE_SUMMARY_KEYS if float(ref[k]) != mine[k]]
+            if bad:
+                fail(f"{what}: session {sess.id}'s replay differs in {bad}")
+        return len(sessions)
+
+    n_walk = replayed(server, server.completed, "(a) walkthrough")
+    say("9", f"(a) fault-storm walkthrough: heal at chunk 6, 6 gateways "
+             f"moved off {list(storm['victims'])} (12 nJ, 100 stall "
+             f"cycles), placement {storm['placement']}; session-server "
+             f"walkthrough: submits, {len(server.events)} ticks, heal at "
+             f"tick 4 (4 gateways, 8 nJ) and every counter == the "
+             f"reference's; {n_walk}/{n_walk} completed sessions replay "
+             f"exactly on the card")
+
+    # (b) the launcher's counters.
+    for name, (srv, lines) in launched.items():
+        mm = srv.metrics()
+        want = LAUNCH_REFERENCE[name]
+        got = {k: mm[k] for k in want if k in mm}
+        got["drain"] = int(lines[0].split("(+")[1].split(" drain")[0])
+        if "availability" in want:
+            got["availability"] = f"{mm['availability']:.0%}"
+        if got != want:
+            fail(f"(b) launcher {name}: {got}, the reference's {want}")
+        say("9", f"(b) launcher {name} == the reference's counters: "
+                 + " | ".join(line.split("; chunk wall")[0]
+                              for line in lines[:3])
+                 + f"; dispatch wall p50 {mm['p50_chunk_s'] * 1e3:.3f} ms "
+                   f"p99 {mm['p99_chunk_s'] * 1e3:.3f} ms; card: {card}")
+
+    # (c) the DSE-size server.
+    mc = big.metrics()
+    if set(launch_deltas) != {1} or len(launch_deltas) != mc["dispatches"]:
+        fail(f"(c) epoch_step launches per dispatch "
+             f"{sorted(set(launch_deltas))} over {len(launch_deltas)} "
+             f"dispatches (expected 1 each)")
+    if mc["submitted"] != SERVE_SESSIONS or mc["completed"] \
+            != mc["admitted"] or mc["admitted"] + mc["shed_queue_full"] \
+            + mc["shed_memory"] + mc["shed_priority"] != SERVE_SESSIONS:
+        fail(f"(c) sessions lost: {mc}")
+    if mc["heals"] < 1 or set(big.placement) & set(
+            big.fault_env.failed_positions(big.hw_intervals - 1)):
+        fail(f"(c) the storm was not healed: {mc['heals']} heals, "
+             f"placement {big.placement}")
+    def spans_heal(sess):
+        """Served through dead-gateway frames and across a placement
+        change: the storm and the heal both in one session."""
+        log = sess.served_log
+        return len({tuple(e["placement"]) for e in log}) > 1 and any(
+            e["frame"] is not None and np.min(e["frame"]["gw_ok"]) < 0.5
+            for e in log)
+
+    quarter, sample = SERVE_REPLAYS // 4, []
+    for routed in (False, True):
+        group = [s for s in big.completed
+                 if (s.served_log[0]["chunk"].get("dest") is not None)
+                 == routed]
+        span = [s for s in group if spans_heal(s)]
+        rest = [s for s in group if not spans_heal(s)]
+        if len(span) < quarter or len(rest) < quarter:
+            fail(f"(c) {len(span)} {'destination' if routed else 'plain'} "
+                 f"sessions span the storm and the heal, {len(rest)} do "
+                 f"not (need {quarter} of each to replay)")
+        sample += span[:quarter] + rest[:quarter]
+    n_big = replayed(big, sample, "(c)")
+    # Serve launches: (a)'s chunks and dispatches, (b)'s and (c)'s
+    # dispatches; search launches: `generations` a heal ((a)'s storm and
+    # (b), (c) heal with the default 8, (a)'s server with 4).
+    gens = big.resilience.search_generations
+    heals_all = 2 + mc["heals"] + sum(s.metrics()["heals"]
+                                      for s, _ in launched.values())
+    dispatches = (len(storm["events"]) + m["dispatches"]
+                  + sum(s.metrics()["dispatches"]
+                        for s, _ in launched.values()) + mc["dispatches"])
+    want_variants = {f"{ops.NAME}:split": dispatches,
+                     f"{ops.NAME}:split+topo": 4 + gens * (heals_all - 1)}
+    if variants != want_variants or loop_runs:
+        fail(f"phase 9 main path kernel variants {variants} and "
+             f"{loop_runs} plain-loop runs, expected {want_variants}, 0")
+
+    # The first launch of each kind against the plain loop.
+    err, checked = 0.0, []
+    for kind, state0, xs, csim, tbl, kw, (got_state, got_recs) in calls:
+        want_state, want_recs = epoch_run_reference(state0, xs, csim, tbl,
+                                                    **kw)
+        label = f"{kind[0]}{'+topo' if kind[1] else ''}" \
+                f"{'+dest' if kind[2] else ''}{'+faults' if kind[3] else ''}" \
+                f"{'+dead' if kind[4] else ''}"
+        e = max(compare(got_recs, want_recs, f"phase 9 ({label})"),
+                compare(state_fields(got_state), state_fields(want_state),
+                        f"phase 9 ({label}) state"))
+        err = max(err, e)
+        checked.append(f"{label} {int(kw['lane_trace'].shape[0])} lanes "
+                       f"{e:.3g}")
+    say("9", f"main path: {json.dumps(launches)} launches, variants "
+             f"{json.dumps(variants)} ({dispatches} serve dispatches, "
+             f"{heals_all} heals); (c) one epoch_step launch per dispatch "
+             f"over {len(launch_deltas)} dispatches; the first launch of "
+             f"each kind == the plain loop (max abs err): "
+             + "; ".join(checked))
+
+    keep = [r for r in rows if not r["profiled"]]
+    n_ticks = len(keep)
+    tick_s = sum(r["tick"] for r in keep)
+    per = {k: sum(r[k] for r in keep) / n_ticks * 1e3
+           for k in ("pack", "dispatch", "settle", "heal", "submit",
+                     "tick")}
+    per["rest"] = per["tick"] - sum(per[k] for k in ("pack", "dispatch",
+                                                     "settle", "heal"))
+    submit_s = sum(r["submit"] for r in keep)
+    n_served = sum(r["served"] for r in keep)
+    # End to end, as a client sees it: admission (`submit` validates,
+    # chunks and copies each trace) and the ticks; the tick-only rate is
+    # the tick layer's own.
+    rate = n_served / (submit_s + tick_s)
+    tick_rate = n_served / tick_s
+    idle = None if not prof else \
+        1.0 - sum(prof[1].values()) / 1e6 / prof[0]
+    say("9", f"(c) {SERVE_SESSIONS} sessions "
+             f"({sum('dest' in tr for tr, _ in dse)} with destination "
+             f"matrices) on {SERVE_LANES} lanes x "
+             f"{SERVE_CHUNK}: {mc['completed']} completed over "
+             f"{mc['ticks']} ticks, {mc['dispatches']} dispatches "
+             f"({dest_dispatches[0]} of them with destination matrices, "
+             f"{mc['coalesced_dispatches']} coalesced), "
+             f"{mc['served_chunks']} chunks, shed {mc['shed_queue_full']} / "
+             f"{mc['shed_memory']} / {mc['shed_priority']}, availability "
+             f"{mc['availability']:.1%}; {n_big} sessions ({2 * quarter} "
+             f"with destination matrices; {2 * quarter} served through the "
+             f"storm and across the heal) replay exactly; traces drawn in "
+             f"{gen_s:.2f} s (set-up); card: {card}")
+    say("9", f"(c) served {rate:.4g} intervals/s end to end over "
+             f"{n_ticks} unprofiled ticks ({n_served:.0f} intervals in "
+             f"{(submit_s + tick_s) * 1e3:.1f} ms: submissions "
+             f"{submit_s * 1e3:.1f}, ticks {tick_s * 1e3:.1f}); the tick "
+             f"layer alone {tick_rate:.4g} intervals/s; whole run with "
+             f"the profiled window {run_s:.2f} s, of which "
+             f"the profiler's call {prof_s:.2f} s; host ms "
+             f"per tick: pack {per['pack']:.3f}, dispatch (launch + "
+             f"read-back) {per['dispatch']:.3f}, outcomes and rollback "
+             f"{per['settle']:.3f}, heal {per['heal']:.3f}, rest "
+             f"{per['rest']:.3f}, total {per['tick']:.3f} (submissions "
+             f"{per['submit']:.3f} beside it); dispatch wall p50 "
+             f"{mc['p50_chunk_s'] * 1e3:.3f} ms p99 "
+             f"{mc['p99_chunk_s'] * 1e3:.3f} ms; device idle "
+             f"{'not measured' if idle is None else f'{idle:.1%}'} of "
+             f"{SERVE_PROFILED} profiled ticks; {mc['heals']} heals "
+             f"({', '.join(f'{x:.1f}' for x in heal_ms)} ms; placement "
+             f"{big.placement}, {mc['total_pcm_nj']:.0f} nJ); card: {card}")
+
+    # The serve tick's launch: device time, plain time, bound.
+    shape_rows = {}
+    for kind, state0, xs, csim, tbl, kw, _ in calls:
+        if kind[0] != "dse" or kind[1] or kind[4]:   # dead: same shape
+            continue
+        label = "serve-tick" + ("-dest" if kind[2] else "") \
+            + ("-faults" if kind[3] else "")
+        n_tr, t_len, c = xs[0].shape
+        n_lanes = int(kw["lane_trace"].shape[0])
+        kern = ops.variant(c, kind[3], kind[2], n_lanes)
+        ms = time_graph(lambda: ops.launch(state0.ctl.g, xs,  # noqa: B023
+                                           csim, tbl, **kw))
+        plain = time_cuda(lambda: epoch_run_reference(  # noqa: B023
+            state0, xs, csim, tbl, **kw), 1)[0]
+        nbytes, n_ops = epoch_work(n_tr, t_len, c,
+                                   csim.cfg.max_gateways_per_chiplet,
+                                   n_lanes, kind[2], 1 if kind[3] else 0)
+        bound, by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                        (n_ops / F32_FLOPS_PER_S * 1e3, "operations"))
+        shape_rows[label] = {
+            "variant": kern, "lanes": n_lanes, "intervals": t_len,
+            "chiplets": c, "dest_matrices": int(kind[2]),
+            "fault_frame": int(kind[3]),
+            "dispatches": dest_dispatches[0] if kind[2]
+            else mc["dispatches"] - dest_dispatches[0],
+            "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by,
+            "host_ms_per_tick": per["tick"],
+            "dispatch_wall_p50_ms": mc["p50_chunk_s"] * 1e3,
+            "dispatch_wall_p99_ms": mc["p99_chunk_s"] * 1e3}
+        say("9", f"epoch_step {label} launch ({kern}; {n_lanes} lanes x "
+                 f"{t_len} intervals x {c} chiplets): {ms:.4f} ms (device: "
+                 f"CUDA-graph replays, median of 5); plain loop "
+                 f"{plain:.2f} ms once; bound {bound:.4f} ms by {by} "
+                 f"({nbytes / 1e6:.3f} MB, {n_ops / 1e9:.5f} GFLOP); card: "
+                 f"{card}")
+    say("9", f"phase 9 took {time.perf_counter() - t_phase:.1f} s (drawing "
+             f"(c)'s traces {gen_s:.1f} s, (c)'s run {run_s:.1f} s)")
+    return {"epoch_launches": launches.get(ops.NAME, 0), "epoch_err": err,
+            "epoch_shapes": shape_rows, "variants": variants,
+            "served_intervals_per_s": rate,
+            "tick_served_intervals_per_s": tick_rate,
+            "host_ms_per_tick": per,
+            "idle_share": idle, "heal_ms": heal_ms,
+            "dispatch_wall_ms": (mc["p50_chunk_s"] * 1e3,
+                                 mc["p99_chunk_s"] * 1e3)}
+
+
 def main() -> int:
     global SRC
     args = sys.argv[1:]
     grid_only = args == ["--epoch-grid"]
     search_only = args == ["--search"]
+    serve_only = args == ["--serve"]
     rows_ab = args[:1] == ["--rows-ab"] and (
         len(args) == 1 or (len(args) == 3 and args[1] == "--src"))
-    if args and not (grid_only or rows_ab or search_only):
-        print("usage: chip_smoke.py [--epoch-grid | --search | --rows-ab "
-              "[--src DIR]]", file=sys.stderr)
+    if args and not (grid_only or rows_ab or search_only or serve_only):
+        print("usage: chip_smoke.py [--epoch-grid | --search | --serve | "
+              "--rows-ab [--src DIR]]", file=sys.stderr)
         return 2
     if rows_ab and len(args) == 3:
         SRC = Path(args[2]).resolve()
@@ -2235,7 +2745,7 @@ def main() -> int:
     print(card, flush=True)
     say("1", f"device {kind} x{count}; torch {torch.__version__} cuda "
              f"{torch.version.cuda}")
-    if grid_only or rows_ab or search_only:
+    if grid_only or rows_ab or search_only or serve_only:
         if grid_only:
             ops.build()
             result = {"design_grid": epoch_design_grid(dev, card, GRID_FULL,
@@ -2244,6 +2754,10 @@ def main() -> int:
             ops.build()
             result = {"device_search": search_phase(dev, card)}
             result["device_search"].pop("variants")
+        elif serve_only:
+            ops.build()
+            result = {"serving": serve_phase(dev, card)}
+            result["serving"].pop("variants")
         else:
             result = epoch_rows_ab(dev, card)
         print(json.dumps(result), flush=True)
@@ -2846,12 +3360,16 @@ def main() -> int:
     # --- 8. the device placement search (a main path) ----------------------
     p8 = search_phase(dev, card)
 
-    # --- 9. kernels line ----------------------------------------------------
+    # --- 9. serving and resilience (a main path) ---------------------------
+    p9 = serve_phase(dev, card)
+
+    # --- 10. kernels line ---------------------------------------------------
     def ran(name):
         return ",".join(sorted({k.split(":")[1] for k in
                                 list(variants) + list(p5["variants"])
                                 + list(p7["variants"])
                                 + list(p8["variants"])
+                                + list(p9["variants"])
                                 if k.startswith(name + ":")}))
 
     print(json.dumps({"kernels": [{
@@ -2859,17 +3377,20 @@ def main() -> int:
         "source": "src/repro_torch/kernels/epoch_step/csrc/epoch_step.cu",
         "replaces": "src/repro/kernels/epoch_step/kernel.py:48",
         "launches": stats["epoch_step_launches"] + p5["epoch_launches"]
-        + p7["epoch_launches"] + p8["epoch_launches"],
+        + p7["epoch_launches"] + p8["epoch_launches"]
+        + p9["epoch_launches"],
         "launches_by_path": {"paper+dse": stats["epoch_step_launches"],
                              "streaming+faults+f1": p5["epoch_launches"],
                              "topology+placement": p7["epoch_launches"],
-                             "device search": p8["epoch_launches"]},
+                             "device search": p8["epoch_launches"],
+                             "serve+resilience": p9["epoch_launches"]},
         "max_abs_err": max(max_err, p5["epoch_err"], p7["epoch_err"],
-                           p8["epoch_err"]),
+                           p8["epoch_err"], p9["epoch_err"]),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None, "warp_ms": warp_ms,
         "shapes": dict(epoch_shapes, **p5["epoch_shapes"],
-                       **p7["epoch_shapes"], **p8["epoch_shapes"]),
+                       **p7["epoch_shapes"], **p8["epoch_shapes"],
+                       **p9["epoch_shapes"]),
         "design_choice": p5["design_choice"]}, {
         "name": nops.NAME, "route": "cuda", "variant": ran(nops.NAME),
         "source": "src/repro_torch/kernels/noc_step/csrc/noc_step.cu",

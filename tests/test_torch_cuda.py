@@ -44,8 +44,11 @@ the same launch through topology rows holding its constants; and
 `sweep_topology` on the card against the CPU and against `simulate`. The
 device placement search (one chain, blocked routers, islands with
 destination matrices, 32 chiplets) on the card against the same search on
-the CPU, its generation loop under `set_sync_debug_mode("error")`. This
-file imports no JAX.
+the CPU, its generation loop under `set_sync_debug_mode("error")`.
+Serving on the card: a `session_tick` leaves the carry it was given
+unchanged, a `SessionServer` fed traces made on the card launches once per
+dispatch and every served session replays exactly, and the two serving
+walkthroughs take the CPU's heal decisions. This file imports no JAX.
 """
 import numpy as np
 import pytest
@@ -631,6 +634,120 @@ def test_tick_lane_equals_standalone_session_on_the_card(cuda_device):
                                           sim.cfg.n_chiplets)
             for n, v in out["summary"].items():
                 assert torch.equal(mine[n], v), (tick, k, n)
+
+
+def test_session_tick_leaves_its_input_states_unchanged_on_the_card(
+        cuda_device):
+    """A tick from a carry that a server built (a fresh lane set into
+    it), with destination matrices, a shared fault frame and a masked
+    lane: the carry it was given is unchanged, the masked lane's new carry
+    is its old one, and a lane-wise rollback picks each side's rows."""
+    from repro_torch.core import faults
+    from repro_torch.serve import engine
+
+    sim, t, lanes = tsim.SimConfig(), 8, 4
+    trs = [traffic.generate(traffic.ParsecSpec(traffic.APP_NAMES[i], t),
+                            50 + i, dest=True, device=cuda_device)
+           for i in range(lanes)]
+    batch = {k: torch.stack([torch.as_tensor(tr[k]) for tr in trs])
+             for k in ("ext_load", "mem_load", "int_load", "ext_frac",
+                       "dest")}
+    batch["t_mask"] = torch.ones((lanes, t), device=cuda_device)
+    batch["t_mask"][2] = 0.0
+    frame = faults.compile_faults(
+        [faults.GatewayFault(chiplet=0, slot=1, start=1, end=5)], sim.cfg,
+        t, seed=2)
+    states = tsim.init_session_states(sim, lanes)
+    states, _, _ = tsim.session_tick(states, batch, tsim.selection_tables_torch(
+        sim.cfg, cuda_device), sim, frame=frame)
+    states = engine.set_lanes(states, torch.tensor([1], device=cuda_device),
+                              tsim.init_session_states(sim, 1))
+    before = {k: v.clone() for k, v in _state(states).items()}
+    new, _, sums = tsim.session_tick(states, batch, tsim.selection_tables_torch(
+        sim.cfg, cuda_device), sim, frame=frame)
+    torch.cuda.synchronize()
+    for k, v in _state(states).items():
+        assert torch.equal(v, before[k]), k
+        assert torch.equal(_state(new)[k][2], before[k][2]), k
+    assert all(float(v[2]) == 0.0 for v in sums.values())
+    keep = torch.tensor([True, False, True, False], device=cuda_device)
+    rolled = engine.where_lanes(keep, new, states)
+    for k, v in _state(rolled).items():
+        assert torch.equal(v[0], _state(new)[k][0]), k
+        assert torch.equal(v[1], before[k][1]), k
+
+
+def test_served_lanes_replay_exactly_on_the_card(cuda_device):
+    """A 4-lane server on the card fed traces made on the card (plain and
+    with destination matrices, ragged lengths): one epoch_step launch per
+    dispatch, every completed session's replay on the card equal to its
+    summary bit for bit, and the same counters and summaries (1e-6) as
+    the same server on the CPU."""
+    from repro_torch import backend
+    from repro_torch.serve import engine, policies, scheduler
+
+    sim = tsim.SimConfig()
+    runs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        server = engine.SessionServer(
+            sim, policies.ServerPolicy(lanes=4, chunk_intervals=8,
+                                       queue_capacity=8), device=dev)
+        for i in range(7):
+            tr = traffic.generate(traffic.ParsecSpec(
+                traffic.APP_NAMES[i], 9 + 5 * i), 60 + i, dest=i % 3 == 2,
+                device=dev)
+            server.submit(scheduler.SessionRequest(trace=tr))
+        backend.reset_counters()
+        server.drain()
+        m = server.metrics()
+        if dev.type == "cuda":
+            assert backend.COUNTERS["launches"] == {
+                "epoch_step": m["dispatches"]}
+        assert m["completed"] == 7
+        for sess in server.completed:
+            ref = engine.replay_standalone(sim, sess, device=dev)
+            mine = sess.summary()
+            for k in ("mean_latency", "mean_power_mw", "mean_energy",
+                      "mean_gateways", "valid_intervals"):
+                assert float(ref[k]) == mine[k], (str(dev), sess.id, k)
+        runs[dev.type] = (m, [s.summary() for s in server.sessions.values()])
+    (gm, gs), (cm, cs) = runs["cuda"], runs["cpu"]
+    skip = ("p50_chunk_s", "p99_chunk_s")
+    assert {k: v for k, v in gm.items() if k not in skip} \
+        == {k: v for k, v in cm.items() if k not in skip}
+    for a, b in zip(gs, cs):
+        for k in ("mean_latency", "mean_power_mw", "mean_energy",
+                  "mean_gateways"):
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-6, atol=1e-6)
+        assert a["valid_intervals"] == b["valid_intervals"]
+
+
+def test_serving_walkthroughs_on_the_card_match_the_cpu(cuda_device):
+    """The reference's two serving walkthroughs (`serve.cases`) on the
+    card against the CPU: every heal decision (chunk or tick, placements,
+    moved gateways, PCM nJ), the submits and the counters exactly, the
+    latencies at 1e-6."""
+    from repro_torch.serve import cases
+
+    storm = {d: cases.fault_storm_recovery(d) for d in ("cuda", "cpu")}
+    for a, b in zip(storm["cuda"]["events"], storm["cpu"]["events"]):
+        assert a["breach"] == b["breach"]
+        assert (a["healed"] is None) == (b["healed"] is None)
+        if b["healed"] is not None:
+            assert a["healed"]["new_placement"] \
+                == b["healed"]["new_placement"]
+        np.testing.assert_allclose(a["latency"], b["latency"], rtol=1e-6)
+    assert storm["cuda"]["placement"] == storm["cpu"]["placement"] \
+        == ((2, 0), (1, 3), (3, 2), (0, 2))
+    walk = {d: cases.session_server(d) for d in ("cuda", "cpu")}
+    assert walk["cuda"]["submits"] == walk["cpu"]["submits"]
+    g, c = walk["cuda"]["server"], walk["cpu"]["server"]
+    skip = ("p50_chunk_s", "p99_chunk_s", "baseline_latency")
+    assert {k: v for k, v in g.metrics().items() if k not in skip} \
+        == {k: v for k, v in c.metrics().items() if k not in skip}
+    assert [(e["tick"], e["healed"]["new_placement"]) for e in g.events
+            if e["healed"]] == [(e["tick"], e["healed"]["new_placement"])
+                                for e in c.events if e["healed"]]
 
 
 @pytest.mark.parametrize("arch", ARCHS, ids=lambda a: a.value)
