@@ -162,12 +162,34 @@ exits non-zero):
      read-back, outcomes and rollback, heal), p50/p99 dispatch wall, the
      device idle share of 4 profiled ticks, the heals' ms and the tick
      launch's device time, plain time and bound;
-  10. a `kernels` JSON line (launches on the main paths, error against
+  10. Pareto co-design, a main path of its own (`pareto_phase`): (a) the
+     reference's walkthrough (`search_codesign` over 64 / 144 / 256
+     chiplets, 8 PARSEC apps at 12 intervals, 4 islands x 6 x 6, one
+     "wide+topo" launch of 576 lanes a generation) on the device engine
+     and on the host engine, and its front re-scored by
+     `rescore_front_host`; (b) a DSE-size co-design (100 intervals with
+     destination matrices, 8 islands x 8 x 10, 1536 lanes a launch) and
+     its re-scoring. (a) and (b) are held to the reference device engine
+     (PARETO_WALK_REFERENCE, PARETO_DSE_REFERENCE: front entries exact,
+     objectives and hypervolume at 1e-6, archive-size history and
+     evaluations exact, every generation's decisions; a decision that
+     parts must be a near-tie under NEAR_TIE, printed with its gap), the
+     host search to the reference host engine
+     (PARETO_WALK_HOST_REFERENCE); each device search must make
+     `generations` launches and one `search_dispatches`, its loop under
+     `set_sync_debug_mode("error")`; every launch of (a) and the first
+     and last of (b) are held against the padded plain loop; then per
+     launch shape the device time, the plain loop's and the bound, the
+     warm host ms per search and per generation by stage, candidate
+     evaluations per second, the device idle share of a profiled warm
+     (b), and (b)'s launch on its 64-chiplet lanes against its
+     256-chiplet lanes;
+  11. a `kernels` JSON line (launches on the main paths, error against
      plain, times, the bound and the kernel variant that ran) for all four
      kernels; the simulator kernels' entries add the first design's time
      in the same run (`warp_ms`), the times per launch shape (`shapes`,
-     phases 5's, 7's, 8's and 9's among them) and the launches per main
-     path.
+     phases 5's, 7's, 8's, 9's and 10's among them) and the launches per
+     main path.
 
 Phases 3 and 4 are the first main path: the launch counters are zeroed
 before phase 3 and read after the last DSE, before any check or timing.
@@ -176,7 +198,8 @@ Phase 5 is the second, zeroed before its streaming and read after its last
 counters zeroed just before its prefill and read just after its last
 decode step. Phase 7 is zeroed before its walkthrough scan and read after
 its placement search; phase 8 before its search (a) and after (e); phase
-9, the last, before its walkthroughs and after (c) drains.
+9 before its walkthroughs and after (c) drains; phase 10, the last, before
+its walkthrough search and after (b)'s re-scoring.
 `python3 chip_smoke.py --epoch-grid` builds epoch_step alone and times
 the whole design grid (GRID_FULL: 4-16 chiplets at 1-512 lanes, 17-128 at
 8-32 768, with and without destination matrices), the evidence for
@@ -188,7 +211,9 @@ constants, in turns, and prints each build's ptxas report of epoch_step;
 `--src DIR` takes the port from DIR (another checkout's `src`) instead,
 where a tree without topology rows times the constants alone.
 `python3 chip_smoke.py --search` builds epoch_step alone and runs phase 8,
-`python3 chip_smoke.py --serve` builds epoch_step alone and runs phase 9.
+`python3 chip_smoke.py --serve` builds epoch_step alone and runs phase 9,
+`python3 chip_smoke.py --pareto` builds epoch_step alone and runs phase
+10.
 
 The last line is {"ok": true, "device": {...}}. Without a card, or without
 the rest of the repository beside this file, it exits non-zero and prints
@@ -198,6 +223,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import io
 import json
 import re
@@ -205,7 +231,9 @@ from concurrent.futures import ThreadPoolExecutor
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -457,6 +485,347 @@ SERVE_PROFILE_AT, SERVE_PROFILED, SERVE_REPLAYS = 12, 4, 16
 SERVE_SUMMARY_KEYS = ("mean_latency", "mean_power_mw", "mean_energy",
                       "mean_gateways", "mean_wavelengths", "saturated_frac",
                       "total_reconfig_nj", "valid_intervals")
+# Phase 10, Pareto co-design (`pareto_phase`), RESIPI over 64 / 144 / 256
+# chiplets and the 8 PARSEC apps, traces at 256 chiplets from the keys
+# split(prng_key(seed), 8): (a) the reference's walkthrough
+# (examples/noc_reconfig_demo.py:465-478: 12 intervals from seed 5,
+# PARETO_WALK); (b) a DSE-size co-design at the settings of
+# benchmarks/bench_pareto.py (100 intervals from seed 20 with destination
+# matrices, PARETO_DSE). Their reference values below are the JAX package's
+# on the CPU (jax 0.9.0) on the reference's own traces: each front entry as
+# (n_chiplets, island, L_m, placement, latency, power mW, energy), the
+# archive size after each (point, generation), the hypervolume against 2x
+# the front's maxima, and (device engine) every generation's decisions per
+# point: "ib" the argmin candidate of each island, "improved" the elitist
+# update, "accepted" the Metropolis move (K characters a generation).
+# tests/test_torch_pareto.py re-derives every one from the reference.
+PARETO_COUNTS = (64, 144, 256)
+PARETO_APPS = ("blackscholes", "swaptions", "streamcluster", "facesim",
+               "fluidanimate", "bodytrack", "canneal", "dedup")
+PARETO_TRACES = {"a": (12, 5, False), "b": (100, 20, True)}
+PARETO_RUNS = {
+    "a": dict(islands=4, generations=6, population=6, archive=24,
+              migrate_every=3,
+              knob_grids={"l_m": [0.008, 0.0152, 0.024, 0.032]}, seed=0),
+    "b": dict(islands=8, generations=10, population=8, archive=32,
+              migrate_every=4,
+              knob_grids={"l_m": [float(v) for v in
+                                  np.linspace(0.004, 0.032, 8)]}, seed=0)}
+# A decision may part from the reference's only on a near-tie: the two
+# values it compares within this relative gap (ROADMAP queue 3, P9).
+NEAR_TIE = 1e-6
+PARETO_WALK_REFERENCE = {
+    "front": (
+        (256, 0, 0.008, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         722.7926025390625, 132179.265625, 101424672.0),
+        (256, 1, 0.0152, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         724.7828369140625, 103211.0625, 80024656.0),
+        (256, 2, 0.024, ((1, 1), (2, 3), (1, 0), (1, 3)),
+         729.3093872070312, 86676.4453125, 66683080.0),
+        (256, 2, 0.024, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         729.4989013671875, 84363.015625, 64998420.0),
+        (256, 3, 0.032, ((1, 2), (3, 1), (1, 0), (2, 3)),
+         734.8092651367188, 77932.0625, 59754476.0),
+        (256, 3, 0.032, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         735.1102905273438, 75636.859375, 58073136.0),
+        (144, 0, 0.008, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         1170.3427734375, 74418.34375, 92167424.0),
+        (144, 1, 0.0152, ((2, 1), (0, 2), (3, 3), (1, 0)),
+         1172.007080078125, 59600.921875, 74315712.0),
+        (144, 1, 0.0152, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         1172.049560546875, 58310.4765625, 72801672.0),
+        (144, 2, 0.024, ((2, 1), (0, 2), (3, 2), (2, 0)),
+         1175.1719970703125, 49021.1171875, 60632272.0),
+        (144, 2, 0.024, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         1175.385986328125, 47715.390625, 59100856.0),
+        (144, 3, 0.032, ((1, 1), (2, 3), (3, 1), (0, 0)),
+         1180.988525390625, 44094.9453125, 54246548.0),
+        (144, 3, 0.032, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         1181.3028564453125, 42798.80859375, 52717616.0),
+        (64, 0, 0.008, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         2152.85205078125, 33262.796875, 75388920.0),
+        (64, 1, 0.0152, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         2154.275390625, 25990.421875, 59199736.0),
+        (64, 2, 0.024, ((1, 1), (2, 3), (3, 1), (0, 1)),
+         2156.47900390625, 21887.73828125, 49335944.0),
+        (64, 2, 0.024, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         2156.7294921875, 21301.046875, 48072836.0),
+        (64, 3, 0.032, ((1, 1), (2, 3), (3, 1), (1, 0)),
+         2162.17919921875, 19707.1015625, 44171976.0),
+        (64, 3, 0.032, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         2162.49951171875, 19124.62890625, 42912168.0)),
+    "candidate_evals": 3456,
+    "archive_size": (
+        (5, 6, 6, 6, 6, 6),
+        (12, 13, 13, 13, 13, 13),
+        (19, 19, 19, 19, 19, 19)),
+    "hypervolume": 1.2997289824957728e+17,
+    "ib": (
+        "0005 0002 0000 5000 0001 1000",
+        "0005 0000 0003 4001 0000 0001",
+        "0004 0000 0000 0002 5000 2000"),
+    "improved": (
+        "1111 0001 0000 0000 0000 0000",
+        "1111 0000 0001 0000 0000 0000",
+        "1111 0000 0000 0001 0000 0000"),
+    "accepted": (
+        "1111 1111 1111 1111 1111 1111",
+        "1111 1111 1111 1111 1111 1111",
+        "1111 1111 1111 1111 1111 1111"),
+    "archive": (
+        "66f4ca7f 680937b9 680937b9 680937b9 680937b9 680937b9",
+        "0fe7ead8 0fe5b678 a992bdcc a992bdcc a992bdcc a992bdcc",
+        "ea19ebd5 bda06664 bda06664 b18a1513 b18a1513 b18a1513")}
+PARETO_WALK_HOST_REFERENCE = {
+    "front": (
+        (256, 0, 0.008, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         722.7926025390625, 132179.265625, 101424672.0),
+        (256, 1, 0.0152, ((1, 2), (3, 1), (1, 0), (2, 3)),
+         724.7553100585938, 105498.5703125, 81686424.0),
+        (256, 1, 0.0152, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         724.7828369140625, 103211.0625, 80024656.0),
+        (256, 2, 0.024, ((1, 2), (3, 1), (1, 0), (2, 3)),
+         729.307861328125, 86676.453125, 66681208.0),
+        (256, 2, 0.024, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         729.4989013671875, 84363.0234375, 64998420.0),
+        (256, 3, 0.032, ((1, 2), (3, 1), (1, 0), (2, 3)),
+         734.8092651367188, 77932.0625, 59754476.0),
+        (256, 3, 0.032, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         735.1102905273438, 75636.859375, 58073136.0),
+        (144, 0, 0.008, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         1170.3427734375, 74418.3515625, 92167424.0),
+        (144, 1, 0.0152, ((1, 1), (2, 3), (3, 0), (0, 1)),
+         1172.0194091796875, 59600.91796875, 74315864.0),
+        (144, 1, 0.0152, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         1172.049560546875, 58310.47265625, 72801672.0),
+        (144, 2, 0.024, ((1, 2), (3, 1), (1, 0), (2, 3)),
+         1175.1898193359375, 49021.12109375, 60632948.0),
+        (144, 2, 0.024, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         1175.385986328125, 47715.390625, 59100856.0),
+        (144, 3, 0.032, ((2, 1), (0, 2), (2, 3), (1, 0)),
+         1181.00048828125, 44094.9453125, 54247340.0),
+        (144, 3, 0.032, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         1181.3028564453125, 42798.80859375, 52717612.0),
+        (64, 0, 0.008, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         2152.852294921875, 33262.796875, 75388920.0),
+        (64, 1, 0.0152, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         2154.275146484375, 25990.421875, 59199740.0),
+        (64, 2, 0.024, ((2, 1), (1, 3), (1, 1), (3, 1)),
+         2156.4990234375, 22025.224609375, 49665604.0),
+        (64, 2, 0.024, ((1, 2), (3, 1), (0, 0), (2, 3)),
+         2156.5166015625, 21887.740234375, 49337040.0),
+        (64, 2, 0.024, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         2156.7294921875, 21301.046875, 48072836.0),
+        (64, 3, 0.032, ((1, 1), (2, 3), (3, 1), (0, 1)),
+         2162.145263671875, 19707.103515625, 44170528.0),
+        (64, 3, 0.032, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         2162.49951171875, 19124.62890625, 42912168.0)),
+    "candidate_evals": 3456,
+    "archive_size": (
+        (7, 6, 7, 7, 7, 7),
+        (12, 12, 14, 14, 14, 14),
+        (20, 20, 20, 20, 21, 21)),
+    "hypervolume": 1.2997300700626538e+17,
+    "archive": (
+        "ce2d30cd c6b66585 4200f256 4200f256 4200f256 4200f256",
+        "f3b907ee a93a131c 4b1b8b51 4b1b8b51 2ba13c9a 2ba13c9a",
+        "5a1d94fe 5a1d94fe 5a1d94fe 9fb047cb 0d7c45b2 63c7f0cc")}
+PARETO_DSE_REFERENCE = {
+    "front": (
+        (256, 4, 0.02, ((1, 1), (2, 3), (3, 1), (1, 0)),
+         732.426025390625, 88971.4375, 69591792.0),
+        (256, 4, 0.02, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         732.5690307617188, 86714.515625, 67941720.0),
+        (256, 5, 0.024, ((2, 1), (0, 2), (2, 3), (2, 0)),
+         733.6766357421875, 79293.375, 61752616.0),
+        (256, 5, 0.024, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         733.9179077148438, 77023.1484375, 60096232.0),
+        (256, 6, 0.028, ((1, 1), (2, 3), (3, 1), (1, 0)),
+         735.3553466796875, 71869.15625, 55726696.0),
+        (256, 6, 0.028, ((1, 0), (1, 3), (3, 1), (0, 2)),
+         735.67578125, 69589.03125, 54063264.0),
+        (256, 7, 0.032, ((1, 1), (2, 3), (3, 1), (0, 0)),
+         737.5552978515625, 66144.984375, 51166640.0),
+        (256, 7, 0.032, ((1, 0), (1, 3), (3, 1), (0, 2)),
+         737.9462280273438, 63863.3828125, 49501208.0),
+        (256, 7, 0.032, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         737.9483642578125, 63863.3828125, 49501192.0),
+        (144, 3, 0.016, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         1187.606689453125, 56098.16796875, 71258400.0),
+        (144, 4, 0.02, ((1, 1), (2, 3), (3, 1), (1, 0)),
+         1188.263427734375, 50153.9609375, 63430012.0),
+        (144, 4, 0.02, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         1188.4132080078125, 48879.7109375, 61918216.0),
+        (144, 5, 0.024, ((1, 1), (2, 3), (3, 1), (1, 0)),
+         1189.4013671875, 44708.4609375, 56260280.0),
+        (144, 5, 0.024, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         1189.652587890625, 43426.921875, 54741264.0),
+        (144, 6, 0.028, ((1, 1), (2, 3), (3, 1), (1, 0)),
+         1190.867431640625, 40580.5625, 50798044.0),
+        (144, 6, 0.028, ((1, 0), (1, 3), (3, 1), (0, 2)),
+         1191.196044921875, 39292.484375, 49271592.0),
+        (144, 7, 0.032, ((1, 2), (3, 1), (0, 2), (1, 3)),
+         1192.9111328125, 37363.47265625, 46629512.0),
+        (144, 7, 0.032, ((1, 0), (1, 3), (3, 1), (0, 2)),
+         1193.3095703125, 36074.6015625, 45101828.0),
+        (64, 2, 0.012, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         2176.765869140625, 29281.0859375, 67148456.0),
+        (64, 3, 0.016, ((2, 1), (0, 2), (3, 2), (2, 0)),
+         2177.306396484375, 25649.962890625, 59024188.0),
+        (64, 3, 0.016, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         2177.38134765625, 25083.09375, 57792592.0),
+        (64, 4, 0.02, ((1, 1), (2, 3), (3, 1), (0, 1)),
+         2177.98046875, 22472.96875, 51559176.0),
+        (64, 4, 0.02, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         2178.18212890625, 21901.08203125, 50317128.0),
+        (64, 5, 0.024, ((2, 1), (0, 2), (3, 3), (1, 0)),
+         2178.983154296875, 20065.3359375, 45824024.0),
+        (64, 5, 0.024, ((1, 0), (1, 3), (3, 1), (0, 2)),
+         2179.2587890625, 19489.6640625, 44572888.0),
+        (64, 5, 0.024, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         2179.26171875, 19489.6640625, 44572884.0),
+        (64, 6, 0.028, ((1, 2), (2, 0), (2, 3), (3, 1)),
+         2180.20263671875, 18212.0546875, 41402192.0),
+        (64, 6, 0.028, ((1, 0), (1, 3), (3, 1), (0, 2)),
+         2180.5546875, 17632.9765625, 40143488.0),
+        (64, 7, 0.032, ((1, 2), (2, 0), (2, 3), (2, 1)),
+         2182.089111328125, 16771.9765625, 37986140.0),
+        (64, 7, 0.032, ((1, 2), (2, 0), (2, 3), (0, 1)),
+         2182.091796875, 16765.609375, 37971968.0),
+        (64, 7, 0.032, ((1, 0), (1, 3), (3, 1), (0, 2)),
+         2182.517333984375, 16185.8818359375, 36711880.0),
+        (64, 7, 0.032, ((1, 0), (2, 3), (0, 2), (3, 1)),
+         2182.51953125, 16185.8818359375, 36711876.0)),
+    "candidate_evals": 15360,
+    "archive_size": (
+        (15, 14, 14, 14, 14, 14, 15, 15, 16, 16),
+        (28, 30, 30, 30, 31, 30, 30, 29, 29, 29),
+        (32, 32, 32, 32, 32, 32, 32, 32, 32, 32)),
+    "hypervolume": 5.592381052925855e+16,
+    "ib": (
+        "00000003 00000005 00000000 00000000 60000015 40000003 40000600 "
+        "30000000 60000005 20000000",
+        "00000002 00000004 00000000 00000060 40000006 40000000 00000004 "
+        "40000003 40000002 50000000",
+        "00000002 00000000 00000006 00000000 30000052 00000006 00000000 "
+        "50000000 70000001 00000002"),
+    "improved": (
+        "11111111 00000001 00000000 00000000 00000010 00000000 00000100 "
+        "00000000 00000000 00000000",
+        "11111111 00000001 00000000 00000010 00000000 00000000 00000000 "
+        "00000000 00000000 00000000",
+        "11111111 00000000 00000001 00000000 00000011 00000001 00000000 "
+        "00000000 00000000 00000000"),
+    "accepted": (
+        "11111111 11111111 11111111 11111111 11111111 11111111 11111111 "
+        "11111111 11111111 11111111",
+        "11111111 11111111 11111111 11111111 11111111 11111111 11111111 "
+        "11111111 11111111 11111111",
+        "11111111 11111111 11111111 11111111 11111111 11111111 11111111 "
+        "11111111 11111111 11111111"),
+    "archive": (
+        "9c406e86 67b18475 c3f99bf3 c3f99bf3 b7dcdd9d b7dcdd9d 23aa7230 "
+        "23aa7230 a2338782 a2338782",
+        "532f6a64 90095356 90095356 12916bad c5a541a6 e5d93cec 27ceddcf "
+        "f48c50b5 1c67936f 9d4d77d9",
+        "eb87144f f1c87086 2d1bdcef 8300cf22 425794d2 9dfe3ee7 5b9ee8bf "
+        "5b9ee8bf 5b9ee8bf 5b9ee8bf")}
+
+
+def codesign_decisions(s, threshold, u, temps) -> dict:
+    """The per-generation decisions of a device co-design, as the
+    reference's generation body takes them, from its scalarized scores s
+    [T, GEN, K, P] (float32), Metropolis thresholds exp(-rel / temp) and
+    uniform draws u [T, GEN, K] and temperatures [GEN]: "ib" the argmin
+    candidate (first on ties), "improved" sb < the island's incumbent
+    score, "accepted" delta < 0 or (temp > 0 and u < threshold); each
+    [T, GEN, K]."""
+    s = np.asarray(s, np.float32)
+    ib = np.argmin(s, axis=-1)
+    sb = np.take_along_axis(s, ib[..., None], axis=-1)[..., 0]
+    best = np.minimum.accumulate(sb, axis=1)
+    prev = np.concatenate([np.full_like(sb[:, :1], np.inf), best[:, :-1]],
+                          axis=1)
+    temps = np.asarray(temps, np.float32)[None, :, None]
+    accepted = ((sb - s[..., 0]) < 0) | (
+        (temps > 0) & (np.asarray(u, np.float32)
+                       < np.asarray(threshold, np.float32)))
+    return {"ib": ib, "improved": sb < prev, "accepted": accepted}
+
+
+def pack_decisions(dec: dict) -> dict:
+    """`codesign_decisions` as strings: per point, one group of K
+    characters a generation (the argmin's digit, or 0 / 1)."""
+    return {k: tuple(" ".join("".join(str(int(v)) for v in row)
+                              for row in per_t) for per_t in a)
+            for k, a in dec.items()}
+
+
+def pareto_pin(res: dict, dec: Optional[dict] = None,
+               prints=None) -> dict:
+    """What phase 10 holds a co-design result to (the form of
+    PARETO_WALK_REFERENCE): the front entries, candidate evaluations,
+    archive-size history, hypervolume and, given `codesign_decisions`
+    and the archive's fingerprint after each insert ([T][GEN]
+    `archive_print`s), the packed decisions and fingerprints."""
+    objs = np.array([[e["objectives"][k] for k in
+                      ("latency", "power_mw", "energy")]
+                     for e in res["front"]], np.float64)
+    out = {"front": tuple(
+               (e["topology"]["n_chiplets"], e["island"],
+                e["knobs"].get("l_m"), e["placement"],
+                *(float(v) for v in row))
+               for e, row in zip(res["front"], objs)),
+           "candidate_evals": int(res["candidate_evals"]),
+           "archive_size": tuple(tuple(int(v) for v in row) for row in
+                                 res["history"]["archive_size"]),
+           "hypervolume": pareto_hypervolume(objs)}
+    if dec is not None:
+        out.update(pack_decisions(dec))
+    if prints is not None:
+        out["archive"] = tuple(" ".join(row) for row in prints)
+    return out
+
+
+def pareto_hypervolume(objs: np.ndarray) -> float:
+    """The walkthrough's hypervolume: against 2x the front's maxima."""
+    from repro_torch.core.pareto import hypervolume
+
+    return hypervolume(objs, tuple(2.0 * objs.max(axis=0)))
+
+
+def first_parting(got: dict, want: dict, s, threshold, u):
+    """The first decision (point, generation, island order) where `got`
+    (`pack_decisions`) parts from `want`, as (point, generation, island,
+    kind, gap): gap is the relative gap of the two values the decision
+    compares, from this run's s, threshold and u (an acceptance compares
+    sb with s0 and u with the threshold: the nearer pair). None if no
+    decision parts."""
+    s = np.asarray(s, np.float64)
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    for t in range(len(want["ib"])):
+        g_ib, w_ib = got["ib"][t].split(), want["ib"][t].split()
+        g_imp, w_imp = got["improved"][t].split(), want["improved"][t].split()
+        g_acc, w_acc = got["accepted"][t].split(), want["accepted"][t].split()
+        for gen in range(len(w_ib)):
+            for k in range(len(w_ib[gen])):
+                row = s[t, gen, k]
+                sb = row[int(g_ib[gen][k])]
+                if g_ib[gen][k] != w_ib[gen][k]:
+                    return (t, gen, k, "argmin",
+                            rel(sb, row[int(w_ib[gen][k])]))
+                if g_imp[gen][k] != w_imp[gen][k]:
+                    prev = min(s[t, j, k][int(g_ib[j][k])]
+                               for j in range(gen)) if gen else np.inf
+                    return (t, gen, k, "elitist update", rel(sb, prev))
+                if g_acc[gen][k] != w_acc[gen][k]:
+                    return (t, gen, k, "acceptance", min(
+                        rel(sb, row[0]), rel(float(u[t, gen, k]),
+                                             float(threshold[t, gen, k]))))
+    return None
 
 
 def fail(msg: str) -> None:
@@ -2688,17 +3057,627 @@ def serve_phase(dev, card: str) -> dict:
                                  mc["p99_chunk_s"] * 1e3)}
 
 
+def archive_print(topo, island, pos, valid) -> str:
+    """A fingerprint of an archive's members (point, island, placement of
+    every valid row, in sorted order), 8 hex digits."""
+    ids = sorted((int(t), int(k), tuple(int(v) for v in np.ravel(p)))
+                 for t, k, p, ok in zip(np.asarray(topo), np.asarray(island),
+                                        np.asarray(pos), np.asarray(valid))
+                 if ok)
+    return f"{zlib.crc32(repr(ids).encode()):08x}"
+
+
+def replay_archive(inserts, capacity: int, g: int, want: list, insert):
+    """An archive replayed on the host, insert by insert, from what a
+    search offered it (`inserts`: per insert (objectives [N, 3] float32,
+    placements [N, g, 2], points [N], islands [N]) as numpy), with the
+    search's own insert function (`insert(arch, *batch)`, numpy dicts in
+    and out), against the reference's fingerprint after each insert
+    (`want`, flat). Where the two part, the one near-tie that explains it
+    is found: a single comparison between two offered designs flipped
+    (one design's objective moved to the other's value, or one float32
+    step either side of it; or its eviction key moved past the other's)
+    such that the insert then gives the reference's members. A design
+    offers the same objectives every time (identical lanes), so the moved
+    value holds for that design from then on, as the reference's value
+    does there; each later parting is found in turn. Returns (plain,
+    flipped, partings): the archive replayed as is, the archive replayed
+    with the flips (the second with its size after each insert under
+    "sizes") and per parting (insert index, kind, relative gap of the two
+    values compared in this run), the gap None where no single flip
+    within 1e-5 explains it."""
+    from repro_torch.core.pareto import _empty_archive_np
+
+    moved = {}                          # design -> its moved objectives
+    plain = arch = _empty_archive_np(capacity, g)
+    partings, sizes = [], []
+    for i, batch in enumerate(inserts):
+        plain = insert(plain, *batch)
+        new = insert(arch, *_moved_batch(batch, moved))
+        if archive_print(new["topo"], new["island"], new["pos"],
+                         new["valid"]) != want[i]:
+            found = _near_tie_flip(arch, batch, moved, want[i], insert)
+            if found is None:
+                partings.append((i, "archive", None))
+            else:
+                kind, gap, design, vec, new = found
+                moved[design] = vec
+                partings.append((i, kind, gap))
+        arch = new
+        sizes.append(int(np.sum(arch["valid"])))
+    return plain, dict(arch, sizes=np.asarray(sizes)), partings
+
+
+def archive_front(arch: dict) -> list:
+    """The valid rows of an archive (a result's "archive", or
+    `replay_archive`'s) as (point, island, placement, objectives)."""
+    if "objectives" in arch:
+        arch = {"obj": arch["objectives"], "topo": arch["topology_index"],
+                "island": arch["island"], "valid": arch["valid"],
+                "pos": np.asarray(arch["placements"])}
+    return [(int(t), int(k), tuple(tuple(int(v) for v in xy) for xy in p),
+             tuple(float(np.float32(v)) for v in o))
+            for t, k, p, o, ok in zip(arch["topo"], arch["island"],
+                                      arch["pos"], arch["obj"],
+                                      arch["valid"]) if ok]
+
+
+def _designs(topo, island, pos) -> list:
+    return [(int(t), int(k), tuple(int(v) for v in np.ravel(p)))
+            for t, k, p in zip(topo, island, pos)]
+
+
+def _moved_batch(batch, moved: dict) -> tuple:
+    """`batch` with the moved designs' objectives."""
+    cobj, cpos, point, island = batch
+    if moved:
+        cobj = np.array(cobj, np.float32)
+        for i, d in enumerate(_designs(point, island, cpos)):
+            if d in moved:
+                cobj[i] = moved[d]
+    return cobj, cpos, point, island
+
+
+def _near_tie_flip(arch, batch, moved: dict, target: str, insert):
+    """The single near-tie flip (`replay_archive`) with the smallest gap
+    that makes this insert give the members fingerprinted `target`:
+    (kind, gap, design moved, its moved objectives, the resulting
+    archive), or None."""
+    cobj, cpos, point, island = _moved_batch(batch, moved)
+    n_arch = len(arch["valid"])
+    designs = _designs(arch["topo"], arch["island"], arch["pos"]) \
+        + _designs(point, island, cpos)
+    obj = np.concatenate([arch["obj"], cobj]).astype(np.float64)
+    valid = np.concatenate([arch["valid"],
+                            np.all(np.isfinite(cobj), axis=1)])
+    keys = np.sum(np.log(np.maximum(obj, 1e-12)), axis=1)
+    trials = []
+    rows = np.nonzero(valid)[0]
+    for a in rows:
+        for b in rows:
+            if designs[a] == designs[b]:
+                continue
+            for m in range(3):
+                gap = abs(obj[a, m] - obj[b, m]) / abs(obj[b, m])
+                if gap < 1e-5:
+                    ref = np.float32(obj[b, m])
+                    for v in (np.nextafter(ref, np.float32(-np.inf)), ref,
+                              np.nextafter(ref, np.float32(np.inf))):
+                        if v != np.float32(obj[a, m]):
+                            vec = obj[a].astype(np.float32)
+                            vec[m] = v
+                            trials.append((gap, "dominance test", a, vec))
+            kgap = abs(keys[a] - keys[b])
+            if kgap < 1e-5:
+                for sign in (-1.0, 1.0):
+                    vec = obj[a].astype(np.float32)
+                    vec[0] = np.float32(obj[a, 0]
+                                        * np.exp(sign * (kgap + 1e-6)))
+                    trials.append((kgap, "eviction rank", a, vec))
+    for gap, kind, a, vec in sorted(trials, key=lambda x: x[0]):
+        trial_moved = dict(moved)
+        trial_moved[designs[a]] = vec
+        pre = dict(arch, obj=np.array(arch["obj"], np.float32))
+        for i, d in enumerate(designs[:n_arch]):
+            if d in trial_moved and arch["valid"][i]:
+                pre["obj"][i] = trial_moved[d]
+        trial = insert(pre, *_moved_batch(batch, trial_moved))
+        if archive_print(trial["topo"], trial["island"], trial["pos"],
+                         trial["valid"]) == target:
+            return kind, gap, designs[a], vec, trial
+    return None
+
+
+def trail_inserts(objs, cands) -> list:
+    """The device engine's archive inserts from its trail (objectives
+    [T, GEN, K, P, 3], candidates [T, GEN, K, P, g, 2]), in its order:
+    point-major, then generation, lanes island-major."""
+    n_t, n_g, n_k, n_p = objs.shape[:4]
+    island = np.repeat(np.arange(n_k), n_p)
+    return [(objs[t, gen].reshape(-1, 3),
+             cands[t, gen].reshape(n_k * n_p, -1, 2),
+             np.full(n_k * n_p, t), island)
+            for t in range(n_t) for gen in range(n_g)]
+
+
+def device_archive_insert(capacity: int):
+    """The device engine's `_archive_insert` on CPU tensors, numpy in and
+    out (for `replay_archive`)."""
+    from repro_torch.core import pareto as tpar
+
+    def insert(arch, cobj, cpos, point, island):
+        t = {k: torch.as_tensor(np.asarray(v)) for k, v in arch.items()}
+        t.update({k: t[k].long() for k in ("pos", "topo", "island")})
+        out = tpar._archive_insert(
+            t, torch.as_tensor(np.asarray(cobj, np.float32)),
+            torch.as_tensor(np.asarray(cpos)), torch.as_tensor(point),
+            torch.as_tensor(island), capacity=capacity)
+        return {k: v.numpy() for k, v in out.items()}
+
+    return insert
+
+
+def pareto_phase(dev, card: str) -> dict:
+    """Phase 10, Pareto co-design, a main path of its own (counters zeroed
+    before (a), read after (b)'s re-scoring): (a) the reference's
+    walkthrough on the device engine and on the host engine, its front
+    re-scored by `rescore_front_host`; (b) the DSE-size co-design
+    (PARETO_RUNS["b"]: 1536 lanes x 100 intervals x 256 chiplets with
+    destination matrices a launch) and its re-scoring. The traces are the
+    port's own, from the reference's keys. Each device search must make
+    `generations` "wide+topo" launches (every point's chains in each) and
+    one `search_dispatches`, its generation loop run under
+    `torch.cuda.set_sync_debug_mode("error")`; the host search one launch
+    per point and generation. (a) and (b) are held to the reference device
+    engine (PARETO_WALK_REFERENCE, PARETO_DSE_REFERENCE) and (a)'s host
+    search to the reference host engine (PARETO_WALK_HOST_REFERENCE):
+    front entries exact, objectives and hypervolume at RTOL, histories and
+    evaluations exact; where a decision parts from the reference's, the
+    first one is printed with the relative gap of the values it compares,
+    and the phase fails unless that gap is under NEAR_TIE. Every front
+    must be non-dominated and equal its re-scoring at RTOL. Every launch
+    of (a) and the first and last of (b) are held against the padded
+    plain loop. Then per launch shape the device time (CUDA-graph
+    replays), the plain loop's and the bound; the warm host ms per search
+    and per generation by stage; candidate evaluations per second; the
+    device idle share of a profiled warm (b); and (b)'s launch on its
+    64-chiplet lanes alone against its 256-chiplet lanes alone, padded
+    and unpadded (what "wide" costs per padded chiplet)."""
+    from repro_torch import backend
+    from repro_torch import random as trandom
+    from repro_torch.core import pareto as tpar
+    from repro_torch.core import search as tsearch
+    from repro_torch.core import simulator as S
+    from repro_torch.core import traffic
+    from repro_torch.core.constants import NETWORK
+    from repro_torch.kernels.epoch_step import ops
+    from repro_torch.kernels.epoch_step.ref import epoch_run_reference
+
+    sim = S.SimConfig().with_arch(S.Arch.RESIPI)
+    cfg = NETWORK.with_topology(n_chiplets=max(PARETO_COUNTS))
+    traces = {}
+    for label, (n_int, seed, dest) in PARETO_TRACES.items():
+        keys = trandom.split(trandom.prng_key(seed, device=dev),
+                             len(PARETO_APPS))
+        traces[label] = [traffic.generate(traffic.ParsecSpec(a, n_int),
+                                          keys[i], cfg, dest=dest,
+                                          device=dev)
+                         for i, a in enumerate(PARETO_APPS)]
+    kw = {k: dict(v, n_chiplets=list(PARETO_COUNTS))
+          for k, v in PARETO_RUNS.items()}
+    n_pts = len(PARETO_COUNTS)
+    res = {}
+    entry = {
+        "a": lambda: S.search_codesign(traces["a"], sim, device=dev,
+                                       **kw["a"]),
+        "a-host": lambda: S.search_codesign(traces["a"], sim, engine="host",
+                                            device=dev, **kw["a"]),
+        "a-rescore": lambda: S.rescore_front_host(res["a"], traces["a"],
+                                                  sim, device=dev),
+        "b": lambda: S.search_codesign(traces["b"], sim, device=dev,
+                                       **kw["b"]),
+        "b-rescore": lambda: S.rescore_front_host(res["b"], traces["b"],
+                                                  sim, device=dev)}
+    want_calls = {"a": (kw["a"]["generations"], 1),
+                  "a-host": (n_pts * kw["a"]["generations"], 0),
+                  "a-rescore": (1, 0), "b": (kw["b"]["generations"], 1),
+                  "b-rescore": (1, 0)}
+
+    calls, per_call, trails, loop_ms = [], {}, {}, []
+    stages = {}
+    kernel_epoch_run, real_core = ops.epoch_run, tpar._codesign_core
+    real_launch = ops.launch
+    part = ""
+
+    def recorded_epoch_run(state, xs, csim, tables, **k):
+        out = kernel_epoch_run(state, xs, csim, tables, **k)
+        calls.append((part, state, xs, csim, tables, k, out))
+        return out
+
+    def timed_launch(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return real_launch(*a, **k)
+        finally:
+            stages["launch"] = stages.get("launch", 0.0) \
+                + time.perf_counter() - t0
+
+    def checked_core(*args, **k):
+        # The generation loop: no host synchronization may happen inside.
+        marks = [time.perf_counter()]
+
+        def on_stage(name):
+            now = time.perf_counter()
+            stages[name] = stages.get(name, 0.0) + now - marks[0]
+            marks[0] = now
+
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            out = real_core(*args, on_stage=on_stage, **k)
+        finally:
+            loop_ms.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.set_sync_debug_mode(0)
+        trails[part] = out[1]
+        return out
+
+    host_inserts = []
+    real_insert_np = tpar._archive_insert_np
+
+    def recorded_insert_np(arch, cobj, cpos, ctopo, cisland, capacity):
+        host_inserts.append((np.asarray(cobj, np.float32), cpos, ctopo,
+                             cisland))
+        return real_insert_np(arch, cobj, cpos, ctopo, cisland, capacity)
+
+    ops.epoch_run = recorded_epoch_run
+    tpar._codesign_core = checked_core
+    tpar._archive_insert_np = recorded_insert_np
+    torch.cuda.synchronize()
+    S.reset_engine_stats()                       # main path starts
+    try:
+        for label, fn in entry.items():
+            part = label
+            before = backend.COUNTERS["launches"].get(ops.NAME, 0)
+            dispatches = S.engine_stats()["search_dispatches"]
+            t0 = time.perf_counter()
+            res[label] = fn()
+            torch.cuda.synchronize()
+            per_call[label] = (
+                backend.COUNTERS["launches"].get(ops.NAME, 0) - before,
+                S.engine_stats()["search_dispatches"] - dispatches,
+                (time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        launches = dict(backend.COUNTERS["launches"])   # main path ends
+        variants = dict(backend.COUNTERS["variants"])
+        loop_runs = backend.COUNTERS["loop_runs"]
+    finally:
+        ops.epoch_run = kernel_epoch_run
+        tpar._codesign_core = real_core
+        tpar._archive_insert_np = real_insert_np
+
+    got = {k: v[:2] for k, v in per_call.items()}
+    if got != want_calls:
+        fail(f"phase 10 (epoch_step launches, search_dispatches) per call "
+             f"{got}, expected {want_calls}")
+    want_variants = {f"{ops.NAME}:wide+topo": sum(
+        v[0] for v in want_calls.values())}
+    if variants != want_variants or loop_runs:
+        fail(f"phase 10 main path kernel variants {variants} and "
+             f"{loop_runs} plain-loop runs, expected {want_variants}, 0")
+    say("10", f"main path: {json.dumps(launches)} launches, variants "
+              f"{json.dumps(variants)}; per call (launches, dispatches): "
+              f"{json.dumps(got)}; each device search's generation loop ran "
+              f"under set_sync_debug_mode('error'); host ms per call "
+              f"(first): " + ", ".join(f"{k} {v[2]:.1f}"
+                                       for k, v in per_call.items())
+         + f"; card: {card}")
+
+    # The fronts against the reference's, decision by decision.
+    temps = {k: tsearch._temperatures(np.float32(0.05), np.float32(0.7),
+                                      kw[k]["generations"])
+             for k in ("a", "b")}
+    refs = {"a": PARETO_WALK_REFERENCE, "a-host": PARETO_WALK_HOST_REFERENCE,
+            "b": PARETO_DSE_REFERENCE}
+    partings = {}
+    for label, ref in refs.items():
+        run = label[0]
+        pin = pareto_pin(res[label])
+        objs = np.array([e[4:] for e in pin["front"]], np.float64)
+        for i, row in enumerate(objs):
+            if np.any(np.all(objs <= row, axis=1)
+                      & np.any(objs < row, axis=1)):
+                fail(f"({label}) front entry {pin['front'][i]} is "
+                     f"dominated within the front")
+        cap, gens = kw[run]["archive"], kw[run]["generations"]
+        if label in trails:
+            tr = {k: v.transpose(0, 1).cpu().numpy()
+                  for k, v in trails[label].items()}
+            dec = pack_decisions(codesign_decisions(
+                tr["s"], tr["threshold"], tr["u"], temps[run]))
+            first = first_parting(dec, ref, tr["s"], tr["threshold"],
+                                  tr["u"])
+            if first is not None:
+                t, gen, k, kind, gap = first
+                say("10", f"({label}) first decision that parts from the "
+                          f"reference's: the {kind} at point {t} "
+                          f"({PARETO_COUNTS[t]} chiplets), generation "
+                          f"{gen}, island {k}, relative gap {gap:.3g} of "
+                          f"the values it compares; the trajectories differ "
+                          f"from there, so the front is not compared")
+                if not gap < NEAR_TIE:
+                    fail(f"({label}) the {kind} at point {t}, generation "
+                         f"{gen}, island {k} parts from the reference's "
+                         f"with a relative gap {gap:.3g} >= {NEAR_TIE}")
+                partings[label] = [first]
+                continue
+            inserts = trail_inserts(tr["objs"], tr["cands"])
+            insert = device_archive_insert(cap)
+        else:
+            inserts = host_inserts
+
+            def insert(arch, *batch, cap=cap):
+                return tpar._archive_insert_np(arch, *batch, cap)
+        plain, flipped, found = replay_archive(
+            inserts, cap, len(res[label]["archive"]["placements"][0]),
+            [p for row in ref["archive"] for p in row.split()], insert)
+        if sorted(archive_front(plain)) \
+                != sorted(archive_front(res[label]["archive"])):
+            fail(f"({label}) the archive replayed from what the search "
+                 f"offered is not the search's")
+        found = [(i // gens, i % gens, kind, gap) for i, kind, gap in found]
+        for t, gen, kind, gap in found:
+            say("10", f"({label}) the archive parts from the reference's at "
+                      f"point {t} ({PARETO_COUNTS[t]} chiplets), generation "
+                      f"{gen}: a {kind} on a relative gap "
+                      + ("(no single flip explains it)" if gap is None
+                         else f"{gap:.3g}")
+                      + (" (every argmin, elitist and acceptance decision "
+                         "equals the reference's)" if label in trails
+                         else ""))
+            if gap is None or not gap < NEAR_TIE:
+                fail(f"({label}) the archive parts from the reference's at "
+                     f"point {t}, generation {gen} with no near-tie under "
+                     f"{NEAR_TIE}")
+        lm = kw[run]["knob_grids"]["l_m"]
+        front = sorted(((PARETO_COUNTS[t], k, lm[k], p) + o
+                        for t, k, p, o in archive_front(flipped)),
+                       key=lambda e: e[4:])
+        sizes = tuple(tuple(int(v) for v in flipped["sizes"][i:i + gens])
+                      for i in range(0, len(flipped["sizes"]), gens))
+        partings[label] = found
+        if len(front) != len(ref["front"]):
+            fail(f"({label}) {len(front)} front entries, the reference's "
+                 f"{len(ref['front'])}")
+        worst = 0.0
+        for g_e, w_e in zip(front, ref["front"]):
+            gap = float(np.max(np.abs(np.array(g_e[4:]) - w_e[4:])
+                               / np.abs(w_e[4:])))
+            worst = max(worst, gap)
+            if g_e[:4] != w_e[:4] or not gap <= RTOL:
+                fail(f"({label}) front entry {g_e}, the reference's {w_e}")
+        for key, val in (("candidate_evals", pin["candidate_evals"]),
+                         ("archive_size", sizes)):
+            if val != ref[key]:
+                fail(f"({label}) {key} {val}, the reference's {ref[key]}")
+        hv = pareto_hypervolume(np.array([e[4:] for e in front]))
+        if not np.isclose(hv, ref["hypervolume"], rtol=RTOL, atol=0.0):
+            fail(f"({label}) hypervolume {hv!r}, the reference's "
+                 f"{ref['hypervolume']!r}")
+        say("10", f"({label}) {len(front)} front points from "
+                  f"{pin['candidate_evals']} candidate evaluations, archive "
+                  f"sizes {sizes}, hypervolume {hv:.5g} (the reference's "
+                  f"{ref['hypervolume']:.5g}) == the reference's: entries "
+                  f"exact, objectives within {worst:.3g} relative"
+                  + (f", after {len(found)} near-tie archive decision(s)"
+                     if found else ""))
+        if label != "a-host":
+            print("chiplets |   L_m  | latency | power_mW |   energy | "
+                  "placement (this run, then the reference)", flush=True)
+            for g_e, w_e in list(zip(front, ref["front"]))[:8]:
+                for e in (g_e, w_e):
+                    print(f"{e[0]:8d} | {e[2]:6.4f} | {e[4]:7.2f} | "
+                          f"{e[5]:8.0f} | {e[6]:8.3g} | {e[3]}", flush=True)
+    for label in ("a", "b"):
+        front = np.array([[e["objectives"][k] for k in
+                           ("latency", "power_mw", "energy")]
+                          for e in res[label]["front"]], np.float64)
+        resc = res[f"{label}-rescore"]
+        if resc.shape != front.shape or not np.allclose(
+                resc, front, rtol=RTOL, atol=0.0):
+            fail(f"({label}) rescore_front_host differs from the front by "
+                 f"{np.max(np.abs(resc - front) / np.abs(front)):.3g}")
+        say("10", f"({label}) rescore_front_host == the front within "
+                  f"{np.max(np.abs(resc - front) / np.abs(front)):.3g} "
+                  f"relative")
+
+    # Kernel calls against the padded plain loop: every one of (a), the
+    # first of the host search and of each re-scoring, (b)'s first and last.
+    picked = []
+    for label in entry:
+        mine = [c for c in calls if c[0] == label]
+        picked += mine if label == "a" else (
+            [mine[0], mine[-1]] if label == "b" else mine[:1])
+    err, checked = 0.0, {}
+    for name, state0, xs, csim, tbl, k, (got_state, got_recs) in picked:
+        want_state, want_recs = epoch_run_reference(state0, xs, csim, tbl,
+                                                    **k)
+        e = max(compare(got_recs, want_recs, f"phase 10 ({name})"),
+                compare(state_fields(got_state), state_fields(want_state),
+                        f"phase 10 ({name}) state"))
+        err = max(err, e)
+        n, m = checked.get(name, (0, 0.0))
+        checked[name] = (n + 1, max(m, e))
+    say("10", "kernel calls == the padded plain loop on their own inputs: "
+              + ", ".join(f"({k}) {n} call(s) max abs err {m:.3g}"
+                          for k, (n, m) in checked.items()))
+
+    # Warm host time per search and per generation, by stage.
+    def host_ms(fn, reps):
+        out = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(out))
+
+    warm, per_gen, by_stage, evals = {}, {}, {}, {}
+    tpar._codesign_core = checked_core
+    ops.launch = timed_launch
+    try:
+        for label in ("a", "b", "a-host"):
+            loop_ms.clear()
+            stages.clear()
+            reps = 3
+            warm[label] = host_ms(entry[label], reps)
+            gens = kw[label[0]]["generations"]
+            evals[label] = res[label]["candidate_evals"] \
+                / (warm[label] / 1e3)
+            if label == "a-host":
+                continue
+            per_gen[label] = float(np.median(loop_ms)) / gens
+            st = {k: v * 1e3 / reps / gens for k, v in stages.items()}
+            st["archive"] = st.get("archive", 0.0) * gens
+            st["copy out and set-up"] = warm[label] \
+                - float(np.median(loop_ms))
+            by_stage[label] = st
+    finally:
+        tpar._codesign_core = real_core
+        ops.launch = real_launch
+    for label in ("a", "b"):
+        st = by_stage[label]
+        say("10", f"({label}) warm host ms per search {warm[label]:.2f} "
+                  f"(median of 3), per generation {per_gen[label]:.3f}; by "
+                  f"stage, ms per generation: proposals "
+                  f"{st.get('proposals', 0):.3f}, tables "
+                  f"{st.get('tables', 0):.3f}, score "
+                  f"{st.get('score', 0):.3f} (of it the launch call "
+                  f"{st.get('launch', 0):.3f}), objectives and acceptance "
+                  f"{st.get('acceptance', 0):.3f}; per search: archive "
+                  f"replay {st['archive']:.3f}, copy out and set-up "
+                  f"{st['copy out and set-up']:.3f}; "
+                  f"{evals[label]:.0f} candidate evaluations per second; "
+                  f"card: {card}")
+    say("10", f"(a) through the host engine: warm {warm['a-host']:.2f} ms "
+              f"({warm['a-host'] / warm['a']:.2f}x the device engine's), "
+              f"{evals['a-host']:.0f} candidate evaluations per second; "
+              f"card: {card}")
+    prof = device_breakdown(entry["b"], "(b) warm co-design", top=6,
+                            phase="10")
+    idle = None if prof is None else \
+        1.0 - sum(prof[1].values()) / 1e6 / prof[0]
+    say("10", f"(b) warm co-design: device idle share "
+              f"{'not measured' if idle is None else f'{idle:.1%}'} of a "
+              f"profiled call; card: {card}")
+
+    # Device time per launch shape: one generation's launch.
+    def shape_row(state0, xs, csim, tbl, k):
+        n_tr, t_len, c = xs[0].shape
+        n_lanes = int(k["lane_trace"].shape[0])
+        dest = k.get("dest") is not None
+        kern = ops.variant(c, False, dest, n_lanes, padded=True)
+        ms = time_graph(lambda: ops.launch(state0.ctl.g, xs, csim, tbl,
+                                           **k))
+        plain = time_cuda(lambda: epoch_run_reference(
+            state0, xs, csim, tbl, **k), 1)[0]
+        g_slots = csim.cfg.max_gateways_per_chiplet
+        lane_c = k["topo"]["n_chiplets"].cpu().numpy()
+        pair_c = None
+        if dest:
+            di = k["dest_index"].cpu().numpy()
+            pair_c = [int(lane_c[np.argmax(di == p)])
+                      for p in range(int(k["dest"].shape[0]))]
+        nbytes, n_ops = padded_epoch_work(
+            n_tr, t_len, c, g_slots, lane_c,
+            k["topo"]["g_max"].cpu().numpy(), pair_c)
+        bound, by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                        (n_ops / F32_FLOPS_PER_S * 1e3, "operations"))
+        return {"variant": kern + "+topo", "lanes": n_lanes,
+                "intervals": t_len, "chiplets": c,
+                "dest_matrices": int(dest), "ms": ms, "plain_ms": plain,
+                "bound_ms": bound, "bound_by": by}
+
+    rows = {}
+    for label in ("a", "a-host", "b"):
+        _, state0, xs, csim, tbl, k, _ = next(c for c in calls
+                                              if c[0] == label)
+        row = shape_row(state0, xs, csim, tbl, k)
+        if label in per_gen:
+            row.update(host_ms_per_generation=per_gen[label],
+                       host_ms_per_search=warm[label],
+                       evaluations_per_s=evals[label])
+        rows[f"pareto-{label}"] = row
+        say("10", f"epoch_step ({label}) generation launch ({row['variant']}"
+                  f"; {row['lanes']} lanes x {row['intervals']} intervals x "
+                  f"{row['chiplets']} chiplets"
+                  f"{', destination matrices' if row['dest_matrices'] else ''}"
+                  f"): {row['ms']:.4f} ms (device: CUDA-graph replays, "
+                  f"median of 5); plain loop {row['plain_ms']:.2f} ms once; "
+                  f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}; "
+                  f"card: {card}")
+
+    # What "wide" costs per padded chiplet: (b)'s first launch on its
+    # 64-chiplet lanes alone and on its 256-chiplet lanes alone (both
+    # padded to 256), and on the 64-chiplet lanes unpadded.
+    _, state0, xs, csim, tbl, k, _ = next(c for c in calls if c[0] == "b")
+    lane_c = k["topo"]["n_chiplets"]
+    pad_ms = {}
+    for c_pt in (min(PARETO_COUNTS), max(PARETO_COUNTS)):
+        sel = torch.nonzero(lane_c == c_pt)[:, 0]
+        sub = dict(k, lane_trace=k["lane_trace"][sel],
+                   knobs={n: v[sel] for n, v in k["knobs"].items()},
+                   topo={n: v[sel] for n, v in k["topo"].items()},
+                   dest_index=k["dest_index"][sel])
+        g0 = state0.ctl.g[sel]
+        pad_ms[c_pt] = time_graph(lambda: ops.launch(g0, xs, csim, tbl,
+                                                     **sub))
+        if c_pt == min(PARETO_COUNTS):
+            c0 = c_pt
+            sim0 = dataclasses.replace(csim, cfg=dataclasses.replace(
+                csim.cfg, n_chiplets=c0))
+            xs0 = (xs[0][..., :c0], xs[1], xs[2][..., :c0], xs[3], xs[4])
+            sub0 = dict(sub, topo=dict(sub["topo"],
+                                       chip_mask=sub["topo"]["chip_mask"]
+                                       [:, :c0]),
+                        dest=k["dest"][:, :c0, :c0].contiguous())
+            g00 = g0[:, :c0].contiguous()
+            unpadded = time_graph(lambda: ops.launch(g00, xs0, sim0, tbl,
+                                                     **sub0))
+            n_sel = int(sel.shape[0])
+    say("10", f"(b) one launch on its {n_sel} lanes of "
+              f"{min(PARETO_COUNTS)} chiplets padded to "
+              f"{max(PARETO_COUNTS)}: {pad_ms[min(PARETO_COUNTS)]:.4f} ms; "
+              f"on its {n_sel} lanes of {max(PARETO_COUNTS)} chiplets: "
+              f"{pad_ms[max(PARETO_COUNTS)]:.4f} ms; the "
+              f"{min(PARETO_COUNTS)}-chiplet lanes unpadded: "
+              f"{unpadded:.4f} ms (device, CUDA-graph replays); card: "
+              f"{card}")
+    rows["pareto-b-64-padded"] = {"ms": pad_ms[min(PARETO_COUNTS)],
+                                  "lanes": n_sel}
+    rows["pareto-b-256"] = {"ms": pad_ms[max(PARETO_COUNTS)], "lanes": n_sel}
+    rows["pareto-b-64-unpadded"] = {"ms": unpadded, "lanes": n_sel}
+    return {"epoch_launches": launches.get(ops.NAME, 0), "epoch_err": err,
+            "epoch_shapes": rows, "variants": variants,
+            "warm_host_ms": warm, "host_stages": by_stage,
+            "idle_share": idle,
+            "partings": {k: None if v is None else str(v)
+                         for k, v in partings.items()}}
+
+
 def main() -> int:
     global SRC
     args = sys.argv[1:]
     grid_only = args == ["--epoch-grid"]
     search_only = args == ["--search"]
     serve_only = args == ["--serve"]
+    pareto_only = args == ["--pareto"]
     rows_ab = args[:1] == ["--rows-ab"] and (
         len(args) == 1 or (len(args) == 3 and args[1] == "--src"))
-    if args and not (grid_only or rows_ab or search_only or serve_only):
+    if args and not (grid_only or rows_ab or search_only or serve_only
+                     or pareto_only):
         print("usage: chip_smoke.py [--epoch-grid | --search | --serve | "
-              "--rows-ab [--src DIR]]", file=sys.stderr)
+              "--pareto | --rows-ab [--src DIR]]", file=sys.stderr)
         return 2
     if rows_ab and len(args) == 3:
         SRC = Path(args[2]).resolve()
@@ -2745,7 +3724,7 @@ def main() -> int:
     print(card, flush=True)
     say("1", f"device {kind} x{count}; torch {torch.__version__} cuda "
              f"{torch.version.cuda}")
-    if grid_only or rows_ab or search_only or serve_only:
+    if grid_only or rows_ab or search_only or serve_only or pareto_only:
         if grid_only:
             ops.build()
             result = {"design_grid": epoch_design_grid(dev, card, GRID_FULL,
@@ -2758,6 +3737,10 @@ def main() -> int:
             ops.build()
             result = {"serving": serve_phase(dev, card)}
             result["serving"].pop("variants")
+        elif pareto_only:
+            ops.build()
+            result = {"pareto": pareto_phase(dev, card)}
+            result["pareto"].pop("variants")
         else:
             result = epoch_rows_ab(dev, card)
         print(json.dumps(result), flush=True)
@@ -3363,13 +4346,17 @@ def main() -> int:
     # --- 9. serving and resilience (a main path) ---------------------------
     p9 = serve_phase(dev, card)
 
-    # --- 10. kernels line ---------------------------------------------------
+    # --- 10. Pareto co-design (a main path) ---------------------------------
+    p10 = pareto_phase(dev, card)
+
+    # --- 11. kernels line ---------------------------------------------------
     def ran(name):
         return ",".join(sorted({k.split(":")[1] for k in
                                 list(variants) + list(p5["variants"])
                                 + list(p7["variants"])
                                 + list(p8["variants"])
                                 + list(p9["variants"])
+                                + list(p10["variants"])
                                 if k.startswith(name + ":")}))
 
     print(json.dumps({"kernels": [{
@@ -3378,19 +4365,21 @@ def main() -> int:
         "replaces": "src/repro/kernels/epoch_step/kernel.py:48",
         "launches": stats["epoch_step_launches"] + p5["epoch_launches"]
         + p7["epoch_launches"] + p8["epoch_launches"]
-        + p9["epoch_launches"],
+        + p9["epoch_launches"] + p10["epoch_launches"],
         "launches_by_path": {"paper+dse": stats["epoch_step_launches"],
                              "streaming+faults+f1": p5["epoch_launches"],
                              "topology+placement": p7["epoch_launches"],
                              "device search": p8["epoch_launches"],
-                             "serve+resilience": p9["epoch_launches"]},
+                             "serve+resilience": p9["epoch_launches"],
+                             "pareto co-design": p10["epoch_launches"]},
         "max_abs_err": max(max_err, p5["epoch_err"], p7["epoch_err"],
-                           p8["epoch_err"], p9["epoch_err"]),
+                           p8["epoch_err"], p9["epoch_err"],
+                           p10["epoch_err"]),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None, "warp_ms": warp_ms,
         "shapes": dict(epoch_shapes, **p5["epoch_shapes"],
                        **p7["epoch_shapes"], **p8["epoch_shapes"],
-                       **p9["epoch_shapes"]),
+                       **p9["epoch_shapes"], **p10["epoch_shapes"]),
         "design_choice": p5["design_choice"]}, {
         "name": nops.NAME, "route": "cuda", "variant": ran(nops.NAME),
         "source": "src/repro_torch/kernels/noc_step/csrc/noc_step.cu",

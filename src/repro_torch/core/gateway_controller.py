@@ -183,3 +183,28 @@ def epoch_step(state: ControllerState, packets_this_interval: torch.Tensor,
                                     state.packets_seen),
                                 epoch=state.epoch + 1)
     return new_state, record
+
+
+def scan_controller(loads_per_interval, cfg: ControllerConfig,
+                    interval_cycles: float, *, device=None) -> dict:
+    """Replay the controller over a [T, C] load trace, one `epoch_step` per
+    interval; returns its records stacked over T.
+
+    `loads_per_interval` is the would-be load per single gateway if exactly
+    one gateway were active (total packets / interval); Eq. 5 rescales by
+    the live g each epoch. A tensor stays on its device; anything else goes
+    to `device` (None means the card).
+    """
+    if isinstance(loads_per_interval, torch.Tensor):
+        loads = loads_per_interval.to(torch.float32)
+    else:
+        loads = torch.as_tensor(np.asarray(loads_per_interval, np.float32),
+                                device=resolve_device(device))
+    state = ControllerState.init(int(loads.shape[1]), cfg, loads.device)
+    cycles = float(np.float32(interval_cycles))
+    recs = []
+    for total_load in loads:
+        state, rec = epoch_step(state, total_load * cycles, interval_cycles,
+                                cfg)
+        recs.append(rec)
+    return {k: torch.stack([r[k] for r in recs]) for k in recs[0]}

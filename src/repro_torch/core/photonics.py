@@ -1,10 +1,12 @@
 """Photonic device models for the ReSiPI interposer, on tensors.
 
-Port of `repro.core.photonics` (§3.2): the equal-power-share coupling-ratio
-schedule of the PCMC chain (Eq. 4), interposer power in the three modes of
-the compared architectures, PCM reconfiguration energy, and the
-placement-derived access-waveguide loss (design-time numpy, and its
-tensor twin for placements that stay on the device).
+Port of `repro.core.photonics` (§3.2): the PCM-based directional coupler
+(PCMC, Eqs. 1-3), the equal-power-share coupling-ratio schedule of the PCMC
+chain (Eq. 4) and the laser power it divides, the microring-group device
+count of Fig. 4, interposer power in the three modes of the compared
+architectures, PCM reconfiguration energy, and the placement-derived
+access-waveguide loss (design-time numpy, and its tensor twin for
+placements that stay on the device).
 
 Every tensor function takes the gateway chain on the LAST axis, so leading
 axes are independent lanes. Eq. 4 note (as in the reference): kappa_i counts
@@ -13,11 +15,34 @@ active writer for any activity pattern.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Tuple
+
 import numpy as np
 import torch
 
 from repro_torch.core.constants import (PHOTONIC_POWER, NETWORK,
                                         NetworkConfig, PhotonicPower)
+
+
+def pcmc_coupling_ratio(cl_amorphous, cl_crystalline) -> torch.Tensor:
+    """Eq. 1: kappa = CL_am / CL_cr, clipped to the physical [0, 1]
+    range."""
+    am = torch.as_tensor(cl_amorphous, dtype=torch.float32)
+    cr = torch.as_tensor(cl_crystalline, dtype=torch.float32,
+                         device=am.device)
+    return torch.clamp(am / torch.clamp_min(cr, 1e-12), 0.0, 1.0)
+
+
+def pcmc_split(p_in, kappa, insertion_loss_db: float = 0.0
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eqs. 2-3: split input power into (cross, bar) outputs,
+    P_C = kappa * P_I and P_B = (1 - kappa) * P_I, both arms times the
+    insertion loss (0 dB, lossless, as the paper assumes)."""
+    p = torch.as_tensor(p_in, dtype=torch.float32)
+    k = torch.as_tensor(kappa, dtype=torch.float32, device=p.device)
+    loss = 10.0 ** (-insertion_loss_db / 10.0)
+    return k * p * loss, (1.0 - k) * p * loss
 
 
 def kappa_schedule(active: torch.Tensor) -> torch.Tensor:
@@ -32,6 +57,26 @@ def kappa_schedule(active: torch.Tensor) -> torch.Tensor:
     denom = torch.clamp_min(gt - upstream, 1.0)
     return torch.where(active[..., :-1] > 0, 1.0 / denom[..., :-1],
                        torch.zeros_like(denom[..., :-1]))
+
+
+def power_division(active: torch.Tensor, laser_power_mw) -> torch.Tensor:
+    """Laser power down the PCMC chain (Fig. 4 wiring), per gateway
+    [..., N]: each PCMC taps its cross arm and passes its bar arm on; the
+    last gateway takes what remains. With Eq. 4's ratios every active
+    gateway receives laser_power_mw / GT and idle ones 0 (the PCM power
+    gating of §3.2)."""
+    kappa = kappa_schedule(active)
+    p_bar = torch.as_tensor(laser_power_mw, dtype=torch.float32,
+                            device=kappa.device)
+    p_bar = torch.broadcast_to(p_bar, kappa.shape[:-1])
+    taps = []
+    for i in range(kappa.shape[-1]):
+        p_cross, p_bar = pcmc_split(p_bar, kappa[..., i])
+        taps.append(p_cross)
+    received = torch.stack(taps + [p_bar], dim=-1)
+    # With Eq. 4 the upstream taps exhaust the laser when the last gateway
+    # is idle; guard numerically, as the reference does.
+    return torch.where(active > 0, received, torch.zeros_like(received))
 
 
 def gateway_access_loss_db(gw_pos: np.ndarray,
@@ -78,6 +123,36 @@ def gateway_access_loss_db_torch(gw_pos: torch.Tensor,
         edge_hops = topology.lut_tensors(cfg, pos.device)["edge"][x, y]
     return edge_hops.to(torch.float32) * float(
         np.float32(cfg.router_pitch_mm * power.waveguide_db_per_mm))
+
+
+# MRG accounting (Fig. 4), N gateways and W wavelengths: each MRG holds one
+# modulator row (W MRs) and N - 1 filter rows (W MRs each); the system has
+# N - 1 PCMCs.
+
+@dataclasses.dataclass(frozen=True)
+class InterposerGeometry:
+    n_gateways: int
+    wavelengths: int
+
+    @property
+    def mrgs(self) -> int:
+        return self.n_gateways
+
+    @property
+    def pcmcs(self) -> int:
+        return self.n_gateways - 1
+
+    @property
+    def modulators_per_mrg(self) -> int:
+        return self.wavelengths
+
+    @property
+    def filters_per_mrg(self) -> int:
+        return (self.n_gateways - 1) * self.wavelengths
+
+    @property
+    def total_mrs(self) -> int:
+        return self.mrgs * (self.modulators_per_mrg + self.filters_per_mrg)
 
 
 def interposer_power_mw(active: torch.Tensor, wavelengths, *,

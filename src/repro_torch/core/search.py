@@ -66,16 +66,19 @@ def _one_move(pos: torch.Tensor, i: torch.Tensor, gumbel: torch.Tensor,
     gateway i[n] goes to the router with the largest `gumbel[n]` [R]
     among the unoccupied ones (the mover's own slot counts as occupied, so
     a move never stays in place; `blocked` [R] bool routers count as
-    permanently occupied). No free router: no move."""
-    occupied = torch.any(torch.all(coords[None, :, None, :]
+    permanently occupied). No free router: no move. `coords` [R, 2] and
+    `blocked` [R] are shared, or [N, R, 2] and [N, R] one mesh per
+    placement (the co-design's topology points)."""
+    coords = coords.expand(pos.shape[0], -1, -1)
+    occupied = torch.any(torch.all(coords[:, :, None, :]
                                    == pos[:, None, :, :], dim=-1), dim=-1)
     occupied = occupied | blocked
     j = torch.argmax(torch.where(occupied, float("-inf"), gumbel), dim=-1)
     movable = torch.any(~occupied, dim=-1)
     mover = torch.arange(pos.shape[1], device=pos.device)[None, :] \
         == i[:, None]
-    return torch.where((movable[:, None] & mover)[..., None],
-                       coords[j][:, None, :], pos)
+    to = torch.gather(coords, 1, j[:, None, None].expand(-1, 1, 2))
+    return torch.where((movable[:, None] & mover)[..., None], to, pos)
 
 
 def _propose(parent: torch.Tensor, restart: torch.Tensor,

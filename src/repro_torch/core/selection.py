@@ -279,8 +279,9 @@ def _class_hop_sums(dist: torch.Tensor, caps: torch.Tensor, d_pad: int,
     L = G levels, level l using gateways 0..l; a router left unassigned
     adds 0, as in the reference twin).
 
-    `dist` [N, R, G] int router -> gateway hops; `caps` [L] the per-level
-    capacity ceil(R / g); `router_on` [R] bool masks padded routers. The
+    `dist` [N, R, G] int router -> gateway hops; `caps` [L] (or [N, L],
+    one row per placement) the per-level capacity ceil(R / g); `router_on`
+    [R] (or [N, R]) bool masks padded routers. The
     reference's class-column schedule: for each distance d (ascending),
     for each gateway g (ascending), every level that has g takes its first
     `cap - load` unassigned distance-d candidates of g in router order (a
@@ -303,7 +304,7 @@ def _class_hop_sums(dist: torch.Tensor, caps: torch.Tensor, d_pad: int,
     masks = masks.reshape(d_pad * g_n, n, g_n, r).unbind(0)
     free = torch.ones((n, g_n, r), dtype=i32, device=dev)
     # Room left per (gateway, level), shaped to broadcast over routers.
-    room = [caps.to(i32)[None, :, None].expand(n, g_n, 1).clone()
+    room = [caps.to(i32).reshape(-1, g_n, 1).expand(n, g_n, 1).clone()
             for _ in range(g_n)]
     hops = torch.zeros((n, g_n, 1), dtype=i32, device=dev)
     for d in range(d_pad):
@@ -368,7 +369,7 @@ def placement_tables_torch(positions: torch.Tensor,
 
 def placement_tables_from_lut_torch(positions, hop_lut, edge_lut,
                                     router_mask, caps, *, d_pad: int,
-                                    db_per_hop: float) -> dict:
+                                    db_per_hop: float, point=None) -> dict:
     """`placement_tables_torch` with the topology as data (the reference's
     `placement_tables_from_lut_jnp`, batched over placements [..., g_pad,
     2]): `hop_lut` [r_pad, X, Y] router -> coordinate hops, `edge_lut`
@@ -376,21 +377,42 @@ def placement_tables_from_lut_torch(positions, hop_lut, edge_lut,
     exists), `caps` [g_pad] per-level capacities ceil(R_real / g), `d_pad`
     the distance loop bound, `db_per_hop` the access dB per hop. The same
     class-column schedule over the real routers; `src_hops` is the sum
-    over real routers divided by their count."""
+    over real routers divided by their count.
+
+    With `point` (int, the placements' leading shape) the four topology
+    arguments carry a leading [T] axis of topologies and each placement
+    reads the rows of its own point: every point of a co-design grid in
+    one call, each placement's tables those of a call on its point
+    alone."""
     pos = torch.as_tensor(positions).long()
     dev = pos.device
     lead, g_n = pos.shape[:-2], int(pos.shape[-2])
     pos = pos.reshape(-1, g_n, 2)
     hop = torch.as_tensor(hop_lut, device=dev).long()
-    r_pad = int(hop.shape[0])
-    router_on = torch.as_tensor(router_mask, device=dev).reshape(r_pad) != 0
-    caps = torch.as_tensor(caps, device=dev).long().reshape(g_n)
-    n_real = torch.clamp_min(torch.sum(router_on.to(torch.float32)), 1.0)
-    dist = hop[:, pos[..., 0], pos[..., 1]].movedim(0, 1)
-    hops = _class_hop_sums(dist, caps, int(d_pad), router_on)
     edge = torch.as_tensor(edge_lut, device=dev)
-    per_gw_db = edge[pos[..., 0], pos[..., 1]].to(torch.float32) \
-        * float(np.float32(db_per_hop))
+    x, y = pos[..., 0], pos[..., 1]
+    if point is None:
+        r_pad = int(hop.shape[0])
+        router_on = torch.as_tensor(router_mask,
+                                    device=dev).reshape(r_pad) != 0
+        caps = torch.as_tensor(caps, device=dev).long().reshape(g_n)
+        n_real = torch.clamp_min(torch.sum(router_on.to(torch.float32)),
+                                 1.0)
+        dist = hop[:, x, y].movedim(0, 1)
+        per_gw = edge[x, y]
+    else:
+        pt = torch.as_tensor(point, device=dev).long().reshape(-1)
+        r_pad = int(hop.shape[1])
+        router_on = torch.as_tensor(router_mask, device=dev)[pt] != 0
+        caps = torch.as_tensor(caps, device=dev).long()[pt]
+        n_real = torch.clamp_min(torch.sum(router_on.to(torch.float32),
+                                           dim=-1), 1.0)[:, None]
+        dist = hop[pt[:, None, None],
+                   torch.arange(r_pad, device=dev)[None, :, None],
+                   x[:, None, :], y[:, None, :]]
+        per_gw = edge[pt[:, None], x, y]
+    hops = _class_hop_sums(dist, caps, int(d_pad), router_on)
+    per_gw_db = per_gw.to(torch.float32) * float(np.float32(db_per_hop))
     return {"src_hops": (hops.to(torch.float32) / n_real)
             .reshape(lead + (g_n,)),
             "gw_loss_db": _running_mean_db(per_gw_db)

@@ -1665,6 +1665,41 @@ def check_placement_objective(objective: str) -> None:
             f"key: {sorted(SUMMARY_KEYS)})")
 
 
+def simulate_eager(trace: dict, sim: SimConfig, *, device=None) -> dict:
+    """`simulate` with the selection tables rebuilt on every call (the
+    reference's seed-parity baseline for engine benchmarks; not for
+    sweeps). Like the reference's, it reads no fault frame. Runs on the
+    card unless `device="cpu"`."""
+    traffic.validate_trace(trace)
+    dev = backend.resolve_device(device)
+    state0, xs, _, kw = epoch_inputs(trace, sim, device=dev, faults=False)
+    _, recs = _scan_trace(state0, xs, sim,
+                          rebuild_selection_tables(sim.cfg, dev), **kw)
+    summary = _summary_from_sums(_record_sums(recs, xs[4][kw["lane_trace"]]),
+                                 sim.cfg.n_chiplets)
+    return _shaped(recs, summary, ())
+
+
+def clear_engine_caches() -> None:
+    """Drop every cache the port's engine holds: the search's and the
+    co-design's memoized device tables, the destination matrices and the
+    device views of the selection tables (padded and unpadded), so the
+    next call builds and copies them anew, as a first call does. The
+    design-time numpy tables stay memoized, as in the reference, so
+    `engine_stats()["selection_table_builds"]` keeps counting."""
+    from repro_torch.core.pareto import clear_codesign_caches
+    from repro_torch.core.search import clear_search_caches
+    from repro_torch.core.selection import (_selection_tables_torch_cached,
+                                            clear_padded_table_caches)
+    from repro_torch.core.traffic.dest import clear_destination_caches
+
+    clear_search_caches()
+    clear_codesign_caches()
+    clear_destination_caches()
+    clear_padded_table_caches()
+    _selection_tables_torch_cached.cache_clear()
+
+
 def rebuild_selection_tables(cfg: NetworkConfig, device=None) -> dict:
     """An uncached table build (bypassing both caches) for baselines."""
     return build_selection_tables.__wrapped__(cfg).as_torch(
@@ -1790,6 +1825,101 @@ def score_placement_tables(scoring: PlacementScoring,
         scores = summary[PLACEMENT_OBJECTIVE_ALIASES.get(objective,
                                                          objective)]
     return scores, summaries
+
+
+@dataclasses.dataclass(frozen=True)
+class CodesignScoring:
+    """What `score_codesign_tables` reads, built once per co-design search
+    (before its generation loop, so the loop copies nothing to the card):
+    the lanes of one generation, every topology point x island x candidate
+    x workload ([T, K, P, W], workload fastest), on the padded config
+    `sim`, that differ only in their placement's two table columns."""
+    sim: SimConfig          # the padded shape: the grid maxima
+    state0: SimState
+    xs: tuple               # (ext, mem, intra, ext_frac, t_mask) [W, T, ...]
+    kwargs: dict            # lane_trace, knobs, dest, dest_index, pair_trace
+    topo: dict              # the lanes' topology rows but the two columns
+    t_mask: torch.Tensor    # [B, T]
+    shape: tuple            # (T, K, P, W)
+
+
+def codesign_scoring(sim: SimConfig, topo: dict, knobs: dict, arrays: tuple,
+                     population: int, n_chiplets: np.ndarray
+                     ) -> CodesignScoring:
+    """The inputs of `score_codesign_tables` on the device of `arrays`.
+
+    `sim` is the padded config, `topo` each point's rows ([T] tensors:
+    `n_chiplets`, `g_max`, `mesh_hops`, `mesh_x` the mesh-feed width,
+    `total_gateways`), `knobs` the runtime knobs of each (point, island)
+    ([T, K] numpy, the gateway bounds already clamped to the point),
+    `arrays` `_topo_trace_arrays` of the W workloads and `n_chiplets` [T]
+    each point's chiplet count on the host. Lane ((t * K + k) * P + p) * W
+    + w runs workload w on point t with island k's knobs; each (workload,
+    chiplet count) pair gets its own destination matrix."""
+    ext, mem, intra, ext_frac, t_mask, dest = arrays
+    if ext.dim() == 2:
+        ext, mem, intra, t_mask = ext[None], mem[None], intra[None], \
+            t_mask[None]
+        ext_frac = ext_frac.reshape(1)
+        dest = None if dest is None else dest[None]
+    dev = ext.device
+    n_w = int(ext.shape[0])
+    n_t, n_k = next(iter(knobs.values())).shape
+    shape = (n_t, n_k, population, n_w)
+    per_point = n_k * population * n_w
+    point_np = np.repeat(np.arange(n_t), per_point)
+    island_np = np.tile(np.repeat(np.arange(n_k), population * n_w), n_t)
+    lane_np = np.tile(np.arange(n_w), n_t * n_k * population)
+    point = torch.as_tensor(point_np, device=dev)
+    lane_trace = torch.as_tensor(lane_np, device=dev)
+    lane_knobs = default_knobs(
+        sim, len(lane_np), dev,
+        {f: torch.as_tensor(v[point_np, island_np], device=dev)
+         for f, v in knobs.items()})
+    c_max = sim.cfg.n_chiplets
+    lane_topo = lane_topology(topo, point, c_max)
+    xs = (ext * t_mask[..., None], mem * t_mask, intra * t_mask[..., None],
+          ext_frac.reshape(n_w, 1).expand_as(mem), t_mask)
+    kwargs = dict(lane_trace=lane_trace, knobs=lane_knobs)
+    if dest is not None:
+        kwargs["dest"], kwargs["dest_index"], kwargs["pair_trace"] = \
+            _pair_destinations(dest, lane_np,
+                               np.asarray(n_chiplets)[point_np], c_max)
+    return CodesignScoring(sim, _initial_state(sim, lane_knobs, lane_topo),
+                           xs, kwargs, lane_topo, xs[4][lane_trace], shape)
+
+
+# The co-design's objectives, the columns of its [.., 3] arrays.
+CODESIGN_OBJECTIVES = ("mean_latency", "mean_power_mw", "mean_energy")
+
+
+def score_codesign_tables(scoring: CodesignScoring, src_hops: torch.Tensor,
+                          gw_loss_db: torch.Tensor) -> torch.Tensor:
+    """Score every candidate of a co-design generation from its table
+    columns (`src_hops`, `gw_loss_db` [T, K, P, G]) as the T*K*P*W lanes
+    of one interval loop: one `epoch_step` launch on CUDA tensors, the
+    plain loop on CPU tensors. Returns the objectives [T, K, P, 3]
+    (CODESIGN_OBJECTIVES) averaged over the W workloads as XLA compiles
+    the reference's `jnp.mean`: the sum in workload order times
+    float32(1 / W). Reads nothing back."""
+    n_t, n_k, n_p, n_w = scoring.shape
+    g = int(src_hops.shape[-1])
+
+    def lanes(a):
+        return a[..., None, :].expand(n_t, n_k, n_p, n_w, g).reshape(-1, g)
+
+    topo = dict(scoring.topo, src_hops=lanes(src_hops),
+                gw_loss_db=lanes(gw_loss_db))
+    _, recs = _scan_trace(scoring.state0, scoring.xs, scoring.sim, None,
+                          topo=topo, **scoring.kwargs)
+    summary = _summary_from_sums(_record_sums(recs, scoring.t_mask),
+                                 topo["nreal"])
+    per_w = torch.stack([summary[k] for k in CODESIGN_OBJECTIVES], dim=-1) \
+        .reshape(n_t, n_k, n_p, n_w, len(CODESIGN_OBJECTIVES))
+    total = per_w[..., 0, :]
+    for w in range(1, n_w):
+        total = total + per_w[..., w, :]
+    return total * float(np.float32(1.0 / n_w))
 
 
 def search_placement(trace: dict, sim: SimConfig, *,
@@ -1941,9 +2071,13 @@ def search_placement(trace: dict, sim: SimConfig, *,
 
 
 def __getattr__(name):
-    # The device search's entry points, as the reference re-exports them
-    # (core/search.py imports this module, so not at its top).
+    # The device search's and the co-design's entry points, as the
+    # reference re-exports them (core/search.py and core/pareto.py import
+    # this module, so not at its top).
     if name in ("search_placement_device", "search_placement_islands"):
         from repro_torch.core import search as _search
         return getattr(_search, name)
+    if name in ("search_codesign", "rescore_front_host"):
+        from repro_torch.core import pareto as _pareto
+        return getattr(_pareto, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

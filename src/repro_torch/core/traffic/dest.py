@@ -95,3 +95,10 @@ def destination_matrix_torch(spec, cfg: NetworkConfig = NETWORK,
     means the card (see `backend.resolve_device`)."""
     return _destination_matrix_torch(as_spec(spec), cfg,
                                      str(resolve_device(device)))
+
+
+def clear_destination_caches() -> None:
+    """Drop both memoized views (wired into
+    `simulator.clear_engine_caches`)."""
+    _destination_matrix_torch.cache_clear()
+    _destination_matrix.cache_clear()

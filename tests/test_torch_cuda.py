@@ -44,7 +44,10 @@ the same launch through topology rows holding its constants; and
 `sweep_topology` on the card against the CPU and against `simulate`. The
 device placement search (one chain, blocked routers, islands with
 destination matrices, 32 chiplets) on the card against the same search on
-the CPU, its generation loop under `set_sync_debug_mode("error")`.
+the CPU, its generation loop under `set_sync_debug_mode("error")`; the
+Pareto co-design on both engines (the reference test's `CODESIGN_KW` and a
+grid whose mesh radix changes, with a destination matrix) against the
+same searches on the CPU, every launch against the padded plain loop.
 Serving on the card: a `session_tick` leaves the carry it was given
 unchanged, a `SessionServer` fed traces made on the card launches once per
 dispatch and every served session replays exactly, and the two serving
@@ -457,6 +460,95 @@ def test_device_search_on_the_card_matches_the_cpu(case, cuda_device,
     else:
         np.testing.assert_array_equal(got["history"]["accepted"],
                                       want["history"]["accepted"])
+
+
+CODESIGN_CARD_CASES = {
+    # (apps, intervals, destination matrices, search keywords)
+    "codesign_kw": (("dedup", "streamcluster"), 6, False, dict(
+        n_chiplets=[8, 16], mesh_radix=[4, 4], islands=2, generations=3,
+        population=3, archive=16, knob_grids={"l_m": [0.01, 0.02]},
+        seed=1)),
+    "radix": (("canneal",), 8, True, dict(
+        n_chiplets=[4, 8, 16], mesh_radix=[3, 4, 5], islands=3,
+        generations=4, population=4, archive=4, migrate_every=1, seed=0)),
+}
+
+
+@pytest.mark.parametrize("engine", ["device", "host"])
+@pytest.mark.parametrize("case", list(CODESIGN_CARD_CASES))
+def test_codesign_on_the_card_matches_the_cpu(case, engine, cuda_device,
+                                              monkeypatch):
+    """Pareto co-design on the card: every launch equals the padded plain
+    loop on its inputs, the device engine makes one launch per generation
+    (every point's chains at once) and one `search_dispatches`, its
+    generation loop raising nothing under set_sync_debug_mode("error"),
+    and the front (placements, points, islands, knobs), the archive-size
+    history and the island incumbents equal the CPU's, objectives and
+    scores at 1e-6."""
+    from repro_torch import backend
+    from repro_torch.core import pareto as tpar
+    from repro_torch.core.constants import NETWORK
+    from repro_torch.kernels.epoch_step.ref import epoch_run_reference
+
+    apps, t_len, dest, kw = CODESIGN_CARD_CASES[case]
+    cfg = NETWORK.with_topology(n_chiplets=max(kw["n_chiplets"]))
+    sim = tsim.SimConfig()
+    traces = [traffic.generate(traffic.ParsecSpec(a, t_len), i, cfg,
+                               dest=dest, device=cuda_device)
+              for i, a in enumerate(apps)]
+    cpu = [{k: v.cpu() if isinstance(v, torch.Tensor) else v
+            for k, v in tr.items()} for tr in traces]
+    real_core, real_run = tpar._codesign_core, ops.epoch_run
+    calls = []
+
+    def checked_core(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real_core(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    def recorded_run(state, xs, csim, tables, **k):
+        out = real_run(state, xs, csim, tables, **k)
+        calls.append((state, xs, csim, tables, k, out))
+        return out
+
+    monkeypatch.setattr(tpar, "_codesign_core", checked_core)
+    monkeypatch.setattr(ops, "epoch_run", recorded_run)
+    tsim.reset_engine_stats()
+    got = tsim.search_codesign(traces, sim, engine=engine,
+                               device=cuda_device, **kw)
+    monkeypatch.setattr(ops, "epoch_run", real_run)
+    n_pts, gens = len(kw["n_chiplets"]), kw["generations"]
+    assert backend.COUNTERS["launches"] == {
+        "epoch_step": gens if engine == "device" else n_pts * gens}
+    assert tsim.engine_stats()["search_dispatches"] == int(
+        engine == "device")
+    if engine == "device":
+        _, xs = calls[0][:2]
+        lanes = n_pts * kw["islands"] * kw["population"] * len(apps)
+        assert backend.COUNTERS["variants"] == {
+            "epoch_step:" + ops.variant(xs[0].shape[-1], False, dest, lanes,
+                                        padded=True) + "+topo": gens}
+    for state0, xs, csim, tables, k, (st, recs) in calls:
+        want_st, want_recs = epoch_run_reference(state0, xs, csim, tables,
+                                                 **k)
+        _compare(recs, want_recs)
+        _compare(_state(st), _state(want_st))
+    want = tsim.search_codesign(cpu, sim, engine=engine, device="cpu", **kw)
+    assert len(got["front"]) == len(want["front"]) > 0
+    for g, w in zip(got["front"], want["front"]):
+        for key in ("placement", "topology", "knobs", "island"):
+            assert g[key] == w[key], key
+        np.testing.assert_allclose(list(g["objectives"].values()),
+                                   list(w["objectives"].values()),
+                                   rtol=1e-6)
+    np.testing.assert_array_equal(got["history"]["archive_size"],
+                                  want["history"]["archive_size"])
+    assert got["island_incumbents"] == want["island_incumbents"]
+    np.testing.assert_allclose(got["island_scores"], want["island_scores"],
+                               rtol=1e-6)
 
 
 @pytest.mark.parametrize("name", ecases.WIDE_NAMES)

@@ -163,3 +163,70 @@ def test_controller_knobs_broadcast_per_lane():
         want = jgc.update_gateways(g[i], load[i], dataclasses.replace(
             jgc.ControllerConfig(), l_m=float(lm), max_gateways=mx))
         _close(got[i], want)
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_pcmc_coupler_eqs_1_to_3(seed):
+    rng = np.random.RandomState(60 + seed)
+    am = (rng.rand(32) * 3.0).astype(np.float32)
+    cr = (rng.rand(32) * 3.0).astype(np.float32)
+    cr[:2] = 0.0                                  # floored at 1e-12
+    t = torch.as_tensor
+    _close(tph.pcmc_coupling_ratio(t(am), t(cr)),
+           jax.jit(jph.pcmc_coupling_ratio)(am, cr))
+    p_in = (rng.rand(32) * 20.0).astype(np.float32)
+    kappa = rng.rand(32).astype(np.float32)
+    kappa[:3] = (0.0, 1.0, 0.5)                   # Fig. 5's three states
+    for loss in (0.0, 0.7):
+        got = tph.pcmc_split(t(p_in), t(kappa), loss)
+        want = jax.jit(lambda p, k: jph.pcmc_split(p, k, loss))(p_in, kappa)
+        for g, w in zip(got, want):
+            _close(g, w)
+
+
+@pytest.mark.parametrize("n", [2, 5, 18])
+def test_power_division_eq4_chain(n):
+    rng = np.random.RandomState(70 + n)
+    active = rng.rand(6, n) < rng.rand()
+    active[0] = False
+    active[1] = True
+    laser = np.float32(10.0 + 200.0 * rng.rand())
+    div = jax.jit(jph.power_division)
+    got = tph.power_division(torch.as_tensor(active), laser)
+    for i in range(6):
+        _close(got[i], div(active[i], laser))
+        _close(tph.power_division(torch.as_tensor(active[i]), laser),
+               div(active[i], laser))
+    # Every active gateway receives laser / GT (Eq. 4), idle ones nothing.
+    gt = active.sum(axis=1, keepdims=True)
+    np.testing.assert_allclose(
+        got.numpy(), np.where(active, laser / np.maximum(gt, 1), 0.0),
+        rtol=1e-4, atol=1e-4)
+
+
+def test_interposer_geometry_counts():
+    for n, w in ((6, 4), (18, 64), (1, 1), (260, 16)):
+        got = tph.InterposerGeometry(n_gateways=n, wavelengths=w)
+        want = jph.InterposerGeometry(n_gateways=n, wavelengths=w)
+        for k in ("mrgs", "pcmcs", "modulators_per_mrg", "filters_per_mrg",
+                  "total_mrs"):
+            assert getattr(got, k) == getattr(want, k), k
+    assert tph.InterposerGeometry(6, 4).total_mrs == 6 * 24
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_scan_controller_replays_the_reference(seed):
+    rng = np.random.RandomState(80 + seed)
+    cfg_kw = dict(l_m=float(0.004 + 0.03 * rng.rand()),
+                  max_gateways=int(rng.randint(2, 6)), min_gateways=1)
+    loads = (rng.rand(24, 16) * 3.0 * cfg_kw["l_m"]).astype(np.float32)
+    want = jgc.scan_controller(loads, jgc.ControllerConfig(**cfg_kw), 1e6)
+    tc = tgc.ControllerConfig(**cfg_kw)
+    got = tgc.scan_controller(torch.as_tensor(loads), tc, 1e6)
+    assert set(got) == set(want)
+    for k in want:
+        _close(got[k], want[k])
+    # Arrays go to the device asked for; the card is the default.
+    again = tgc.scan_controller(loads, tc, 1e6, device="cpu")
+    for k in got:
+        assert torch.equal(again[k], got[k]), k

@@ -360,3 +360,48 @@ def test_port_imports_and_runs_with_jax_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("dest", [False, True], ids=["uniform", "dest"])
+@pytest.mark.parametrize("arch", ["resipi", "prowaves"])
+def test_simulate_eager_matches_the_reference(arch, dest):
+    tr = _traces((14,), dest=dest, seed=21)[0]
+    jc, tc = _cfgs(arch)
+    got = tsim.simulate_eager(_port(tr), tc, device="cpu")
+    _match_out(got, jsim.simulate_eager(tr, jc))
+    # The same run as `simulate`, its tables rebuilt.
+    same = tsim.simulate(_port(tr), tc, device="cpu")
+    for part in ("records", "summary"):
+        for k, v in same[part].items():
+            assert torch.equal(got[part][k], v), k
+
+
+def test_clear_engine_caches_drops_every_device_table():
+    from repro_torch.core import pareto as tpar
+    from repro_torch.core import selection as tsel
+    from repro_torch.core import topology as ttopo
+    from repro_torch.core.traffic import dest as tdest
+
+    tr = _port(_traces((6,), dest=True, seed=22)[0])
+    sim = tsim.SimConfig()
+    tsim.simulate(tr, sim, device="cpu")
+    tsim.sweep_topology(tr, sim, n_chiplets=[2, 4], device="cpu")
+    tsim.search_placement(tr, sim, generations=1, population=2,
+                          device="cpu")
+    tsim.search_codesign(tr, sim, n_chiplets=[2, 4], islands=1,
+                         generations=1, population=2, device="cpu")
+    tdest.destination_matrix_torch("dedup", device="cpu")
+    caches = (tsel._selection_tables_torch_cached,
+              tsel._padded_tables_torch_cached,
+              tsel._build_selection_tables_padded_cached,
+              ttopo._lut_tensors, tpar._codesign_topology,
+              tdest._destination_matrix_torch, tdest._destination_matrix)
+    assert all(c.cache_info().currsize > 0 for c in caches)
+    builds = tsim.engine_stats()["selection_table_builds"]
+    tsim.clear_engine_caches()
+    assert [c.cache_info().currsize for c in caches] == [0] * len(caches)
+    # The design-time tables stay memoized, as in the reference.
+    assert tsim.engine_stats()["selection_table_builds"] == builds
+    jsim.clear_engine_caches()
+    out = tsim.simulate(tr, sim, device="cpu")
+    assert out["summary"]["mean_latency"].shape == ()
