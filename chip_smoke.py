@@ -184,12 +184,22 @@ exits non-zero):
      evaluations per second, the device idle share of a profiled warm
      (b), and (b)'s launch on its 64-chiplet lanes against its
      256-chiplet lanes;
-  11. a `kernels` JSON line (launches on the main paths, error against
+  11. fleet and caching, a main path of its own (`fleet_phase`): (a)
+     `sweep_workload` over the fleet launcher's default 64-point grid
+     sharded over 4 emulated devices of the card (one "+topo" launch a
+     block), bitwise the one-device call, every block's launch held
+     against the padded plain loop; (b) `python -m
+     repro_torch.launch.fleet` as one process, a 2-process gloo group and
+     `--shard 0:2` / `1:2`, every point equal; (c) `laned_all_reduce` over
+     a 1-rank NCCL group at lanes 1, 2 and 4, the bits of one
+     `all_reduce`; (d) a cold and a warm worker sharing a fresh
+     REPRO_CACHE_DIR, the warm one building nothing. It prints the points
+     per second of (a) and (b) and (d)'s first-call times;
+  12. a `kernels` JSON line (launches on the main paths, error against
      plain, times, the bound and the kernel variant that ran) for all four
      kernels; the simulator kernels' entries add the first design's time
      in the same run (`warp_ms`), the times per launch shape (`shapes`,
-     phases 5's, 7's, 8's, 9's and 10's among them) and the launches per
-     main path.
+     phases 5's, 7's-11's among them) and the launches per main path.
 
 Phases 3 and 4 are the first main path: the launch counters are zeroed
 before phase 3 and read after the last DSE, before any check or timing.
@@ -198,8 +208,10 @@ Phase 5 is the second, zeroed before its streaming and read after its last
 counters zeroed just before its prefill and read just after its last
 decode step. Phase 7 is zeroed before its walkthrough scan and read after
 its placement search; phase 8 before its search (a) and after (e); phase
-9 before its walkthroughs and after (c) drains; phase 10, the last, before
-its walkthrough search and after (b)'s re-scoring.
+9 before its walkthroughs and after (c) drains; phase 10 before its
+walkthrough search and after (b)'s re-scoring; phase 11, the last, just
+before and just after (a)'s sharded sweep (the launcher's child
+processes count their own launches, printed from their JSON).
 `python3 chip_smoke.py --epoch-grid` builds epoch_step alone and times
 the whole design grid (GRID_FULL: 4-16 chiplets at 1-512 lanes, 17-128 at
 8-32 768, with and without destination matrices), the evidence for
@@ -213,7 +225,8 @@ where a tree without topology rows times the constants alone.
 `python3 chip_smoke.py --search` builds epoch_step alone and runs phase 8,
 `python3 chip_smoke.py --serve` builds epoch_step alone and runs phase 9,
 `python3 chip_smoke.py --pareto` builds epoch_step alone and runs phase
-10.
+10, `python3 chip_smoke.py --fleet` builds epoch_step alone and runs phase
+11.
 
 The last line is {"ok": true, "device": {...}}. Without a card, or without
 the rest of the repository beside this file, it exits non-zero and prints
@@ -3665,6 +3678,275 @@ def pareto_phase(dev, card: str) -> dict:
                          for k, v in partings.items()}}
 
 
+FLEET_DEVICES = 4        # emulated devices of phase 11 (a), on the card
+FLEET_PROCESSES = 2
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def fleet_phase(dev, card: str) -> dict:
+    """Phase 11, fleet and caching, a main path of its own (counters zeroed
+    just before (a)'s sharded sweep, read just after it): (a)
+    `sweep_workload` over the fleet launcher's default 64-point grid
+    (`launch.fleet.build_grid`: chiplets 4-64 x 4 placements x 4
+    workloads, 24 intervals, keys and widths pinned as the launcher pins
+    them) sharded over FLEET_DEVICES emulated devices of the card
+    (`devices=["cuda:0"] * 4`: one epoch_step launch a block, every block
+    at the whole grid's padded shapes and design), bitwise the one-device
+    call's, every block's launch held against the padded plain loop; (b)
+    `python -m repro_torch.launch.fleet` as one process, as a
+    FLEET_PROCESSES-process gloo group on the card, and as `--shard 0:2` /
+    `1:2`, every point equal to the one-process run's (and to (a)'s); (c)
+    a 1-rank NCCL group running `laned_all_reduce` at lanes 1, 2 and 4,
+    the bits of one `all_reduce` of each leaf; (d) a cold and a warm child
+    process sharing a fresh REPRO_CACHE_DIR: the cold one builds
+    epoch_step, the warm one runs no nvcc. Prints the points per second
+    of (a) and (b) and (d)'s first-call times, each beside the card's name
+    and power limit."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import backend
+    from repro_torch import random as trandom
+    from repro_torch.core import reconfig_runtime as rr
+    from repro_torch.core import simulator as S
+    from repro_torch.kernels.epoch_step import ops
+    from repro_torch.kernels.epoch_step.ref import epoch_run_reference
+    from repro_torch.launch import fleet
+
+    sim = S.SimConfig().with_arch(S.Arch.RESIPI)
+    args = fleet.build_parser().parse_args([])
+    grid = fleet.build_grid(sim.cfg, chiplets=args.chiplets,
+                            placements=args.placements,
+                            workloads=args.workloads,
+                            intervals=args.intervals, seed=args.seed)
+    k = grid["k"]
+    keys = trandom.split(trandom.prng_key(args.seed, device=dev), k)
+    gen_c = max(args.chiplets)
+    devices = ["cuda:0"] * FLEET_DEVICES
+
+    def run(devs):
+        out = S.sweep_workload(grid["specs"], sim, keys=keys,
+                               gen_chiplets=gen_c, pad_chiplets=gen_c,
+                               device=dev, devices=devs, **grid["grids"])
+        torch.cuda.synchronize()
+        return out
+
+    one = run(None)                  # the one-device call, compared with
+    calls = []
+    kernel_epoch_run = ops.epoch_run
+
+    def recorded_epoch_run(state, xs, csim, tables, **kw):
+        out = kernel_epoch_run(state, xs, csim, tables, **kw)
+        calls.append((state, xs, csim, tables, kw, out))
+        return out
+
+    ops.epoch_run = recorded_epoch_run
+    try:
+        torch.cuda.synchronize()
+        backend.reset_counters()                 # main path starts
+        t0 = time.perf_counter()
+        sharded = run(devices)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(backend.COUNTERS["launches"])  # main path ends
+        variants = dict(backend.COUNTERS["variants"])
+    finally:
+        ops.epoch_run = kernel_epoch_run
+    design = ops.variant(gen_c, False, False, k, padded=True)
+    want = {f"{ops.NAME}:{design}+topo": FLEET_DEVICES}
+    if variants != want or launches.get(ops.NAME, 0) != FLEET_DEVICES:
+        fail(f"phase 11 (a) launched {launches} / {variants}, expected "
+             f"{want}")
+    want_sharding = {"grid_points": k, "pad_lanes": 0,
+                     "devices": FLEET_DEVICES, "processes": 1}
+    if sharded.get("sharding") != want_sharding:
+        fail(f"phase 11 (a) sharding {sharded.get('sharding')}, expected "
+             f"{want_sharding}")
+    for part in ("records", "summary"):
+        for name, v in one[part].items():
+            if not torch.equal(sharded[part][name], v):
+                fail(f"phase 11 (a): sharded {part} {name} differs from the "
+                     f"one-device call")
+    err = 0.0
+    for state, xs, csim, tables, kw, (got_state, got) in calls:
+        want_state, want_recs = epoch_run_reference(state, xs, csim, tables,
+                                                     **kw)
+        err = max(err, compare(got, want_recs, "phase 11 (a) block"),
+                  compare(state_fields(got_state), state_fields(want_state),
+                          "phase 11 (a) block state"))
+    summ = sharded["summary"]
+    for name, v in summ.items():
+        if name != "pad_lanes" and (tuple(v.shape) != (k,)
+                                    or not torch.isfinite(v).all()):
+            fail(f"phase 11 (a) summary {name} malformed")
+    say("11", f"(a) sweep_workload, the fleet's {k}-point grid on "
+              f"{FLEET_DEVICES} emulated devices of the card: "
+              f"{json.dumps(launches)} launches ({json.dumps(variants)}), "
+              f"bitwise the one-device call; every block == the padded "
+              f"plain loop (max abs err {err:.3g}); first call "
+              f"{first_ms:.1f} ms")
+    warm_ms = {}
+    for label, devs in (("sharded", devices), ("one-device", None)):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run(devs)
+            times.append((time.perf_counter() - t0) * 1e3)
+        warm_ms[label] = float(np.median(times))
+    pps_a = k / (warm_ms["sharded"] * 1e-3)
+    print(f"phase 11 (a) points/s: {pps_a:.1f} ({k} points in "
+          f"{warm_ms['sharded']:.2f} ms warm, host clock, median of 3; the "
+          f"one-device call {warm_ms['one-device']:.2f} ms); card: {card}",
+          flush=True)
+    state, xs, csim, tables, kw, _ = calls[0]
+    ms = time_graph(lambda: ops.launch(state.ctl.g, xs, csim, tables, **kw))
+    plain = time_cuda(lambda: epoch_run_reference(state, xs, csim, tables,
+                                                  **kw), 1)[0]
+    n_tr, t_len, c = xs[0].shape
+    if n_tr != k // FLEET_DEVICES:
+        fail(f"phase 11 (a): a block holds {n_tr} traces; its lanes read "
+             f"{k // FLEET_DEVICES}")
+    lane_c = kw["topo"]["n_chiplets"].cpu().numpy()
+    lane_g = kw["topo"]["g_max"].cpu().numpy()
+    nbytes, n_ops = padded_epoch_work(
+        n_tr, t_len, c, csim.cfg.max_gateways_per_chiplet, lane_c, lane_g)
+    bound, by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                    (n_ops / F32_FLOPS_PER_S * 1e3, "operations"))
+    rows = {"fleet-block": {
+        "variant": kw["kernel"] + "+topo", "lanes": len(lane_c),
+        "traces": n_tr,
+        "intervals": t_len, "chiplets": c, "ms": ms, "plain_ms": plain,
+        "bound_ms": bound, "bound_by": by,
+        "host_ms": warm_ms["sharded"] / FLEET_DEVICES}}
+    say("11", f"epoch_step fleet-block launch ({kw['kernel']}+topo; "
+              f"{len(lane_c)} lanes x {t_len} intervals x {c} chiplets, "
+              f"the block's own {n_tr} traces): "
+              f"{ms:.4f} ms (device: CUDA-graph replays, median of 5); "
+              f"plain loop {plain:.2f} ms once; bound {bound:.4f} ms by {by} "
+              f"({nbytes / 1e6:.2f} MB, {n_ops / 1e9:.4f} GFLOP); card: "
+              f"{card}")
+
+    # (b) the launcher: one process, a gloo group, emulated hosts.
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="fleet-", dir=ROOT / "build"))
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    env.pop("REPRO_CACHE_DIR", None)
+
+    def launcher(name, *extra, env=env):
+        out = tmp / f"{name}.json"
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.fleet",
+             "--dump-points", "--out", str(out), *extra], cwd=ROOT, env=env,
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0 or not out.exists():
+            fail(f"phase 11 fleet {name} exited {proc.returncode}:\n"
+                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        return json.loads(out.read_text())
+
+    point_keys = ("labels", "mean_latency", "mean_power_mw", "mean_energy")
+    single = launcher("single", "--reps", "3")
+    for name in point_keys[1:]:
+        if single[name] != [float(v) for v in
+                            one["summary"][name].double().cpu()]:
+            fail(f"phase 11 (b): the one-process fleet's {name} differs from "
+                 f"(a)'s one-device call")
+    group = launcher("gloo", "--reps", "3", "--processes",
+                     str(FLEET_PROCESSES), "--collectives", "gloo")
+    shards = [launcher(f"shard{i}", "--shard", f"{i}:{FLEET_PROCESSES}")
+              for i in range(FLEET_PROCESSES)]
+    if (group["mode"], group["process_count"]) != ("distributed",
+                                                   FLEET_PROCESSES):
+        fail(f"phase 11 (b): the group ran as {group['mode']} x "
+             f"{group['process_count']}")
+    for name in point_keys:
+        if group[name] != single[name]:
+            fail(f"phase 11 (b): the {FLEET_PROCESSES}-process gloo fleet's "
+                 f"{name} differs from the one-process run's")
+        if [v for sh in shards for v in sh[name]] != single[name]:
+            fail(f"phase 11 (b): the --shard i:{FLEET_PROCESSES} runs' "
+                 f"{name}, concatenated, differ from the one-process run's")
+    say("11", f"(b) python -m repro_torch.launch.fleet: one process, a "
+              f"{FLEET_PROCESSES}-process gloo group (launches "
+              f"{json.dumps(group['kernel_launches'])} in rank 0) and "
+              f"--shard i:{FLEET_PROCESSES} give the same {k} points bit for "
+              f"bit (and (a)'s); builds in the children: "
+              f"{[r['kernel_builds'] for r in [single, group] + shards]}")
+    for label, r in (("one process", single), ("gloo group", group)):
+        print(f"phase 11 (b) points/s: {r['points_per_sec']:.1f} "
+              f"({label}, {r['process_count']} x {r['device']}: sweep "
+              f"{r['sweep_wall_s'] * 1e3:.2f} ms warm, min of 3, host clock; "
+              f"first call {r['first_call_s']:.2f} s); card: {card}",
+              flush=True)
+
+    # (c) a 1-rank NCCL group: the lanes' chunks give one all_reduce's bits.
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        gen = torch.Generator().manual_seed(11)
+        tree = {"w": torch.randn(512, 96, generator=gen).to(dev),
+                "b": [torch.randn(4099, generator=gen).to(dev),
+                      torch.randn(33, generator=gen).double().to(dev)],
+                "n": torch.randint(0, 99, (77,), generator=gen).to(dev)}
+        leaves = {"w": tree["w"], "b0": tree["b"][0], "b1": tree["b"][1],
+                  "n": tree["n"]}
+        single_ar = {}
+        for name, v in leaves.items():
+            x = v.clone()
+            dist.all_reduce(x)
+            single_ar[name] = x
+        lane_ms = {}
+        for lanes in (1, 2, 4):
+            t0 = time.perf_counter()
+            out = rr.laned_all_reduce(tree, dist.group.WORLD, lanes)
+            torch.cuda.synchronize()
+            lane_ms[lanes] = (time.perf_counter() - t0) * 1e3
+            got = {"w": out["w"], "b0": out["b"][0], "b1": out["b"][1],
+                   "n": out["n"]}
+            for name, v in single_ar.items():
+                if not torch.equal(got[name], v):
+                    fail(f"phase 11 (c): laned_all_reduce at {lanes} lanes, "
+                         f"leaf {name}, differs from one all_reduce")
+    finally:
+        dist.destroy_process_group()
+    say("11", f"(c) laned_all_reduce over a 1-rank NCCL group at lanes 1, "
+              f"2, 4: the bits of one all_reduce per leaf; host ms "
+              f"{json.dumps({k_: round(v, 3) for k_, v in lane_ms.items()})}"
+              f"; card: {card}")
+
+    # (d) cold and warm workers sharing a fresh library cache.
+    shared = Path(tempfile.mkdtemp(prefix="cache-", dir=ROOT / "build"))
+    cache_env = dict(env, REPRO_CACHE_DIR=str(shared))
+    cold = launcher("cold", env=cache_env)
+    warm = launcher("warm", env=cache_env)
+    if cold["kernel_builds"] != {ops.NAME: 1} or warm["kernel_builds"]:
+        fail(f"phase 11 (d): builds cold {cold['kernel_builds']}, warm "
+             f"{warm['kernel_builds']}; expected one epoch_step build, then "
+             f"none")
+    if warm["cache"]["entries"] != 1 or warm["cache"]["dir"] != str(shared):
+        fail(f"phase 11 (d): the warm worker's cache {warm['cache']}")
+    for name in point_keys:
+        if cold[name] != single[name] or warm[name] != single[name]:
+            fail(f"phase 11 (d): the cold or warm worker's {name} differs")
+    print(f"phase 11 (d) first call: cold worker {cold['first_call_s']:.2f} s "
+          f"(nvcc built epoch_step into the shared cache), warm worker "
+          f"{warm['first_call_s']:.2f} s (loaded it, no build: "
+          f"{warm['kernel_builds']}); host clock; card: {card}", flush=True)
+    return {"epoch_launches": launches.get(ops.NAME, 0), "epoch_err": err,
+            "epoch_shapes": rows, "variants": variants,
+            "points_per_sec": {"a": pps_a, "b-one": single["points_per_sec"],
+                               "b-gloo": group["points_per_sec"]},
+            "first_call_s": {"cold": cold["first_call_s"],
+                             "warm": warm["first_call_s"]},
+            "laned_all_reduce_ms": lane_ms}
+
+
 def main() -> int:
     global SRC
     args = sys.argv[1:]
@@ -3672,12 +3954,14 @@ def main() -> int:
     search_only = args == ["--search"]
     serve_only = args == ["--serve"]
     pareto_only = args == ["--pareto"]
+    fleet_only = args == ["--fleet"]
     rows_ab = args[:1] == ["--rows-ab"] and (
         len(args) == 1 or (len(args) == 3 and args[1] == "--src"))
     if args and not (grid_only or rows_ab or search_only or serve_only
-                     or pareto_only):
+                     or pareto_only or fleet_only):
         print("usage: chip_smoke.py [--epoch-grid | --search | --serve | "
-              "--pareto | --rows-ab [--src DIR]]", file=sys.stderr)
+              "--pareto | --fleet | --rows-ab [--src DIR]]",
+              file=sys.stderr)
         return 2
     if rows_ab and len(args) == 3:
         SRC = Path(args[2]).resolve()
@@ -3724,7 +4008,8 @@ def main() -> int:
     print(card, flush=True)
     say("1", f"device {kind} x{count}; torch {torch.__version__} cuda "
              f"{torch.version.cuda}")
-    if grid_only or rows_ab or search_only or serve_only or pareto_only:
+    if grid_only or rows_ab or search_only or serve_only or pareto_only \
+            or fleet_only:
         if grid_only:
             ops.build()
             result = {"design_grid": epoch_design_grid(dev, card, GRID_FULL,
@@ -3741,6 +4026,10 @@ def main() -> int:
             ops.build()
             result = {"pareto": pareto_phase(dev, card)}
             result["pareto"].pop("variants")
+        elif fleet_only:
+            ops.build()
+            result = {"fleet": fleet_phase(dev, card)}
+            result["fleet"].pop("variants")
         else:
             result = epoch_rows_ab(dev, card)
         print(json.dumps(result), flush=True)
@@ -4349,7 +4638,10 @@ def main() -> int:
     # --- 10. Pareto co-design (a main path) ---------------------------------
     p10 = pareto_phase(dev, card)
 
-    # --- 11. kernels line ---------------------------------------------------
+    # --- 11. fleet and caching (a main path) --------------------------------
+    p11 = fleet_phase(dev, card)
+
+    # --- 12. kernels line ---------------------------------------------------
     def ran(name):
         return ",".join(sorted({k.split(":")[1] for k in
                                 list(variants) + list(p5["variants"])
@@ -4357,6 +4649,7 @@ def main() -> int:
                                 + list(p8["variants"])
                                 + list(p9["variants"])
                                 + list(p10["variants"])
+                                + list(p11["variants"])
                                 if k.startswith(name + ":")}))
 
     print(json.dumps({"kernels": [{
@@ -4365,21 +4658,24 @@ def main() -> int:
         "replaces": "src/repro/kernels/epoch_step/kernel.py:48",
         "launches": stats["epoch_step_launches"] + p5["epoch_launches"]
         + p7["epoch_launches"] + p8["epoch_launches"]
-        + p9["epoch_launches"] + p10["epoch_launches"],
+        + p9["epoch_launches"] + p10["epoch_launches"]
+        + p11["epoch_launches"],
         "launches_by_path": {"paper+dse": stats["epoch_step_launches"],
                              "streaming+faults+f1": p5["epoch_launches"],
                              "topology+placement": p7["epoch_launches"],
                              "device search": p8["epoch_launches"],
                              "serve+resilience": p9["epoch_launches"],
-                             "pareto co-design": p10["epoch_launches"]},
+                             "pareto co-design": p10["epoch_launches"],
+                             "fleet": p11["epoch_launches"]},
         "max_abs_err": max(max_err, p5["epoch_err"], p7["epoch_err"],
                            p8["epoch_err"], p9["epoch_err"],
-                           p10["epoch_err"]),
+                           p10["epoch_err"], p11["epoch_err"]),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None, "warp_ms": warp_ms,
         "shapes": dict(epoch_shapes, **p5["epoch_shapes"],
                        **p7["epoch_shapes"], **p8["epoch_shapes"],
-                       **p9["epoch_shapes"], **p10["epoch_shapes"]),
+                       **p9["epoch_shapes"], **p10["epoch_shapes"],
+                       **p11["epoch_shapes"]),
         "design_choice": p5["design_choice"]}, {
         "name": nops.NAME, "route": "cuda", "variant": ran(nops.NAME),
         "source": "src/repro_torch/kernels/noc_step/csrc/noc_step.cu",

@@ -12,7 +12,8 @@ convolutions, so every float32 product on the card runs in full float32, as
 the reference's `preferred_element_type=jnp.float32` arithmetic does.
 
 Kernels are CUDA C++ sources under `repro_torch/kernels/<name>/csrc/`, built
-at first use by `nvcc` into `build/kernels/` at the repository root (keyed by
+at first use by `nvcc` into `build/kernels/` at the repository root, or the
+directory `REPRO_CACHE_DIR` names (keyed by
 a hash of every file the source can include: its own `csrc/` directory and
 each `-I` directory of its flags, such as the shared `kernels/hopper/`) and
 loaded with `ctypes`.
@@ -35,7 +36,13 @@ torch.backends.cudnn.allow_tf32 = False
 
 # Repository root: src/repro_torch/backend.py -> parents[2].
 REPO_ROOT = Path(__file__).resolve().parents[2]
-BUILD_DIR = REPO_ROOT / "build" / "kernels"
+# The kernel-library cache: `build/kernels/` of the checkout, or the
+# directory REPRO_CACHE_DIR names (a cache shared by the processes of a
+# fleet; `runtime.cache.enable_persistent_cache` sets it in process).
+ENV_CACHE_DIR = "REPRO_CACHE_DIR"
+DEFAULT_BUILD_DIR = REPO_ROOT / "build" / "kernels"
+BUILD_DIR = Path(os.environ[ENV_CACHE_DIR]).expanduser() \
+    if os.environ.get(ENV_CACHE_DIR) else DEFAULT_BUILD_DIR
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -153,10 +160,11 @@ def build_library(name: str, source: Path,
                   flags: Tuple[str, ...] = NVCC_FLAGS) -> ctypes.CDLL:
     """Build (once per `build_key`) and load a kernel's shared library.
 
-    The library lands in `build/kernels/<name>-<key>.so` with the nvcc
+    The library lands in `BUILD_DIR/<name>-<key>.so` with the nvcc
     `-Xptxas -v` report beside it (`build_log(name)` returns it). The write
     is atomic (temporary file + rename), so concurrent first uses from
-    several processes at worst build twice.
+    several processes sharing the directory at worst build twice, and a
+    process that finds the library loads it without nvcc.
     """
     if name in _LIBS:
         return _LIBS[name]

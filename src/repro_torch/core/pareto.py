@@ -556,106 +556,123 @@ def _scalarize(objs: torch.Tensor, weights: torch.Tensor,
 # The generation loop
 # ---------------------------------------------------------------------------
 
-def _codesign_core(draws: dict, temps: torch.Tensor, rows: dict,
-                   weights: torch.Tensor,
-                   scoring: "S.CodesignScoring", *, generations: int,
-                   population: int, migrate_every: int, archive: int,
-                   d_pad: int, db_per_hop: float, a_bound: int,
-                   big_bound: int, on_stage=None) -> tuple:
-    """Every point's K annealed chains on the device, state [T, K, ...],
-    one `epoch_step` launch a generation; then the archive replayed in the
-    reference's order. It copies nothing to or from the host (every input
-    is on the device before it starts). Returns (packed, trail): the
-    packed result (`_unpack`) and each generation's candidates,
-    objectives, scores and decisions ([GEN, T, K, ...] tensors, for
-    diagnosis). `on_stage(name)`, if given, is called as each stage ends
-    ("proposals", "tables", "score", "acceptance" each generation, then
-    "archive"), for timing."""
-    stage = on_stage or (lambda name: None)
-    dev = temps.device
-    t_pts, k_isl = scoring.shape[:2]
-    g = int(rows["default_pos"].shape[1])
-    r_pad = int(rows["coords"].shape[1])
-    n_prop = population - 1
-    n = t_pts * k_isl * n_prop
-    moves_hi = max(1, generations // 3)
+class _Chains:
+    """K annealed chains of every topology point (state [T, K, ...]) on one
+    device, stepped one generation at a time: the generation loop's body.
+    A sharded search holds one per block of islands; migration, which
+    crosses blocks, is the caller's (`parent` is set before a migrating
+    generation)."""
 
-    # Per-proposal mesh rows (each candidate's point), set up once.
-    prop_pt = torch.arange(t_pts, device=dev).repeat_interleave(
-        k_isl * n_prop)
-    coords_n, blocked_n = rows["coords"][prop_pt], rows["blocked"][prop_pt]
-    mx_n, my_n = rows["mx"][prop_pt], rows["my"][prop_pt]
-    cand_pt = torch.arange(t_pts, device=dev)[:, None, None].expand(
-        t_pts, k_isl, population)
-    rpos = _restart_positions(draws, rows, g)
+    def __init__(self, draws: dict, rows: dict, weights: torch.Tensor,
+                 scoring: "S.CodesignScoring", *, generations: int,
+                 population: int, d_pad: int, db_per_hop: float,
+                 a_bound: int, big_bound: int):
+        self.draws, self.rows, self.weights = draws, rows, weights
+        self.scoring = scoring
+        self.d_pad, self.db_per_hop = d_pad, db_per_hop
+        self.a_bound, self.big_bound = a_bound, big_bound
+        dev = weights.device
+        t_pts, k_isl = scoring.shape[:2]
+        self.t_pts, self.k_isl, self.population = t_pts, k_isl, population
+        self.g = g = int(rows["default_pos"].shape[1])
+        self.r_pad = int(rows["coords"].shape[1])
+        self.n_prop = population - 1
+        self.n = t_pts * k_isl * self.n_prop
+        self.moves_hi = max(1, generations // 3)
+        # Per-proposal mesh rows (each candidate's point), set up once.
+        prop_pt = torch.arange(t_pts, device=dev).repeat_interleave(
+            k_isl * self.n_prop)
+        self.coords_n = rows["coords"][prop_pt]
+        self.blocked_n = rows["blocked"][prop_pt]
+        self.mx_n, self.my_n = rows["mx"][prop_pt], rows["my"][prop_pt]
+        self.cand_pt = torch.arange(t_pts, device=dev)[:, None, None] \
+            .expand(t_pts, k_isl, population)
+        self.rpos = _restart_positions(draws, rows, g)
+        self.parent = rows["default_pos"][:, None].expand(t_pts, k_isl, g, 2)
+        self.inc_pos = self.parent
+        self.inc_s = torch.full((t_pts, k_isl), float("inf"), dtype=_F32,
+                                device=dev)
+        self.norm = torch.ones((t_pts, k_isl, 3), dtype=_F32, device=dev)
+        self.trail = {k: [] for k in ("cands", "objs", "s", "ib", "accepted",
+                                      "threshold", "u", "inc_s")}
 
-    parent = rows["default_pos"][:, None].expand(t_pts, k_isl, g, 2)
-    inc_pos = parent
-    inc_s = torch.full((t_pts, k_isl), float("inf"), dtype=_F32, device=dev)
-    norm = torch.ones((t_pts, k_isl, 3), dtype=_F32, device=dev)
-    trail = {k: [] for k in ("cands", "objs", "s", "ib", "accepted",
-                             "threshold", "u", "inc_s")}
-    for gen in range(generations):
-        if migrate_every > 0 and gen > 0 and gen % migrate_every == 0:
-            # Ring migration: island k adopts island k-1's incumbent.
-            parent = torch.roll(inc_pos, 1, dims=1)
-        moves = 2 if gen < moves_hi else 1
+    def generation(self, gen: int, temp: torch.Tensor, stage) -> None:
+        """Propose, score (one `epoch_step` launch), accept; appends the
+        generation to `trail`."""
+        t_pts, k_isl, g, n = self.t_pts, self.k_isl, self.g, self.n
+        n_prop, r_pad, rows, draws = self.n_prop, self.r_pad, self.rows, \
+            self.draws
+        moves = 2 if gen < self.moves_hi else 1
         mi = draws["move_i"][:, gen].reshape(n, 2)
         mg = draws["move_gum"][:, gen].reshape(n, 2, r_pad)
-        pos = _one_move(parent[:, :, None].expand(t_pts, k_isl, n_prop, g, 2)
-                        .reshape(n, g, 2), mi[:, 0], mg[:, 0], coords_n,
-                        blocked_n)
+        pos = _one_move(self.parent[:, :, None].expand(
+            t_pts, k_isl, n_prop, g, 2).reshape(n, g, 2), mi[:, 0],
+            mg[:, 0], self.coords_n, self.blocked_n)
         if moves > 1:
-            pos = _one_move(pos, mi[:, 1], mg[:, 1], coords_n, blocked_n)
+            pos = _one_move(pos, mi[:, 1], mg[:, 1], self.coords_n,
+                            self.blocked_n)
         pos = torch.where(draws["restart"][:, gen].reshape(n)[:, None, None],
-                          rpos[:, gen].reshape(n, g, 2), pos)
-        order = _activation_order_mesh(pos, mx_n, my_n, a_bound=a_bound,
-                                       big_bound=big_bound)
+                          self.rpos[:, gen].reshape(n, g, 2), pos)
+        order = _activation_order_mesh(pos, self.mx_n, self.my_n,
+                                       a_bound=self.a_bound,
+                                       big_bound=self.big_bound)
         props = torch.gather(pos, 1, order[..., None].expand_as(pos))
-        cands = torch.cat([parent[:, :, None],
+        cands = torch.cat([self.parent[:, :, None],
                            props.reshape(t_pts, k_isl, n_prop, g, 2)], dim=2)
         stage("proposals")
 
         tables = placement_tables_from_lut_torch(
             cands, rows["hop_lut"], rows["edge_lut"], rows["router_mask"],
-            rows["caps"], d_pad=d_pad, db_per_hop=db_per_hop, point=cand_pt)
+            rows["caps"], d_pad=self.d_pad, db_per_hop=self.db_per_hop,
+            point=self.cand_pt)
         stage("tables")
-        objs = S.score_codesign_tables(scoring, tables["src_hops"],
+        objs = S.score_codesign_tables(self.scoring, tables["src_hops"],
                                        tables["gw_loss_db"])  # [T, K, P, 3]
         stage("score")
 
         # Per-island normalization: the point's generation-0 parent (its
         # default placement) anchors the scalarization scale.
         if gen == 0:
-            norm = objs[:, :, 0, :]
-        s = _scalarize(objs, weights, torch.clamp_min(torch.abs(norm),
-                                                      1e-12))
+            self.norm = objs[:, :, 0, :]
+        s = _scalarize(objs, self.weights,
+                       torch.clamp_min(torch.abs(self.norm), 1e-12))
         ib = torch.argmin(s, dim=2)
         sb = torch.gather(s, 2, ib[..., None])[..., 0]
         cb = torch.gather(cands, 2, ib[:, :, None, None, None].expand(
             t_pts, k_isl, 1, g, 2))[:, :, 0]
-        improved = sb < inc_s
-        inc_pos = torch.where(improved[..., None, None], cb, inc_pos)
-        inc_s = torch.minimum(sb, inc_s)
+        improved = sb < self.inc_s
+        self.inc_pos = torch.where(improved[..., None, None], cb,
+                                   self.inc_pos)
+        self.inc_s = torch.minimum(sb, self.inc_s)
 
         # Annealed Metropolis test per island (the host engine's law).
         s0 = s[..., 0]
         delta = sb - s0
         rel = delta / torch.clamp_min(torch.abs(s0), 1e-12)
-        temp = temps[gen]
         threshold = trandom.xla_exp(-rel / torch.clamp_min(temp, 1e-30))
         u = draws["acc_u"][:, gen]
         accepted = (delta < 0) | ((temp > 0) & (u < threshold))
-        parent = torch.where(accepted[..., None, None], cb, parent)
+        self.parent = torch.where(accepted[..., None, None], cb, self.parent)
         for k, v in (("cands", cands), ("objs", objs), ("s", s), ("ib", ib),
                      ("accepted", accepted), ("threshold", threshold),
-                     ("u", u), ("inc_s", inc_s)):
-            trail[k].append(v)
+                     ("u", u), ("inc_s", self.inc_s)):
+            self.trail[k].append(v)
         stage("acceptance")
-    trail = {k: torch.stack(v) for k, v in trail.items()}
 
-    # The archive, offered each generation's candidates point-major, then
-    # generation, lanes island-major, as the reference's scans offer them.
+
+def _migrates(gen: int, migrate_every: int) -> bool:
+    """Whether generation `gen` starts with the ring migration."""
+    return migrate_every > 0 and gen > 0 and gen % migrate_every == 0
+
+
+def _archive_replay(trail: dict, inc_pos: torch.Tensor,
+                    inc_s: torch.Tensor, *, generations: int,
+                    population: int, archive: int) -> torch.Tensor:
+    """The archive offered each generation's candidates point-major, then
+    generation, lanes island-major, as the reference's scans offer them;
+    then the packed result (`_unpack`)."""
+    t_pts, k_isl, g = inc_pos.shape[:3]
+    dev = inc_pos.device
     arch = _empty_archive(archive, g, dev)
     island = torch.arange(k_isl, device=dev).repeat_interleave(population)
     sizes = []
@@ -668,14 +685,63 @@ def _codesign_core(draws: dict, temps: torch.Tensor, rows: dict,
                 trail["cands"][gen, t].reshape(-1, g, 2), point, island,
                 capacity=archive)
             sizes.append(torch.sum(arch["valid"].to(_F32)))
-    stage("archive")
     hist = torch.stack([torch.stack(sizes).reshape(t_pts, generations),
                         torch.amin(trail["inc_s"], dim=-1).T], dim=-1)
-    packed = torch.cat([arch["obj"].reshape(-1),
-                        arch["pos"].reshape(-1).to(_F32),
-                        arch["topo"].to(_F32), arch["island"].to(_F32),
-                        arch["valid"].to(_F32), hist.reshape(-1),
-                        inc_pos.reshape(-1).to(_F32), inc_s.reshape(-1)])
+    return torch.cat([arch["obj"].reshape(-1),
+                      arch["pos"].reshape(-1).to(_F32),
+                      arch["topo"].to(_F32), arch["island"].to(_F32),
+                      arch["valid"].to(_F32), hist.reshape(-1),
+                      inc_pos.reshape(-1).to(_F32), inc_s.reshape(-1)])
+
+
+def _codesign_core(shard, scorings: list, draws: dict, temps: torch.Tensor,
+                   rows: dict, weights: torch.Tensor, *, generations: int,
+                   population: int, migrate_every: int, archive: int,
+                   d_pad: int, db_per_hop: float, a_bound: int,
+                   big_bound: int, on_stage=None) -> tuple:
+    """Every point's K annealed chains, state [T, K, ...], one
+    `epoch_step` launch a generation for each block of islands; then the
+    archive replayed in the reference's order. `shard` is a
+    `GridSharding` over the islands with no pad (one block for a
+    one-device search) and `scorings` its local blocks' scorings, in
+    `local_blocks` order: each block's chains step on its device, the
+    ring migration gathers every block's incumbents (across processes
+    too) before a migrating generation, and the archive is replayed over
+    every block's trail on the first device, so any split gives the
+    one-block search's bits. A one-process search copies nothing to or
+    from the host (every input is on its device before it starts).
+    Returns (packed, trail): the packed result (`_unpack`) and each
+    generation's candidates, objectives, scores and decisions ([GEN, T,
+    K, ...] tensors, for diagnosis). `on_stage(name)`, if given, is
+    called as each stage ends ("proposals", "tables", "score",
+    "acceptance" each block and generation, then "archive"), for
+    timing."""
+    stage = on_stage or (lambda name: None)
+    blocks = []
+    for (dev, idx), scoring in zip(shard.local_blocks(), scorings):
+        start, m = int(idx[0]), len(idx)
+        blocks.append((dev, start, m, temps.to(dev), _Chains(
+            {k: v.narrow(2, start, m).to(dev) for k, v in draws.items()},
+            {k: v.to(dev) for k, v in rows.items()},
+            weights.narrow(0, start, m).to(dev), scoring,
+            generations=generations, population=population, d_pad=d_pad,
+            db_per_hop=db_per_hop, a_bound=a_bound, big_bound=big_bound)))
+    for gen in range(generations):
+        if _migrates(gen, migrate_every):
+            # Ring migration: island k adopts island k-1's incumbent.
+            rolled = torch.roll(shard.gather(
+                [c.inc_pos for *_, c in blocks], axis=1), 1, dims=1)
+            for dev, start, m, _, c in blocks:
+                c.parent = rolled.narrow(1, start, m).to(dev)
+        for *_, temps_b, c in blocks:
+            c.generation(gen, temps_b[gen], stage)
+    trail = shard.gather([{k: torch.stack(v) for k, v in c.trail.items()}
+                          for *_, c in blocks], axis=2)
+    packed = _archive_replay(
+        trail, shard.gather([c.inc_pos for *_, c in blocks], axis=1),
+        shard.gather([c.inc_s for *_, c in blocks], axis=1),
+        generations=generations, population=population, archive=archive)
+    stage("archive")
     return packed, trail
 
 
@@ -796,9 +862,17 @@ def search_codesign(trace, sim, *, islands: int = None,
     card (every point's chains in each), one device-to-host copy and one
     `engine_stats()["search_dispatches"]`. `engine="host"` runs the same
     searcher with numpy randomness over `sweep_topology_batch` (one call
-    per point and generation). Runs on the card unless `device="cpu"`;
-    `devices` with more than one entry raises NotImplementedError
-    (ROADMAP queue 1 item 8).
+    per point and generation). Runs on the card unless `device="cpu"`.
+
+    `devices` with more than one entry (this process's; entries may
+    repeat), or one per process after `distributed.init_distributed`,
+    shards the device engine's islands when they divide evenly over the
+    fleet's devices, as the reference does (otherwise the search runs as
+    one block on the first device): each block's chains step on its
+    device with the whole search's `epoch_step` design, the ring migration
+    gathers every block's incumbents, and the archive is replayed over
+    every block's candidates; the result equals the one-device search's
+    and carries a `"sharding"` description.
 
     Returns the Pareto front as `"front"` entries (topology, placement,
     knobs, objectives), the raw archive, the per-(topology, generation)
@@ -810,8 +884,12 @@ def search_codesign(trace, sim, *, islands: int = None,
     _check_codesign_params(generations, population, migrate_every, archive)
     cs, gs, rs = _check_topology_grids(sim, topo_grids)
     knobs, islands = _check_knob_grids(knob_grids, islands)
-    one = S._check_devices(devices, "search_codesign")
-    dev = backend.resolve_device(one if device is None else device)
+    shard, sharded = S._grid_sharding(islands, devices, device, "islands")
+    dev = shard.devices[0]
+    if engine == "host" or shard.pad:
+        # As the reference: islands shard only when they divide evenly
+        # over the devices; the host engine runs on one device.
+        shard, sharded = S._grid_sharding(islands, None, dev, "islands")
     batch = _codesign_batch(trace)
     if engine == "host":
         return _host_codesign(
@@ -824,10 +902,9 @@ def search_codesign(trace, sim, *, islands: int = None,
     sim_p, rows, _cfgs, c_max, statics = _prepare_codesign(sim, cs, gs, rs,
                                                            dev)
     arrays = S._topo_trace_arrays(batch, c_max, dev)
-    scoring = S.codesign_scoring(
-        sim_p, {k: rows[k] for k in _LANE_ROWS},
-        _knob_grid(knobs, islands, sim, gs), arrays, population,
-        np.asarray(cs))
+    knob_grid = _knob_grid(knobs, islands, sim, gs)
+    lane_rows = {k: rows[k] for k in _LANE_ROWS}
+    w_axis = int(arrays[0].shape[0]) if arrays[0].dim() == 3 else 1
     hyper = _hyper(temperature, cooling, restart_frac)
     g = gs[0]
     draws = _draws(trandom.prng_key(seed, device=dev), len(cs), generations,
@@ -836,21 +913,35 @@ def search_codesign(trace, sim, *, islands: int = None,
     temps = torch.as_tensor(_temperatures(
         hyper["temperature"], hyper["cooling"], generations), device=dev)
     weights = island_weights(islands)
+    lanes = len(cs) * islands * population * w_axis
+    scorings = []
+    for (_, idx), (_, (rows_b, arrays_b)) in zip(
+            shard.local_blocks(), shard.replicate((lane_rows, arrays))):
+        scoring = S.codesign_scoring(
+            sim_p, rows_b, {f: v[:, idx] for f, v in knob_grid.items()},
+            arrays_b, population, np.asarray(cs))
+        if len(idx) < islands:         # a block launches the whole design
+            scoring.kwargs["kernel"] = S._launch_design(
+                sim_p, scoring.xs, dict(scoring.kwargs, topo=scoring.topo),
+                lanes)
+        scorings.append(scoring)
     packed, _trail = _codesign_core(
-        draws, temps, rows, torch.as_tensor(weights, device=dev), scoring,
-        generations=generations, population=population,
-        migrate_every=migrate_every, archive=archive, **statics)
+        shard, scorings, draws, temps, rows,
+        torch.as_tensor(weights, device=dev), generations=generations,
+        population=population, migrate_every=migrate_every, archive=archive,
+        **statics)
     # Counted once the last generation is launched: a search that raised
     # never counts.
     S._STATS["search_dispatches"] += 1
     host = _unpack(packed.cpu().numpy(), archive, g, len(cs),  # the copy
                    generations, islands)
-    w_axis = scoring.shape[3]
     meta = {"generations": generations, "population": population,
             "migrate_every": migrate_every, "archive_capacity": archive,
             "workloads": w_axis,
             "candidate_evals": len(cs) * generations * islands
             * population * w_axis}
+    if sharded:
+        meta["sharding"] = shard.describe()
     return _codesign_result(host["archive"], host["history"],
                             host["inc_pos"], host["inc_s"], weights, cs, gs,
                             rs, knobs, islands, "device", meta)

@@ -348,18 +348,25 @@ def _as_placement(pos) -> tuple:
 
 def _run(trace, sim, keys: torch.Tensor, prepared: tuple, overrides, *,
          objective, generations, population, temperature, cooling,
-         restart_frac) -> dict:
+         restart_frac, chains: int = None) -> dict:
     """Shared body of the two entry points, after validation: set-up
     (every table and input on the keys' device before the first
     generation), the chains, and the one device-to-host copy. `keys` are
     the chains' [K, 2] keys, `prepared` what `_prepare_search` returns,
-    `overrides` the [K] knob grids."""
+    `overrides` the [K] knob grids; `chains` the whole search's chain
+    count (when these are fewer, one block of a sharded search, each
+    generation launches the whole search's `epoch_step` design). The caller
+    counts the search's `search_dispatches`."""
     default_p, parent_p, inject_default, blocked = prepared
     dev, n_k, cfg = keys.device, int(keys.shape[0]), sim.cfg
     lanes = {f: torch.as_tensor(v, device=dev).repeat_interleave(population)
              for f, v in (overrides or {}).items()}
     scoring = S.placement_scoring(trace, sim, n_k * population, device=dev,
                                   overrides=lanes)
+    if chains is not None and chains > n_k:
+        scoring.kwargs["kernel"] = S._launch_design(
+            sim, scoring.xs, dict(scoring.kwargs, topo=scoring.topo),
+            chains * population)
     hyper = _hyper(temperature, cooling, restart_frac)
     draws = _draws(keys, generations, population - 1, _mesh_coords(cfg, dev),
                    blocked, cfg.max_gateways_per_chiplet,
@@ -371,9 +378,6 @@ def _run(trace, sim, keys: torch.Tensor, prepared: tuple, overrides, *,
         torch.as_tensor(default_p, device=dev), blocked, scoring, cfg=cfg,
         generations=generations, population=population, objective=objective,
         inject_default=inject_default)
-    # Counted once the last generation is launched: a search that raised
-    # never counts.
-    S._STATS["search_dispatches"] += 1
     return _unpack(packed.cpu().numpy(),                 # the one copy
                    cfg.max_gateways_per_chiplet, generations)
 
@@ -399,6 +403,9 @@ def search_placement_device(trace: dict, sim, *,
                 prepared, None, objective=objective, generations=generations,
                 population=population, temperature=temperature,
                 cooling=cooling, restart_frac=restart_frac)
+    # Counted once the last generation is launched: a search that raised
+    # never counts.
+    S._STATS["search_dispatches"] += 1
     best_s = float(host["best_score"][0])
     default_s = float(host["default_score"][0])
     return {"best_placement": _as_placement(host["best_placement"][0]),
@@ -434,14 +441,16 @@ def search_placement_islands(trace: dict, sim, *, islands: int = None,
     searches the best placement per L_m operating point. Returns the
     overall winner plus per-island bests, incumbents, defaults and
     histories (`island_*` arrays and a `history` dict of [K, T] arrays,
-    leading [K] axis), all from one device-to-host copy. `devices` with
-    more than one entry raises NotImplementedError (ROADMAP queue 1 item
-    8); one entry names the device to run on."""
-    one = S._check_devices(devices, "search_placement_islands")
-    dev = backend.resolve_device(one if device is None else device)
+    leading [K] axis), all from one device-to-host copy.
+
+    `devices` with more than one entry (this process's; entries may
+    repeat), or one per process after `distributed.init_distributed`,
+    shards the islands: K padded by repeating the last island's key and
+    knobs, each block's chains on its device with the whole search's
+    `epoch_step` design, the blocks gathered on every process; the result
+    equals the one-device search's and carries a `"sharding"`
+    description. One entry names the device to run on."""
     _check_search_params(generations, population, objective)
-    prepared = _prepare_search(sim, init, blocked_positions, dev)
-    default_p = prepared[0]
     unknown = set(grids) - set(S.SWEEPABLE_FIELDS)
     if unknown:
         raise ValueError(
@@ -470,13 +479,28 @@ def search_placement_islands(trace: dict, sim, *, islands: int = None,
     if islands < 1:
         raise ValueError("islands must be >= 1")
 
+    gs, sharded = S._grid_sharding(islands, devices, device, "islands")
+    dev = gs.devices[0]
+    prepared = _prepare_search(sim, init, blocked_positions, dev)
+    default_p = prepared[0]
     keys = trandom.fold_in(trandom.prng_key(seed, device=dev),
                            torch.arange(islands, device=dev))
-    host = _run(trace, sim, keys, prepared,
-                {f: S._runtime_grid(f, v) for f, v in grids.items()},
-                objective=objective, generations=generations,
-                population=population, temperature=temperature,
-                cooling=cooling, restart_frac=restart_frac)
+    overrides = {f: S._runtime_grid(f, v) for f, v in grids.items()}
+    blocks = []
+    for (bdev, idx), (_, (keys_b, over_b)) in zip(
+            gs.local_blocks(), gs.shard((keys, overrides))):
+        blocks.append(_run(
+            trace, sim, keys_b,
+            prepared if bdev == dev
+            else _prepare_search(sim, init, blocked_positions, bdev),
+            over_b, chains=islands, objective=objective,
+            generations=generations, population=population,
+            temperature=temperature, cooling=cooling,
+            restart_frac=restart_frac))
+    host = gs.gather(blocks)
+    # Counted once the last generation is launched: a search that raised
+    # never counts.
+    S._STATS["search_dispatches"] += 1
     scores = host["best_score"]
     k_best = int(np.argmin(scores))
     defaults = host["default_score"]
@@ -502,4 +526,4 @@ def search_placement_islands(trace: dict, sim, *, islands: int = None,
         "history": {k: hist[..., i] for i, k in enumerate(HISTORY_KEYS)},
         "objective": objective, "generations": generations,
         "population": population, "islands": islands, "engine": "device",
-    }
+    } | ({"sharding": gs.describe()} if sharded else {})

@@ -624,18 +624,44 @@ def _scan_trace(state: SimState, xs: tuple, sim: SimConfig, tables: dict,
                 knobs: Optional[Dict[str, torch.Tensor]] = None,
                 topo: Optional[dict] = None,
                 dest_index: Optional[torch.Tensor] = None,
-                pair_trace: Optional[torch.Tensor] = None
-                ) -> Tuple[SimState, dict]:
+                pair_trace: Optional[torch.Tensor] = None,
+                kernel: Optional[str] = None) -> Tuple[SimState, dict]:
     """Run the interval loop: the `epoch_step` kernel wrapper for the
     configurations it supports (the reference's gate, plus its >= 1
     memory gateway precondition; padded lanes included, where the
-    reference runs its scan body), the plain loop for everything else."""
+    reference runs its scan body), the plain loop for everything else.
+    `kernel` names the wrapper's design on the card (default: its own
+    choice for these lanes; `_launch_design`)."""
     kw = dict(dest=dest, faulted=faulted, lane_trace=lane_trace, knobs=knobs,
               topo=topo, dest_index=dest_index, pair_trace=pair_trace)
-    if sim.arch in KERNEL_ARCHS and sim.cfg.memory_gateways >= 1:
+    if _kernel_runs(sim):
         from repro_torch.kernels.epoch_step.ops import epoch_run
+        if kernel is not None:
+            kw["kernel"] = kernel
         return epoch_run(state, xs, sim, tables, **kw)
     return _loop(state, xs, sim, tables, **kw)
+
+
+def _kernel_runs(sim: SimConfig) -> bool:
+    """Whether `_scan_trace` runs the `epoch_step` wrapper for `sim`."""
+    return sim.arch in KERNEL_ARCHS and sim.cfg.memory_gateways >= 1
+
+
+def _launch_design(sim: SimConfig, xs: tuple, kw: dict,
+                   lanes: int) -> Optional[str]:
+    """The `epoch_step` design one launch of `lanes` lanes of these inputs
+    runs (`ops.variant`), None where the plain loop runs or the wrapper
+    refuses the width. A sharded run passes the whole grid's design to
+    every block, so each block's launch runs what the one-device call
+    would."""
+    from repro_torch.kernels.epoch_step import ops
+
+    c = int(xs[0].shape[-1])
+    if not _kernel_runs(sim) or c > ops.MAX_CHIPLETS:
+        return None
+    return ops.variant(c, bool(kw.get("faulted")),
+                       kw.get("dest") is not None, lanes,
+                       kw.get("topo") is not None)
 
 
 def _lane_total(x: torch.Tensor) -> torch.Tensor:
@@ -866,17 +892,15 @@ def epoch_inputs(traces, sim: SimConfig, *, device=None, faults=True,
 
 def _run(traces, sim: SimConfig, shape, *, device, faults=True,
          zipped=False, **fields) -> dict:
-    """Shared body of every entry point: N x K lanes (N zipped lanes)
-    through the interval loop, then the mask-correct summaries; the lane
-    axis of every result is reshaped to `shape`."""
+    """Shared body of the unpadded entry points: N x K lanes (N zipped
+    lanes) as one block through `_run_blocks`; the lane axis of every
+    result is reshaped to `shape`."""
     state0, xs, tables, kw = epoch_inputs(traces, sim, device=device,
                                           faults=faults, zipped=zipped,
                                           **fields)
-    _, recs = _scan_trace(state0, xs, sim, tables, **kw)
-    lane_mask = xs[4][kw["lane_trace"]]
-    summary = _summary_from_sums(_record_sums(recs, lane_mask),
-                                 sim.cfg.n_chiplets)
-    return _shaped(recs, summary, shape)
+    return _run_blocks(_one_block(kw["lane_trace"]), sim, state0, xs,
+                       tables, kw, sim.cfg.n_chiplets, lambda idx: idx,
+                       lambda m: shape)
 
 
 def _shaped(recs: dict, summary: dict, shape) -> dict:
@@ -1260,12 +1284,15 @@ class _TopologyGrid:
     c_max: int
 
 
-def _prepare_topology_sweep(sim: SimConfig, grids: dict,
-                            device) -> _TopologyGrid:
+def _prepare_topology_sweep(sim: SimConfig, grids: dict, device,
+                            pad_chiplets: Optional[int] = None
+                            ) -> _TopologyGrid:
     """Split grids into topology axes and runtime knobs; build the padded
     config, the per-point topology rows (hop and access-loss tables, mesh
     scalars, gateway totals) and the per-point controller clamps
-    (max = min(user max, g_k), min = min(user min, that max))."""
+    (max = min(user max, g_k), min = min(user min, that max)).
+    `pad_chiplets` widens the padded chiplet axis past the grid's
+    largest point."""
     if not grids:
         raise ValueError("sweep_topology() needs at least one field=values "
                          f"pair from {TOPOLOGY_SWEEPABLE_FIELDS}")
@@ -1319,6 +1346,11 @@ def _prepare_topology_sweep(sim: SimConfig, grids: dict,
                           mesh_radix=r), gateway_positions=p)
                  for c, g, r, p in zip(cs, gs, rs, ps))
     c_max, g_max, r_max = max(cs), max(gs), max(rs)
+    if pad_chiplets is not None:
+        if int(pad_chiplets) < c_max:
+            raise ValueError(f"pad_chiplets={pad_chiplets} is smaller than "
+                             f"the grid's largest n_chiplets ({c_max})")
+        c_max = int(pad_chiplets)
     ptab = padded_selection_tables_torch(cfgs, (g_max, r_max * r_max),
                                          device)
     f32 = dict(dtype=_F32, device=device)
@@ -1411,7 +1443,7 @@ def _pair_destinations(dest: torch.Tensor, lane_trace: np.ndarray,
 
 
 def topology_inputs(batch, sim: SimConfig, *, device=None, zipped=False,
-                    on_stage=None, **grids):
+                    on_stage=None, pad_chiplets=None, **grids):
     """What the padded entry points hand the interval loop: `(sim_p,
     state0, xs, kwargs, nreal)` such that ``_scan_trace(state0, xs, sim_p,
     None, **kwargs)`` runs the grid. `batch` is one trace, a list of traces
@@ -1420,10 +1452,11 @@ def topology_inputs(batch, sim: SimConfig, *, device=None, zipped=False,
     K lanes, lane k on trace k with point k (N must be K). `nreal` [B] is
     each lane's real chiplet count (the wavelength summary's divisor).
     `on_stage(name)`, if given, is called as each stage ends ("prepare",
-    "trace_arrays", "lanes", "dest_pairs", "initial_state"), for timing."""
+    "trace_arrays", "lanes", "dest_pairs", "initial_state"), for timing.
+    `pad_chiplets` pads the chiplet axis wider than the grid needs."""
     stage = on_stage or (lambda name: None)
     dev = backend.resolve_device(device)
-    grid = _prepare_topology_sweep(sim, grids, dev)
+    grid = _prepare_topology_sweep(sim, grids, dev, pad_chiplets)
     stage("prepare")
     ext, mem, intra, ext_frac, t_mask, dest = _topo_trace_arrays(
         _stacked(batch), grid.c_max, dev)
@@ -1463,17 +1496,15 @@ def topology_inputs(batch, sim: SimConfig, *, device=None, zipped=False,
 
 
 def _topo_run(batch, sim: SimConfig, shape, *, device, zipped=False,
-              **grids) -> dict:
-    """Shared body of the padded entry points: the grid's lanes through
-    the interval loop, then the summaries (mean wavelengths over each
-    lane's real chiplets); every result's lane axis reshaped to
-    `shape`."""
+              pad_chiplets=None, **grids) -> dict:
+    """Shared body of the padded entry points: the grid's lanes as one
+    block through `_run_blocks` (mean wavelengths over each lane's real
+    chiplets); every result's lane axis reshaped to `shape`."""
     sim_p, state0, xs, kw, nreal = topology_inputs(
-        batch, sim, device=device, zipped=zipped, **grids)
-    _, recs = _scan_trace(state0, xs, sim_p, None, **kw)
-    summary = _summary_from_sums(
-        _record_sums(recs, xs[4][kw["lane_trace"]]), nreal)
-    return _shaped(recs, summary, shape)
+        batch, sim, device=device, zipped=zipped, pad_chiplets=pad_chiplets,
+        **grids)
+    return _run_blocks(_one_block(kw["lane_trace"]), sim_p, state0, xs,
+                       None, kw, nreal, lambda idx: idx, lambda m: shape)
 
 
 def _topo_points(grids) -> int:
@@ -1505,26 +1536,16 @@ def sweep_topology(trace: dict, sim: SimConfig, *, device=None,
                      **grids)
 
 
-def _check_devices(devices, what: str):
-    """The single-device case only: more than one device raises."""
-    devices = None if devices is None else list(devices)
-    if devices is not None and len(devices) > 1:
-        raise NotImplementedError(
-            f"{what} over {len(devices)} devices is not ported: sharding a "
-            f"sweep across cards is ROADMAP queue 1 item 8 (fleet and "
-            f"caching on torch.distributed); pass one device")
-    return devices[0] if devices else None
-
-
 def sweep_topology_batch(traces, sim: SimConfig, *, devices=None,
                          device=None, **grids) -> dict:
     """N traces x K topologies as N*K trace-major lanes of one padded run
     ([N, K] results). `traces` is a list of same-width trace dicts (ragged
     lengths pad under a `t_mask`) or a `stack_traces` dict. `devices` with
-    more than one entry raises (see `shard_sweep`)."""
+    more than one entry shards the K axis (see `shard_sweep`)."""
     if devices is not None and len(list(devices)) > 1:
-        return shard_sweep(traces, sim, devices=devices, device=device,
-                           **grids)
+        return shard_sweep(traces, sim, devices=devices, **grids)
+    if devices is not None and device is None:
+        device = list(devices)[0]
     batch = _stacked(traces)
     return _topo_run(batch, sim, (int(np.shape(batch["ext_load"])[0]),
                                   _topo_points(grids)),
@@ -1542,23 +1563,151 @@ def _sharding_note(out: dict, describe: dict) -> dict:
     return out
 
 
+def _grid_sharding(k: int, devices, device, logical_axis: str = "sweep"):
+    """The `GridSharding` of a K-point grid: over `devices` (and every
+    process of the fleet) when they are more than one or a fleet is up,
+    else one block on this process's `device` (default the first of
+    `devices`, else the card). Returns (sharding, whether sharded)."""
+    from repro_torch.core.distributed import GridSharding, process_count
+
+    if devices is not None and (len(list(devices)) > 1
+                                or process_count() > 1):
+        return GridSharding(k, devices=devices,
+                            logical_axis=logical_axis), True
+    if devices is not None and device is None:
+        device = list(devices)[0]
+    return GridSharding(k, devices=[backend.resolve_device(device)],
+                        logical_axis=logical_axis,
+                        across_processes=False), False
+
+
+def _one_block(lane_trace: torch.Tensor):
+    """Every lane of a run as one block on this process, on the lanes'
+    device."""
+    from repro_torch.core.distributed import GridSharding
+
+    return GridSharding(int(lane_trace.shape[0]),
+                        devices=[lane_trace.device], across_processes=False)
+
+
+def _block_inputs(state0: SimState, xs: tuple, tables, kw: dict, nreal,
+                  lanes: np.ndarray, device, host: dict) -> tuple:
+    """The loop inputs of lanes `lanes` (indices into the run's lane axis)
+    on `device`: the carry and every per-lane input picked, the traces
+    (and destination matrices) narrowed to those the lanes read and
+    renumbered, the rest moved. A block of every lane in order on the
+    inputs' own device takes them as they are. `host` caches the host
+    copies of the lane maps, filled on first use."""
+    src = state0.ctl.g.device
+    b = int(kw["lane_trace"].shape[0])
+    if torch.device(device) == src and np.array_equal(lanes, np.arange(b)):
+        return state0, xs, tables, kw, nreal
+    if not host:
+        host.update({k: kw[k].cpu().numpy() for k in
+                     ("lane_trace", "dest_index", "pair_trace")
+                     if kw.get(k) is not None})
+    sel = torch.as_tensor(lanes, device=src)
+
+    def take(a):
+        return a[sel].to(device)
+
+    def move(a):
+        return a.to(device) if isinstance(a, torch.Tensor) else a
+
+    def narrow(a, keep):
+        if keep is None:
+            return move(a)
+        return a[torch.as_tensor(keep, device=a.device)].to(device)
+
+    traces, lane_trace = np.unique(host["lane_trace"][lanes],
+                                   return_inverse=True)
+    keep = None if np.array_equal(traces, np.arange(int(xs[0].shape[0]))) \
+        else traces
+    out = {k: move(v) for k, v in kw.items()}
+    out["lane_trace"] = torch.as_tensor(lane_trace.astype(np.int64),
+                                        device=device)
+    out["knobs"] = {k: take(v) for k, v in kw["knobs"].items()}
+    if kw.get("topo") is not None:
+        out["topo"] = {k: take(v) for k, v in kw["topo"].items()}
+    if kw.get("dest_index") is not None:
+        pairs, dest_index = np.unique(host["dest_index"][lanes],
+                                      return_inverse=True)
+        out["dest"] = narrow(kw["dest"], pairs)
+        out["dest_index"] = torch.as_tensor(dest_index.astype(np.int32),
+                                            device=device)
+        out["pair_trace"] = torch.as_tensor(np.searchsorted(
+            traces, host["pair_trace"][pairs]).astype(np.int32),
+            device=device)
+    elif kw.get("dest") is not None:
+        out["dest"] = narrow(kw["dest"], keep)
+    state = SimState(
+        ctl=ControllerState(g=take(state0.ctl.g),
+                            packets_seen=take(state0.ctl.packets_seen),
+                            epoch=take(state0.ctl.epoch)),
+        wavelengths=take(state0.wavelengths),
+        prev_active=take(state0.prev_active))
+    tables = None if tables is None else {k: move(v)
+                                          for k, v in tables.items()}
+    return (state, tuple(narrow(a, keep) for a in xs), tables, out,
+            take(nreal) if isinstance(nreal, torch.Tensor) else nreal)
+
+
+def _run_blocks(gs, sim: SimConfig, state0: SimState, xs: tuple, tables,
+                kw: dict, nreal, lanes_of, shape_of, *,
+                axis: int = 0) -> dict:
+    """The body of every sweep: this process's blocks of a grid (`gs`, a
+    `GridSharding`; one block for a one-device run) through the interval
+    loop, then the mask-correct summaries (means over `nreal` chiplets),
+    gathered on every process. `lanes_of(idx)` gives the lanes [int64] of
+    grid indices `idx`, `shape_of(n)` a block's result shape. Every block
+    runs at the whole run's padded shapes and launches the whole run's
+    `epoch_step` design (`_launch_design`), so the gathered result equals
+    the one-block run's bit for bit."""
+    n_lanes = int(kw["lane_trace"].shape[0])
+    design = _launch_design(sim, xs, kw, n_lanes)
+    outs, host = [], {}
+    for dev, idx in gs.local_blocks():
+        lanes = np.asarray(lanes_of(idx))
+        state_b, xs_b, tables_b, kw_b, nreal_b = _block_inputs(
+            state0, xs, tables, kw, nreal, lanes, dev, host)
+        # A block of every lane launches what the wrapper itself chooses.
+        _, recs = _scan_trace(state_b, xs_b, sim, tables_b,
+                              kernel=design if lanes.size < n_lanes
+                              else None, **kw_b)
+        summary = _summary_from_sums(
+            _record_sums(recs, xs_b[4][kw_b["lane_trace"]]), nreal_b)
+        outs.append(_shaped(recs, summary, shape_of(len(idx))))
+    return gs.gather(outs, axis=axis)
+
+
 def shard_sweep(traces, sim: SimConfig, *, devices=None, device=None,
                 **grids) -> dict:
     """The topology sweep of `sweep_topology` / `sweep_topology_batch` (a
-    single trace dict, or a list / stacked batch with a leading [N] axis),
-    with the reference's sharding description: `summary["pad_lanes"]` (0)
-    and a top-level `"sharding"` dict. Only the single-device case is
-    ported: `devices` with more than one entry raises NotImplementedError
-    (ROADMAP queue 1 item 8); one entry names the device to run on."""
-    one = _check_devices(devices, "shard_sweep")
-    device = one if device is None else device
+    single trace dict, or a list / stacked batch with a leading [N] axis)
+    with the K (topology) axis sharded over `devices` (this process's;
+    entries may repeat) and, after `distributed.init_distributed`, over
+    every process of the fleet: K padded to the device count by repeating
+    the last point, block i of the padded grid run on device i (every
+    trace's lanes of its points), the blocks gathered on every process.
+    Every block runs at the full grid's padded shapes and `epoch_step`
+    design, so the result equals the one-device call bit for bit. The
+    result carries `summary["pad_lanes"]` and a top-level `"sharding"`
+    description. One device in one process runs `device` (default the
+    first of `devices`, else the card) as one block. A failure in the
+    sharded path raises; nothing falls back."""
     batched = not (isinstance(traces, dict)
                    and _ndim(traces["ext_load"]) == 2)
-    call = sweep_topology_batch if batched else sweep_topology
-    out = call(traces, sim, device=device, **grids)
-    return _sharding_note(out, {
-        "grid_points": int(out["summary"]["mean_latency"].shape[-1]),
-        "pad_lanes": 0, "devices": 1, "processes": 1})
+    k = _topo_points(grids)
+    gs, _ = _grid_sharding(k, devices, device)
+    batch = _stacked(traces) if batched else traces
+    sim_p, state0, xs, kw, nreal = topology_inputs(
+        batch, sim, device=gs.devices[0], **grids)
+    n = int(np.shape(batch["ext_load"])[0]) if batched else 1
+    return _sharding_note(_run_blocks(
+        gs, sim_p, state0, xs, None, kw, nreal,
+        lambda idx: (np.arange(n)[:, None] * k + idx[None, :]).reshape(-1),
+        lambda m: (n, m) if batched else (m,), axis=1 if batched else 0),
+        gs.describe())
 
 
 # ---------------------------------------------------------------------------
@@ -1581,7 +1730,7 @@ def _workload_keys(keys, seed: int, k: int, device) -> torch.Tensor:
 
 def sweep_workload(specs, sim: SimConfig, *, seed: int = 0, keys=None,
                    dest: bool = False, devices=None, gen_chiplets=None,
-                   device=None, **grids) -> dict:
+                   pad_chiplets=None, device=None, **grids) -> dict:
     """Workload DSE: K traffic specs as K lanes of one run, e.g.
     ``sweep_workload([ParsecSpec("dedup", 64), UniformSpec(n_intervals=32)],
     sim, device="cpu")``.
@@ -1594,16 +1743,26 @@ def sweep_workload(specs, sim: SimConfig, *, seed: int = 0, keys=None,
     padded one (traces generated at the grid's widest `n_chiplets`, or at
     `gen_chiplets`), SWEEPABLE_FIELDS grids alone an unpadded one on
     `sim.cfg`. Results carry a leading [K] axis; lane k equals `simulate`
-    of its own trace. `devices` with more than one entry raises
-    NotImplementedError (ROADMAP queue 1 item 8).
+    of its own trace.
+
+    `devices` with more than one entry (this process's; entries may
+    repeat), or one per process after `distributed.init_distributed`,
+    shards the K lanes as `shard_sweep` shards points: K padded by
+    repeating the last lane, every block at the whole grid's padded shapes
+    and `epoch_step` design, the result bitwise the one-device call's, with
+    `summary["pad_lanes"]` and a `"sharding"` description. An
+    emulated-host worker running a slice of a bigger grid passes the full
+    grid's `gen_chiplets` and its slice of the full grid's keys, so its
+    lanes are the full run's rows, and the full grid's `pad_chiplets` (the
+    padded chiplet axis, at most `gen_chiplets`; default the slice's
+    largest point), so they are the full run's bit for bit.
     """
-    one = _check_devices(devices, "sweep_workload")
-    device = one if device is None else device
     specs = [traffic.as_spec(s) for s in specs]
     if not specs:
         raise ValueError("sweep_workload() needs at least one traffic spec")
     k = len(specs)
-    dev = backend.resolve_device(device)
+    gs, sharded = _grid_sharding(k, devices, device)
+    dev = gs.devices[0]
     keys = _workload_keys(keys, seed, k, dev)
     for name, v in grids.items():
         n = _topo_grid_len(name, v)
@@ -1622,20 +1781,36 @@ def sweep_workload(specs, sim: SimConfig, *, seed: int = 0, keys=None,
                     f"gen_chiplets={gen_chiplets} is smaller than the "
                     f"grid's largest n_chiplets ({c_gen})")
             c_gen = int(gen_chiplets)
+        if pad_chiplets is not None and int(pad_chiplets) > c_gen:
+            raise ValueError(f"pad_chiplets={pad_chiplets} is wider than "
+                             f"the traces ({c_gen} chiplets)")
         gen_cfg = sim.cfg.with_topology(n_chiplets=c_gen)
-        traces = [traffic.generate(s, keys[i], gen_cfg, dest=dest,
-                                   device=dev) for i, s in enumerate(specs)]
-        return _topo_run(stack_traces(traces, pad=True), sim, (k,),
-                         device=dev, zipped=True, **grids)
-    unknown = set(grids) - set(SWEEPABLE_FIELDS)
-    if unknown:
-        raise ValueError(
-            f"non-sweepable fields: {sorted(unknown)} (topology: "
-            f"{TOPOLOGY_SWEEPABLE_FIELDS}, runtime: {SWEEPABLE_FIELDS})")
-    traces = [traffic.generate(s, keys[i], sim.cfg, dest=dest, device=dev)
-              for i, s in enumerate(specs)]
-    return _run(stack_traces(traces, pad=True), sim, (k,), device=dev,
-                faults=False, zipped=True, **grids)
+    else:
+        if pad_chiplets is not None:
+            raise ValueError("pad_chiplets pads a topology grid; no "
+                             "topology field is swept")
+        unknown = set(grids) - set(SWEEPABLE_FIELDS)
+        if unknown:
+            raise ValueError(
+                f"non-sweepable fields: {sorted(unknown)} (topology: "
+                f"{TOPOLOGY_SWEEPABLE_FIELDS}, runtime: {SWEEPABLE_FIELDS})")
+        gen_cfg = sim.cfg
+    batch = stack_traces([traffic.generate(s, keys[i], gen_cfg, dest=dest,
+                                           device=dev)
+                          for i, s in enumerate(specs)], pad=True)
+    if topo_grids:
+        sim_p, state0, xs, kw, nreal = topology_inputs(
+            batch, sim, device=dev, zipped=True, pad_chiplets=pad_chiplets,
+            **grids)
+        tables = None
+    else:
+        sim_p, nreal = sim, sim.cfg.n_chiplets
+        state0, xs, tables, kw = epoch_inputs(batch, sim, device=dev,
+                                              faults=False, zipped=True,
+                                              **grids)
+    out = _run_blocks(gs, sim_p, state0, xs, tables, kw, nreal,
+                      lambda idx: idx, lambda m: (m,))
+    return _sharding_note(out, gs.describe()) if sharded else out
 
 
 # ---------------------------------------------------------------------------

@@ -18,10 +18,12 @@ folds chains of constant factors left to right in float32 (`x * a / b` is
 `x * f32(f32(a) * f32(1 / b))`, `0.15 * normal` is `erf_inv(u) *
 f32(0.15 * sqrt(2))`), fuses a multiply into the add that consumes it (one
 rounding), and sums `mem_load` over chiplets in index order, fusing each
-term's last product into the running sum. The generators below write those
-forms out (`repro_torch.random.fma`, `_fold`, `_mem_load`). The one
-remaining difference is `sin` in the PARSEC phase (libm's `sinf` there,
-float64 `sin` rounded here): it moves a few elements by an ulp.
+term's last product into the running sum up to 32 chiplets (a tree of
+32-wide windows past that; `repro_torch.random.xla_row_sum`). The
+generators below write those forms out (`repro_torch.random.fma`, `_fold`,
+`_mem_load`). The one remaining difference is `sin` in the PARSEC phase
+(libm's `sinf` there, float64 `sin` rounded here): it moves a few elements
+by an ulp.
 
 Draws run on the key's device; the finished trace moves to `device`.
 """
@@ -84,20 +86,16 @@ def _lognormal_jitter(key: torch.Tensor, shape, cv: float) -> torch.Tensor:
                                        k1, k2))
 
 
-def _mem_load(a: torch.Tensor, b, mem_frac: float, *,
-              fused: bool = True) -> torch.Tensor:
-    """mem_frac * sum over chiplets of ext = a * b [T, C] (b a [T, C] or
-    [C] tensor or a scalar), in index order; `fused`: each product fused
-    into the running sum (one rounding), else ext rounded first."""
-    def col(x, i):
-        if not isinstance(x, torch.Tensor):
-            return x
-        return x[..., i] if x.dim() == 2 else x[i]
-    acc = 0.0
-    for i in range(a.shape[-1]):
-        acc = trandom.fma(col(a, i), col(b, i), acc) if fused \
-            else acc + col(a, i) * col(b, i)
-    return acc * _c(mem_frac)
+def _mem_load(a: torch.Tensor, b, mem_frac: float, *, fused: bool = True,
+              vectorized: bool = False) -> torch.Tensor:
+    """mem_frac * sum over chiplets of ext = a * b [T, C] (a, b [T, C] or
+    [C] tensors, or b a scalar) in XLA's CPU order
+    (`random.xla_row_sum`); `fused`: up to 32 chiplets each product is
+    fused into the running sum, else rounded first; `vectorized`: b (or
+    a) is a per-chiplet vector the reference's fusion computes."""
+    if not fused:
+        return trandom.xla_row_sum(a * b) * _c(mem_frac)
+    return trandom.xla_row_sum(a, b, vectorized=vectorized) * _c(mem_frac)
 
 
 def _package(ext: torch.Tensor, mem: torch.Tensor, intra: torch.Tensor,
@@ -135,8 +133,8 @@ def _gen_parsec(spec: ParsecSpec, key: torch.Tensor,
     a = (phase * _c(prof.mean_ext_load))[:, None] * jitter
     ext = a * chip_w[None, :]
     intra = _intra(ext, prof.ext_frac, max(prof.ext_frac, 1e-6))
-    return _package(ext, _mem_load(a, chip_w, prof.mem_frac), intra,
-                    prof.ext_frac)
+    return _package(ext, _mem_load(a, chip_w, prof.mem_frac,
+                                   vectorized=True), intra, prof.ext_frac)
 
 
 def _gen_uniform(spec: UniformSpec, key: torch.Tensor,
@@ -168,7 +166,8 @@ def _gen_hotspot(spec: HotspotSpec, key: torch.Tensor,
     a = w * _c(spec.mean_load)
     ext = a[None, :] * jitter
     intra = _intra(ext, spec.ext_frac, spec.ext_frac)
-    return _package(ext, _mem_load(a, jitter, spec.mem_frac), intra,
+    return _package(ext, _mem_load(a, jitter, spec.mem_frac,
+                                   vectorized=n_hot < c), intra,
                     spec.ext_frac)
 
 

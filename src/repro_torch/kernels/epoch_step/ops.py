@@ -158,8 +158,8 @@ def epoch_run(state, xs: tuple, sim, tables: dict, *,
               knobs: Optional[Dict[str, torch.Tensor]] = None,
               topo: Optional[dict] = None,
               dest_index: Optional[torch.Tensor] = None,
-              pair_trace: Optional[torch.Tensor] = None
-              ) -> Tuple[object, dict]:
+              pair_trace: Optional[torch.Tensor] = None,
+              kernel: Optional[str] = None) -> Tuple[object, dict]:
     """Run T intervals of B lanes fused; returns (final SimState, records).
 
     Args:
@@ -179,6 +179,8 @@ def epoch_run(state, xs: tuple, sim, tables: dict, *,
       pair_trace: [P] each matrix's trace, given with `dest_index`: every
         lane of matrix p must read trace pair_trace[p] ("wide" computes
         each matrix's received loads once, from that trace).
+      kernel: the design to launch on the card (default `variant(...)` of
+        these lanes); a sharded run passes the whole grid's.
     """
     if xs[0].device.type == "cpu":
         return epoch_run_reference(state, xs, sim, tables, dest=dest,
@@ -187,7 +189,7 @@ def epoch_run(state, xs: tuple, sim, tables: dict, *,
                                    dest_index=dest_index,
                                    pair_trace=pair_trace)
     out = launch(state.ctl.g, xs, sim, tables, dest=dest, faulted=faulted,
-                 lane_trace=lane_trace, knobs=knobs, topo=topo,
+                 lane_trace=lane_trace, knobs=knobs, kernel=kernel, topo=topo,
                  dest_index=dest_index, pair_trace=pair_trace)
     return _reassemble(state, out, xs, sim, faulted, topo)
 

@@ -20,12 +20,15 @@ def epoch_run_reference(state, xs: tuple, sim, tables: dict, *,
                         knobs: Optional[Dict[str, torch.Tensor]] = None,
                         topo: Optional[dict] = None,
                         dest_index: Optional[torch.Tensor] = None,
-                        pair_trace: Optional[torch.Tensor] = None
+                        pair_trace: Optional[torch.Tensor] = None,
+                        kernel: Optional[str] = None
                         ) -> Tuple[object, dict]:
     """The plain interval loop over B lanes (see `simulator._loop` for the
     argument layout; `topo`, `dest_index` and `pair_trace` are the padded
     path's per-lane topology and destination matrices); returns (final
-    SimState, records [B, T, ...])."""
+    SimState, records [B, T, ...]). It takes `ops.epoch_run`'s arguments;
+    `kernel`, the card design, names nothing here (one plain loop)."""
+    del kernel
     from repro_torch.core.simulator import _loop
 
     return _loop(state, xs, sim, tables, dest=dest, faulted=faulted,

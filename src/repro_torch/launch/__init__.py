@@ -1,2 +1,4 @@
 """Command-line entry points of the port: `python -m repro_torch.launch.serve`
-drives a `SessionServer` under a bursty arrival mix."""
+drives a `SessionServer` under a bursty arrival mix, `python -m
+repro_torch.launch.fleet` a sharded co-design sweep over devices and
+processes (`launch.mesh` describes their mesh)."""

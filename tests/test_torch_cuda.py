@@ -51,7 +51,11 @@ same searches on the CPU, every launch against the padded plain loop.
 Serving on the card: a `session_tick` leaves the carry it was given
 unchanged, a `SessionServer` fed traces made on the card launches once per
 dispatch and every served session replays exactly, and the two serving
-walkthroughs take the CPU's heal decisions. This file imports no JAX.
+walkthroughs take the CPU's heal decisions. Fleet and caching on the card:
+`sweep_workload`, `shard_sweep`, `search_placement_islands` and
+`search_codesign` over emulated devices of the card (`["cuda:0"] * n`)
+bitwise the one-device calls, `laned_all_reduce` over a 1-rank NCCL group,
+and a memoized entry point the plain call. This file imports no JAX.
 """
 import numpy as np
 import pytest
@@ -1045,3 +1049,113 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# Fleet and caching on the card
+# ---------------------------------------------------------------------------
+
+def _bitwise(got, want, path=""):
+    if isinstance(want, dict):
+        for k in want:
+            _bitwise(got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            _bitwise(g, w, f"{path}[{i}]")
+    elif isinstance(want, torch.Tensor):
+        assert torch.equal(got, want), path
+    elif isinstance(want, np.ndarray):
+        np.testing.assert_array_equal(got, want, err_msg=path)
+    else:
+        assert got == want, (path, got, want)
+
+
+def test_sharded_sweeps_on_the_card_are_the_one_device_calls(cuda_device):
+    """Four emulated devices of the card: every block launches the whole
+    grid's design, and the gathered records are the one-device call's bit
+    for bit (3 points, one padded lane)."""
+    from repro_torch import backend
+
+    sim = tsim.SimConfig()
+    specs = [traffic.UniformSpec(n_intervals=12),
+             traffic.BurstySpec(n_intervals=10),
+             traffic.ParsecSpec("dedup", 12)]
+    grid = dict(n_chiplets=[4, 9, 16])
+    one = tsim.sweep_workload(specs, sim, dest=True, device=cuda_device,
+                              **grid)
+    backend.reset_counters()
+    got = tsim.sweep_workload(specs, sim, dest=True,
+                              devices=["cuda:0"] * 4, **grid)
+    design = ops.variant(16, False, True, 3, padded=True)
+    assert backend.COUNTERS["variants"] == {
+        f"epoch_step:{design}+topo": 4}
+    assert got["sharding"] == {"grid_points": 3, "pad_lanes": 1,
+                               "devices": 4, "processes": 1}
+    _bitwise(got["records"], one["records"])
+    tr = traffic.generate(traffic.ParsecSpec("canneal", 12), 3,
+                          sim.cfg.with_topology(n_chiplets=16), dest=True,
+                          device=cuda_device)
+    one = tsim.sweep_topology_batch([tr, tr], sim, device=cuda_device,
+                                    **grid)
+    got = tsim.shard_sweep([tr, tr], sim, devices=["cuda:0"] * 2, **grid)
+    _bitwise(got["records"], one["records"])
+
+
+def test_sharded_searches_on_the_card_are_the_one_device_searches(
+        cuda_device):
+    sim = tsim.SimConfig()
+    tr = traffic.generate(traffic.ParsecSpec("dedup", 12), 2, sim.cfg,
+                          device=cuda_device)
+    kw = dict(islands=4, generations=3, population=4, seed=1,
+              l_m=[0.008, 0.012, 0.02, 0.03])
+    one = tsim.search_placement_islands(tr, sim, device=cuda_device, **kw)
+    got = tsim.search_placement_islands(tr, sim, devices=["cuda:0"] * 2,
+                                        **kw)
+    assert got.pop("sharding")["devices"] == 2
+    _bitwise(got, one)
+    cfg = sim.cfg.with_topology(n_chiplets=16)
+    traces = [traffic.generate(traffic.ParsecSpec(a, 8), i, cfg, dest=True,
+                               device=cuda_device)
+              for i, a in enumerate(("canneal", "facesim"))]
+    kw = dict(n_chiplets=[8, 16], islands=4, generations=3, population=3,
+              migrate_every=1, archive=16, seed=4)
+    one = tsim.search_codesign(traces, sim, device=cuda_device, **kw)
+    got = tsim.search_codesign(traces, sim, devices=["cuda:0"] * 2, **kw)
+    assert got.pop("sharding")["devices"] == 2
+    _bitwise(got, one)
+
+
+def test_laned_all_reduce_over_a_one_rank_nccl_group(cuda_device):
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.core import reconfig_runtime as rr
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        gen = torch.Generator().manual_seed(3)
+        tree = {"a": torch.randn(300, generator=gen).to(cuda_device),
+                "b": [torch.randn(7, 9, generator=gen).to(cuda_device),
+                      torch.randn(2, generator=gen).double()
+                      .to(cuda_device)]}
+        for lanes in (1, 2, 4):
+            out = rr.laned_all_reduce(tree, dist.group.WORLD, lanes)
+            _bitwise(out, tree)            # one rank: the sum is itself
+    finally:
+        dist.destroy_process_group()
+
+
+def test_memoized_entry_on_the_card_is_the_plain_call(cuda_device):
+    from repro_torch.runtime import cache as rcache
+
+    sim = tsim.SimConfig()
+    tr = traffic.generate(traffic.UniformSpec(n_intervals=16), 0, sim.cfg,
+                          device=cuda_device)
+    exe = rcache.aot_compile("simulate", tr, sim, device=cuda_device)
+    _bitwise(exe(tr, sim, device=cuda_device),
+             tsim.simulate(tr, sim, device=cuda_device))

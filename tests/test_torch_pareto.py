@@ -626,9 +626,15 @@ def test_devices_dispatch_count_and_lazy_exports():
     _, tcfg = _sims()
     traces = [interop.trace_from_numpy(t, "cpu")
               for t in _traces("codesign_kw")]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tsim.search_codesign(traces, tcfg, devices=["cpu", "cpu"],
-                             **CODESIGN_KW)
+    # Two devices shard the islands: the one-device search, described.
+    sharded = tsim.search_codesign(traces, tcfg, devices=["cpu", "cpu"],
+                                   **CODESIGN_KW)
+    assert sharded.pop("sharding") == {"grid_points": 2, "pad_lanes": 0,
+                                       "devices": 2, "processes": 1}
+    one = tsim.search_codesign(traces, tcfg, device="cpu", **CODESIGN_KW)
+    assert sharded["front"] == one["front"]
+    np.testing.assert_array_equal(sharded["island_scores"],
+                                  one["island_scores"])
     assert tsim.search_codesign is tpar.search_codesign
     assert tsim.rescore_front_host is tpar.rescore_front_host
     # A raising search is not counted; each search is one dispatch.

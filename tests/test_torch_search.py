@@ -437,9 +437,15 @@ def test_search_validation_matches_the_reference():
         with pytest.raises(ValueError, match=msg):
             tsim.search_placement_islands(ttr, tsim.SimConfig(),
                                           device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tsim.search_placement_islands(ttr, tsim.SimConfig(),
-                                      devices=["cpu", "cpu"])
+        # The sharded path validates alike.
+        with pytest.raises(ValueError, match=msg):
+            tsim.search_placement_islands(ttr, tsim.SimConfig(),
+                                          devices=["cpu", "cpu"], **kw)
+    # A device the sharded path cannot reach raises; nothing falls back.
+    with pytest.raises((RuntimeError, AssertionError)):
+        tsim.search_placement_islands(ttr, tsim.SimConfig(), islands=2,
+                                      generations=1, population=2,
+                                      devices=["cpu", "cuda:7"])
     # A raising search is not counted.
     tsim.reset_engine_stats()
     with pytest.raises(ValueError):

@@ -343,6 +343,10 @@ def test_port_imports_and_runs_with_jax_blocked():
         "sys.modules['repro'] = None\n"
         "import repro_torch.figures, repro_torch.interop\n"
         "import repro_torch.kernels.epoch_step.ops\n"
+        "import repro_torch.core.distributed, repro_torch.launch.fleet\n"
+        "import repro_torch.launch.mesh, repro_torch.sharding.rules\n"
+        "import repro_torch.runtime.cache\n"
+        "from repro_torch.core import reconfig_runtime\n"
         "from repro_torch.core import simulator as s, traffic as t\n"
         "from repro_torch.kernels.noc_step import ops as noc\n"
         "from repro_torch import random as r\n"

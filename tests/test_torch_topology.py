@@ -210,12 +210,21 @@ def test_shard_sweep_on_one_device_and_its_multi_device_error():
     batched = tsim.shard_sweep([_port(tr), _port(tr)], tc, devices=["cpu"],
                                n_chiplets=GRID_C)
     assert batched["summary"]["mean_latency"].shape == (2, 3)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tsim.shard_sweep(_port(tr), tc, devices=["cpu", "cpu"],
-                         n_chiplets=GRID_C)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tsim.sweep_topology_batch([_port(tr)], tc, devices=["cpu", "cpu"],
-                                  n_chiplets=GRID_C)
+    # Two devices shard the 3 points (one padded lane, reported): the
+    # one-device records, bit for bit.
+    for out in (tsim.shard_sweep(_port(tr), tc, devices=["cpu", "cpu"],
+                                 n_chiplets=GRID_C),
+                tsim.sweep_topology_batch([_port(tr)], tc,
+                                          devices=["cpu", "cpu"],
+                                          n_chiplets=GRID_C)):
+        assert out["sharding"] == {"grid_points": 3, "pad_lanes": 1,
+                                   "devices": 2, "processes": 1}
+        assert out["summary"]["pad_lanes"] == 1
+        ref = got if out["records"]["g"].dim() == 3 else \
+            tsim.sweep_topology_batch([_port(tr)], tc, device="cpu",
+                                      n_chiplets=GRID_C)
+        for k, v in ref["records"].items():
+            assert torch.equal(out["records"][k], v), k
 
 
 VALIDATION = {
@@ -381,5 +390,7 @@ def test_sweep_workload_validation():
     for args, kw, msg in cases:
         with pytest.raises(ValueError, match=msg):
             tsim.sweep_workload(*args, tc, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tsim.sweep_workload(["dedup"], tc, devices=["cpu", "cpu"])
+    # The sharded path validates alike.
+    for args, kw, msg in cases:
+        with pytest.raises(ValueError, match=msg):
+            tsim.sweep_workload(*args, tc, devices=["cpu", "cpu"], **kw)

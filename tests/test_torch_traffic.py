@@ -208,7 +208,33 @@ FAMILY_CASES = [(ttr.ParsecSpec(app, 100), 4) for app in ttr.APP_NAMES] + [
     (ttr.BurstySpec(n_intervals=64), 4),
     (ttr.BurstySpec(p_on=0.5, p_off=0.1, n_intervals=48), 16)] + [
     (ttr.PermutationSpec(p, n_intervals=64), c)
-    for p in ttr.PERMUTATION_PATTERNS for c in (4, 9)]
+    for p in ttr.PERMUTATION_PATTERNS for c in (4, 9)] + [
+    # Wide rows: XLA's vectorized row at 32 chiplets, its 32-wide window
+    # tree past that (48 and 144 exercise the split pad).
+    # LLVM's 4-lane row at 30-31 chiplets (a per-chiplet weight).
+    (ttr.HotspotSpec(n_hotspots=3, n_intervals=6), 30),
+    (ttr.HotspotSpec(n_hotspots=5, n_intervals=6), 31),
+    (ttr.ParsecSpec("canneal", 6), 31),
+    (ttr.UniformSpec(n_intervals=6), 32),
+    (ttr.HotspotSpec(n_intervals=6), 32),
+    (ttr.HotspotSpec(n_hotspots=3, n_intervals=6), 32),
+    (ttr.BurstySpec(n_intervals=6), 32),
+    (ttr.PermutationSpec("tornado", n_intervals=6), 32),
+    (ttr.ParsecSpec("dedup", 6), 32),
+    (ttr.UniformSpec(n_intervals=6), 48),
+    (ttr.HotspotSpec(n_hotspots=5, n_intervals=6), 48),
+    (ttr.PermutationSpec("transpose", n_intervals=6), 48),
+    (ttr.BurstySpec(n_intervals=6), 64),
+    (ttr.HotspotSpec(n_intervals=6), 64),
+    (ttr.PermutationSpec("neighbor", n_intervals=6), 64),
+    (ttr.UniformSpec(n_intervals=6), 128),
+    (ttr.PermutationSpec("bit_complement", n_intervals=6), 128),
+    (ttr.BurstySpec(n_intervals=6), 144),
+    (ttr.HotspotSpec(n_hotspots=3, n_intervals=6), 144),
+    (ttr.ParsecSpec("canneal", 6), 144),
+    (ttr.UniformSpec(n_intervals=6), 256),
+    (ttr.HotspotSpec(n_intervals=6), 256),
+    (ttr.PermutationSpec("tornado", n_intervals=6), 256)]
 
 
 def _ulps(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -221,9 +247,9 @@ def _ulps(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 def test_generator_gives_the_reference_trace(spec, c):
     """The port's trace from a key equals the reference's from the same
     key (carried across with `interop.key_from_jax`): bitwise for every
-    synthetic family and every destination matrix, except `mem_load` past
-    4 chiplets, a sum over chiplets that XLA reorders at larger widths
-    (rtol 1e-6, at most 4 ulps there). PARSEC at rtol 1e-6: the phase's
+    synthetic family and every destination matrix, `mem_load` included at
+    every width (`random.xla_row_sum` sums the row in XLA's CPU order).
+    PARSEC at rtol 1e-6: the phase's
     sin parts by an ulp now and then, and the products after it carry that
     on (at 4 chiplets, over the eight apps at these seeds, about 1% of the
     elements differ, by at most 3 ulps, 2.7e-7 relative); at most 5% of
@@ -241,7 +267,7 @@ def test_generator_gives_the_reference_trace(spec, c):
             a, b = got[k].numpy(), want[k]
             assert a.dtype == b.dtype and a.shape == b.shape, k
             parsec = isinstance(spec, ttr.ParsecSpec) and k != "dest"
-            if parsec or (k == "mem_load" and c > 4):
+            if parsec:
                 ulps = _ulps(a, b)
                 assert ulps.max() <= 4, (k, int(ulps.max()))
                 if parsec and k != "mem_load":
@@ -249,6 +275,22 @@ def test_generator_gives_the_reference_trace(spec, c):
                 np.testing.assert_allclose(a, b, rtol=1e-6, atol=0)
             else:
                 np.testing.assert_array_equal(a, b, err_msg=k)
+
+
+@pytest.mark.parametrize("c", [4, 32, 33, 100, 256])
+def test_xla_row_sum_is_jitted_jnp_sum(c):
+    """`random.xla_row_sum` gives a jitted `jnp.sum` over the last axis bit
+    for bit: of a product (fused into the running sum up to 32 columns, a
+    window tree past that) and of a plain array."""
+    rng = np.random.default_rng(c)
+    a = rng.lognormal(size=(40, c)).astype(np.float32)
+    b = rng.uniform(0.5, 1.5, size=(40, c)).astype(np.float32)
+    want = np.asarray(jax.jit(lambda x, y: jax.numpy.sum(x * y, axis=1))(
+        a, b))
+    got = trandom.xla_row_sum(torch.as_tensor(a), torch.as_tensor(b))
+    _eq(got, want)
+    want = np.asarray(jax.jit(lambda x: jax.numpy.sum(x, axis=1))(a))
+    _eq(trandom.xla_row_sum(torch.as_tensor(a)), want)
 
 
 def test_figure_workloads_are_the_reference_benchmarks():
@@ -283,3 +325,36 @@ def test_generate_takes_keys_and_seeds_only():
     with pytest.raises(ValueError, match="one threefry key"):
         ttr.generate(spec, trandom.split(trandom.prng_key(1, device="cpu")),
                      device="cpu")
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_wide_workload_sweep_matches_the_reference(seed):
+    """`sweep_workload` over generated traces on wide rows (PROWAVES at 64,
+    32, 64 and 48 chiplets, four synthetic specs of 24 intervals) gives the
+    reference's records and summaries at 1e-6: the generated `mem_load`
+    rows are the reference's bit for bit, so nothing parts the two."""
+    from repro.core import simulator as jsim
+    from repro_torch.core import simulator as tsim
+
+    specs = [ttr.UniformSpec(n_intervals=24), ttr.HotspotSpec(n_intervals=24),
+             ttr.BurstySpec(n_intervals=24),
+             ttr.PermutationSpec("transpose", n_intervals=24)]
+    specs_j = [getattr(jtr, type(s).__name__)(**dataclasses.asdict(s))
+               for s in specs]
+    grid = dict(n_chiplets=[64, 32, 64, 48])
+    got = tsim.sweep_workload(
+        specs, tsim.SimConfig().with_arch(tsim.Arch.PROWAVES), seed=seed,
+        device="cpu", **grid)
+    want = jsim.sweep_workload(
+        specs_j, jsim.SimConfig().with_arch(jsim.Arch.PROWAVES), seed=seed,
+        **grid)
+    for part in ("records", "summary"):
+        got_p = interop.records_to_numpy(got[part])
+        assert set(got_p) == set(want[part])
+        for k, w in want[part].items():
+            w = np.asarray(w)
+            if w.dtype == bool or np.issubdtype(w.dtype, np.integer):
+                np.testing.assert_array_equal(got_p[k], w, err_msg=k)
+            else:
+                np.testing.assert_allclose(got_p[k], w, rtol=1e-6, atol=1e-6,
+                                           err_msg=k)
