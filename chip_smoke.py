@@ -33,7 +33,7 @@ exits non-zero):
      and a batch of mixed-T runs (bitwise the runs one by one);
      flash_attention and ssd_scan against plain on the cases of
      `kernels/flash_attention/cases.py` and `kernels/ssd_scan/cases.py`
-     (float32 and bfloat16, causal and not, head dims 16-128, S 1-2049;
+     (float32 and bfloat16, causal and not, head dims 16-256, S 1-2049;
      d_state 16-128, chunks 32-128, one and two groups, ragged L, initial
      states), each through its wrapper, which picks the tensor-core
      (`wgmma`) or SIMT kernel by dtype and shape; each case prints the
@@ -195,22 +195,45 @@ exits non-zero):
      `all_reduce`; (d) a cold and a warm worker sharing a fresh
      REPRO_CACHE_DIR, the warm one building nothing. It prints the points
      per second of (a) and (b) and (d)'s first-call times;
-  12. a `kernels` JSON line (launches on the main paths, error against
+  12. the remaining LLM families, run right after phase 6, each run a
+     main path of its own (`llm_families_phase`, FAMILY_RUNS): (a)
+     phi4-mini-3.8b at full width and depth (dense, 4 x 2048 tokens, 16
+     decode steps), (b) grok-1-314b at full width, 2 of its 64 layers (MoE,
+     2 x 2048, 8 steps; tokens per expert and drop fractions printed), (c)
+     pixtral-12b at full width and depth (VLM, 2 x (256 image embeddings +
+     1792 tokens), 16 steps; flash at head dim 160), (d)
+     seamless-m4t-large-v2 in full (encoder-decoder, 4 x 2048 frames
+     through the non-causal flash path, a 1536-token decoder prompt, 16
+     steps), (e) the smoke configs of stablelm-3b, starcoder2-7b,
+     command-r-plus-104b and kimi-k2 (2 x 40, 3 steps); parameters drawn on
+     the card from LLM_SEED in float32, one model at a time. Every flash
+     launch is held against the plain version on its own inputs, the
+     launches counted (one per decoder layer, plus one per encoder layer
+     for (d): 32, 2, 40, 12 + 12, 2 each) and all of them the tensor-core
+     kernel, each prefill's logits held against the plain-op prefill in
+     float32 compute; prefill and decode tokens/s, peak memory and the
+     device breakdown of a prefill and a decode step per run;
+     then the flash kernel at
+     pixtral's shape [2, 2048, 32, 160] (kernel, SIMT kernel, plain,
+     SDPA, bound) and the phase's seconds;
+  13. a `kernels` JSON line (launches on the main paths, error against
      plain, times, the bound and the kernel variant that ran) for all four
      kernels; the simulator kernels' entries add the first design's time
      in the same run (`warp_ms`), the times per launch shape (`shapes`,
-     phases 5's, 7's-11's among them) and the launches per main path.
+     phases 5's, 7's-11's among them) and the launches per main path;
+     flash's adds phase 12's launches and its shape at pixtral's prefill.
 
 Phases 3 and 4 are the first main path: the launch counters are zeroed
 before phase 3 and read after the last DSE, before any check or timing.
 Phase 5 is the second, zeroed before its streaming and read after its last
 `noc_run`. Each LLM run of phase 6 is a main path of its own, with the
 counters zeroed just before its prefill and read just after its last
-decode step. Phase 7 is zeroed before its walkthrough scan and read after
-its placement search; phase 8 before its search (a) and after (e); phase
-9 before its walkthroughs and after (c) drains; phase 10 before its
-walkthrough search and after (b)'s re-scoring; phase 11, the last, just
-before and just after (a)'s sharded sweep (the launcher's child
+decode step, and so is each run of phase 12. Phase 7 is zeroed before
+its walkthrough scan and read after its placement search; phase 8 before
+its search (a) and after (e); phase 9 before its walkthroughs and after
+(c) drains; phase 10 before its walkthrough search and after (b)'s
+re-scoring; phase 11, the last, just before and just after (a)'s sharded
+sweep (the launcher's child
 processes count their own launches, printed from their JSON).
 `python3 chip_smoke.py --epoch-grid` builds epoch_step alone and times
 the whole design grid (GRID_FULL: 4-16 chiplets at 1-512 lanes, 17-128 at
@@ -226,7 +249,8 @@ where a tree without topology rows times the constants alone.
 `python3 chip_smoke.py --serve` builds epoch_step alone and runs phase 9,
 `python3 chip_smoke.py --pareto` builds epoch_step alone and runs phase
 10, `python3 chip_smoke.py --fleet` builds epoch_step alone and runs phase
-11.
+11, `python3 chip_smoke.py --llm-families` builds flash_attention alone and
+runs phase 12.
 
 The last line is {"ok": true, "device": {...}}. Without a card, or without
 the rest of the repository beside this file, it exits non-zero and prints
@@ -1436,6 +1460,95 @@ def llm_checked_ops(fops, sops, flash_ref, ssd_ref, errs: dict,
     return flash, intra
 
 
+def prefill_against_plain(phase: str, name: str, model, params, inputs,
+                          max_len: int, prefill_logits, plain_ops) -> float:
+    """The whole prefill against the same prefill with the plain ops
+    (`plain_ops`: (module, attribute, plain function) swapped in), on the
+    card: held in float32 compute at PREFILL_F32_REL_TOL, shown in bf16
+    beside the bf16 prefill's own distance from float32 (`prefill_logits`,
+    the kernel bf16 prefill). Returns the float32 relative RMS."""
+    from repro_torch.models import layers as L
+
+    got = {(torch.bfloat16, False): prefill_logits.float()}
+    for dtype, plain in ((torch.bfloat16, True), (torch.float32, False),
+                         (torch.float32, True)):
+        kept = [(m, a, getattr(m, a)) for m, a, _ in plain_ops]
+        L.COMPUTE_DTYPE = dtype
+        if plain:
+            for m, a, fn in plain_ops:
+                setattr(m, a, fn)
+        try:
+            _, lg = model.prefill(params, inputs, max_len)
+        finally:
+            for m, a, fn in kept:
+                setattr(m, a, fn)
+            L.COMPUTE_DTYPE = torch.bfloat16
+        got[dtype, plain] = lg.float()
+    f32_k, f32_p = got[torch.float32, False], got[torch.float32, True]
+    rel = rel_rms(f32_k, f32_p)
+    if not (torch.isfinite(f32_k).all() and rel <= PREFILL_F32_REL_TOL):
+        fail(f"{name}: float32 prefill logits vs the plain-op prefill: "
+             f"relative RMS {rel:.3g} beyond {PREFILL_F32_REL_TOL}")
+    bf_k, bf_p = got[torch.bfloat16, False], got[torch.bfloat16, True]
+    say(phase, f"{name}: prefill logits == plain-op prefill in float32 "
+               f"compute (relative RMS {rel:.3g}, bound "
+               f"{PREFILL_F32_REL_TOL}; max abs diff "
+               f"{float((f32_k - f32_p).abs().max()):.3g} on logits of RMS "
+               f"{float(f32_p.pow(2).mean().sqrt()):.3g}); in bf16 "
+               f"(information) kernel vs plain {rel_rms(bf_k, bf_p):.3g}, "
+               f"the plain bf16 prefill vs float32 "
+               f"{rel_rms(bf_p, f32_p):.3g}, the kernel bf16 prefill vs "
+               f"float32 {rel_rms(bf_k, f32_p):.3g}")
+    return rel
+
+
+def serving_speed(phase: str, name: str, model, params, inputs,
+                  max_len: int, steps: int, real_vocab: int,
+                  card: str) -> tuple:
+    """Prefill and greedy decode on the host clock, synchronized, median
+    of 3 warm runs, with the peak memory over them; then (information)
+    the device breakdown of one prefill and one decode step. Returns
+    (prefill s, decode s, peak GiB)."""
+    batch, seq = inputs["tokens"].shape[0], max_len - steps
+    prefill_s, decode_s = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        caches, logits = model.prefill(params, inputs, max_len)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            nxt = logits[:, :real_vocab].argmax(-1, keepdim=True)
+            logits, caches = model.decode_step(params, nxt, caches)
+        torch.cuda.synchronize()
+        decode_s.append(time.perf_counter() - t0)
+        del caches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    p_s, d_s = float(np.median(prefill_s)), float(np.median(decode_s))
+    say(phase, f"{name}: prefill {batch * seq / p_s:.6g} tokens/s "
+               f"({p_s:.4f} s median of 3), decode "
+               f"{batch * steps / d_s:.6g} tokens/s ({d_s / steps * 1e3:.3f}"
+               f" ms a step, median of 3 runs of {steps}); peak memory "
+               f"{peak:.2f} GiB; card: {card}")
+
+    caches = None
+
+    def one_prefill():
+        nonlocal caches, logits
+        caches, logits = model.prefill(params, inputs, max_len)
+
+    def one_step():
+        nonlocal caches, logits
+        nxt = logits[:, :real_vocab].argmax(-1, keepdim=True)
+        logits, caches = model.decode_step(params, nxt, caches)
+
+    device_breakdown(one_prefill, f"{name} prefill", phase=phase)
+    device_breakdown(one_step, f"{name} decode step", phase=phase)
+    return p_s, d_s, peak
+
+
 def serve_llms(dev, card: str, fops, sops, llm_err: dict) -> list:
     """Phase 6: the LLM serving main paths (LLM_RUNS), then the two LLM
     kernels' timings; returns their rows of the `kernels` line."""
@@ -1444,7 +1557,6 @@ def serve_llms(dev, card: str, fops, sops, llm_err: dict) -> list:
     from repro_torch.kernels.flash_attention.ref import reference_attention
     from repro_torch.kernels.ssd_scan.ref import reference_intra_chunk
     from repro_torch.models import get_model
-    from repro_torch.models import layers as L
     from repro_torch.models.params import count_params, init_params
 
     def flash_ref(q, k, v, *, causal=True):
@@ -1519,82 +1631,14 @@ def serve_llms(dev, card: str, fops, sops, llm_err: dict) -> list:
                  f"launch == plain on its own inputs (max abs err "
                  + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + ")")
 
-        # The whole prefill against the same prefill with the plain ops, on
-        # the card: held in float32 compute, shown in bf16 beside the bf16
-        # prefill's own distance from float32.
         del caches
-        got = {(torch.bfloat16, False): prefill_logits.float()}
-        for dtype, plain in ((torch.bfloat16, True), (torch.float32, False),
-                             (torch.float32, True)):
-            L.COMPUTE_DTYPE = dtype
-            if plain:
-                fops.flash_attention, sops.ssd_intra_chunk = flash_ref, \
-                    reference_intra_chunk
-            try:
-                _, lg = model.prefill(params, {"tokens": toks}, max_len)
-            finally:
-                fops.flash_attention, sops.ssd_intra_chunk = kernel_flash, \
-                    kernel_intra
-                L.COMPUTE_DTYPE = torch.bfloat16
-            got[dtype, plain] = lg.float()
-        f32_k, f32_p = got[torch.float32, False], got[torch.float32, True]
-        rel = rel_rms(f32_k, f32_p)
-        if not (torch.isfinite(f32_k).all() and rel <= PREFILL_F32_REL_TOL):
-            fail(f"{arch}: float32 prefill logits vs the plain-op prefill: "
-                 f"relative RMS {rel:.3g} beyond {PREFILL_F32_REL_TOL}")
-        bf_k, bf_p = got[torch.bfloat16, False], got[torch.bfloat16, True]
-        say("6", f"{arch}: prefill logits == plain-op prefill in float32 "
-                 f"compute (relative RMS {rel:.3g}, bound "
-                 f"{PREFILL_F32_REL_TOL}; max abs diff "
-                 f"{float((f32_k - f32_p).abs().max()):.3g} on logits of RMS "
-                 f"{float(f32_p.pow(2).mean().sqrt()):.3g}); in bf16 "
-                 f"(information) kernel vs plain {rel_rms(bf_k, bf_p):.3g}, "
-                 f"the plain bf16 prefill vs float32 "
-                 f"{rel_rms(bf_p, f32_p):.3g}, the kernel bf16 prefill vs "
-                 f"float32 {rel_rms(bf_k, f32_p):.3g}")
-        del got, f32_k, f32_p, bf_k, bf_p
-
-        # Serving speed: prefill and decode on the host clock, synchronized.
-        prefill_s, decode_s = [], []
-        torch.cuda.reset_peak_memory_stats()
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            caches, logits = model.prefill(params, {"tokens": toks},
-                                           max_len)
-            torch.cuda.synchronize()
-            prefill_s.append(time.perf_counter() - t0)
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                nxt = logits[:, :cfg.real_vocab].argmax(-1, keepdim=True)
-                logits, caches = model.decode_step(params, nxt, caches)
-            torch.cuda.synchronize()
-            decode_s.append(time.perf_counter() - t0)
-            del caches
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        p_s, d_s = float(np.median(prefill_s)), float(np.median(decode_s))
-        say("6", f"{arch}: prefill {batch * prompt / p_s:.6g} tokens/s "
-                 f"({p_s:.4f} s median of 3), decode "
-                 f"{batch * steps / d_s:.6g} tokens/s ({d_s / steps * 1e3:.3f}"
-                 f" ms a step, median of 3 runs of {steps}); peak memory "
-                 f"{peak:.2f} GiB; card: {card}")
-
-        # Where the time goes (information): one prefill, one decode step.
-        caches = None
-
-        def one_prefill():
-            nonlocal caches, logits
-            caches, logits = model.prefill(params, {"tokens": toks},
-                                           max_len)
-
-        def one_step():
-            nonlocal caches, logits
-            nxt = logits[:, :cfg.real_vocab].argmax(-1, keepdim=True)
-            logits, caches = model.decode_step(params, nxt, caches)
-
-        device_breakdown(one_prefill, f"{arch} prefill")
-        device_breakdown(one_step, f"{arch} decode step")
-        del caches
+        inputs = {"tokens": toks}
+        prefill_against_plain(
+            "6", arch, model, params, inputs, max_len, prefill_logits,
+            ((fops, "flash_attention", flash_ref),
+             (sops, "ssd_intra_chunk", reference_intra_chunk)))
+        serving_speed("6", arch, model, params, inputs, max_len, steps,
+                      cfg.real_vocab, card)
 
         if cfg.family == "hybrid":
             # Information only: prefill(S) against prefill(S - 1) and one
@@ -1609,7 +1653,7 @@ def serve_llms(dev, card: str, fops, sops, llm_err: dict) -> list:
             del caches
         timing_inputs.setdefault("flash", first.get("flash"))
         timing_inputs.setdefault(("ssd", arch), first["ssd"])
-        del params, logits
+        del params, logits, prefill_logits
         torch.cuda.empty_cache()
 
     # Kernel times at the main-path shapes: median of 5 launches after
@@ -1690,6 +1734,204 @@ def serve_llms(dev, card: str, fops, sops, llm_err: dict) -> list:
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "simt_ms": simt_ms, "bound_f32_peak_ms": f32_bound_ms})
     return rows
+
+
+# Phase 12: the remaining LLM families, each run a main path of its own:
+# (label, arch, smoke size, layers kept (None: all), batch, text tokens,
+# image embeddings or encoder frames a row, decode steps).
+FAMILY_RUNS = (
+    ("a", "phi4-mini-3.8b", False, None, 4, 2048, 0, 16),
+    ("b", "grok-1-314b", False, 2, 2, 2048, 0, 8),
+    ("c", "pixtral-12b", False, None, 2, 1792, 256, 16),
+    ("d", "seamless-m4t-large-v2", False, None, 4, 1536, 2048, 16),
+    ("e", "stablelm-3b", True, None, 2, 40, 0, 3),
+    ("e", "starcoder2-7b", True, None, 2, 40, 0, 3),
+    ("e", "command-r-plus-104b", True, None, 2, 40, 0, 3),
+    ("e", "kimi-k2-1t-a32b", True, None, 2, 40, 0, 3),
+)
+# The flash launch timed for phase 12's row of the kernels line: pixtral's
+# prefill, [B, S, H, d] bf16 causal.
+FAMILY_FLASH_SHAPE = (2, 2048, 32, 160)
+
+
+def family_flash_launches(cfg, frames: int) -> int:
+    """Flash launches of one prefill: one per decoder layer (prefill into
+    the cache always takes the flash path), plus one per encoder layer when
+    the encoder's frames outnumber `flash_block_q`."""
+    enc = cfg.encoder_layers if frames > cfg.flash_block_q else 0
+    return cfg.decoder_layers + enc
+
+
+def llm_families_phase(dev, card: str, fops, sops) -> dict:
+    """Phase 12: serve the dense, MoE, VLM and encoder-decoder families
+    (FAMILY_RUNS) through `get_model`, `prefill` and `decode_step`, every
+    flash launch held against the plain version on its own inputs and
+    counted, each full-size prefill's logits against the plain-op prefill
+    in float32 compute; then the flash kernel's times at pixtral's shape.
+    Returns the flash row's additions to the kernels line."""
+    import dataclasses as dc
+    from repro_torch import backend
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels.flash_attention.ref import reference_attention
+    from repro_torch.models import get_model
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.params import count_params, init_params
+
+    def flash_ref(q, k, v, *, causal=True):
+        return reference_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2),
+                                   causal=causal).transpose(1, 2)
+
+    t_phase = time.perf_counter()
+    kernel_flash = fops.flash_attention
+    kernel_moe = MOE.moe_block
+    launches_by_run: dict = {}
+    max_err = 0.0
+    timing_inputs = None
+    for label, arch, smoke, depth, batch, text, extra, steps in FAMILY_RUNS:
+        cfg = get_smoke_config(arch) if smoke else get_config(arch)
+        if depth is not None:
+            cfg = dc.replace(cfg, n_layers=depth)
+        name = f"({label}) {arch}" + (" smoke" if smoke else "") + (
+            f", {depth} of {get_config(arch).n_layers} layers"
+            if depth else "")
+        model = get_model(cfg)
+        gen = torch.Generator(device=dev).manual_seed(LLM_SEED)
+        t0 = time.perf_counter()
+        params = init_params(model.spec(), gen, dev)
+        inputs = {"tokens": torch.randint(0, cfg.real_vocab, (batch, text),
+                                          device=dev, generator=gen)}
+        if cfg.family == "vlm":
+            inputs["image_embeds"] = torch.randn(
+                (batch, extra, cfg.d_model), device=dev, generator=gen)
+        if cfg.family == "encdec":
+            inputs["frames"] = torch.randn((batch, extra, cfg.d_model),
+                                           device=dev, generator=gen)
+        torch.cuda.synchronize()
+        say("12", f"{name}: {count_params(model.spec()) / 1e9:.4g} B "
+                  f"parameters drawn on the card in "
+                  f"{time.perf_counter() - t0:.2f} s (float32, "
+                  f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+                  f"allocated)")
+        seq = text + (extra if cfg.family == "vlm" else 0)
+        max_len = seq + steps
+        errs: dict = {}
+        first: dict = {}
+        moe_stats: list = []
+        flash, _ = llm_checked_ops(fops, sops, flash_ref, None, errs, first)
+
+        def recorded_moe(p, x, c):
+            y, stats = kernel_moe(p, x, c)
+            moe_stats.append((x.shape[1], stats))
+            return y, stats
+
+        fops.flash_attention, MOE.moe_block = flash, recorded_moe
+        try:
+            backend.reset_counters()              # main path starts here
+            caches, logits = model.prefill(params, inputs, max_len)
+            prefill_logits = logits
+            for _ in range(steps):
+                nxt = logits[:, :cfg.real_vocab].argmax(-1, keepdim=True)
+                logits, caches = model.decode_step(params, nxt, caches)
+            torch.cuda.synchronize()
+            launches = dict(backend.COUNTERS["launches"])  # ... ends here
+            variants = dict(backend.COUNTERS["variants"])
+        finally:
+            fops.flash_attention, MOE.moe_block = kernel_flash, kernel_moe
+        n_flash = family_flash_launches(cfg, extra if cfg.family == "encdec"
+                                        else 0)
+        if launches != {fops.NAME: n_flash}:
+            fail(f"{name}: main path launched {launches}, expected "
+                 f"{{'{fops.NAME}': {n_flash}}}")
+        if variants != {f"{fops.NAME}:wgmma": n_flash}:
+            fail(f"{name}: main path launched the variants {variants}, "
+                 f"expected every one the tensor-core kernel")
+        launches_by_run[name] = n_flash
+        max_err = max(max_err, errs.get("flash", 0.0))
+        for what, lg in (("prefill", prefill_logits), ("decode", logits)):
+            if lg.shape != (batch, cfg.vocab) or not torch.isfinite(
+                    lg.float()).all():
+                fail(f"{name}: {what} logits {tuple(lg.shape)} malformed "
+                     f"or not finite")
+        if isinstance(caches, tuple):                 # encdec
+            kv, (mem_k, _) = caches
+            if mem_k.shape != (cfg.decoder_layers, batch, extra,
+                               cfg.n_kv_heads, cfg.resolved_head_dim) or \
+                    kv.length.tolist() != [seq + steps] * cfg.decoder_layers:
+                fail(f"{name}: encdec caches malformed")
+        elif int(caches.length) != seq + steps:
+            fail(f"{name}: cache length {int(caches.length)}, expected "
+                 f"{seq + steps}")
+        say("12", f"{name}: prefill {batch} x {seq}"
+                  + (f" ({extra} image embeddings + {text} tokens)"
+                     if cfg.family == "vlm" else "")
+                  + (f" tokens over {extra} encoder frames"
+                     if cfg.family == "encdec" else "")
+                  + f" + {steps} greedy decode steps; launches {launches}, "
+                  f"all wgmma (expected); every launch == plain on its own "
+                  f"inputs (max abs err {errs.get('flash', 0.0):.3g})")
+        if cfg.moe is not None:
+            pre = [st for n, st in moe_stats if n > 1]
+            dec = [st for n, st in moe_stats if n == 1]
+            tpe = sum(st["tokens_per_expert"] for st in pre)
+            dec_drop = float(sum(st["drop_frac"] for st in dec)) / max(
+                len(dec), 1)
+            say("12", f"{name}: MoE prefill tokens_per_expert summed over "
+                      f"{len(pre)} layers {[int(x) for x in tpe.tolist()]}, "
+                      f"drop_frac per layer "
+                      f"{[round(float(st['drop_frac']), 4) for st in pre]}; "
+                      f"decode drop_frac mean over {len(dec)} layer steps "
+                      f"{dec_drop:.4f}")
+        del caches
+
+        prefill_against_plain("12", name, model, params, inputs, max_len,
+                              prefill_logits,
+                              ((fops, "flash_attention", flash_ref),))
+        serving_speed("12", name, model, params, inputs, max_len, steps,
+                      cfg.real_vocab, card)
+        if arch == "pixtral-12b":
+            timing_inputs = first["flash"]
+        del params, logits, prefill_logits, first, inputs
+        torch.cuda.empty_cache()
+
+    # The flash kernel at pixtral's prefill shape: the tensor-core kernel
+    # the main path ran, the SIMT kernel on the same inputs (information),
+    # the plain version, SDPA; CUDA events, median after warm-up.
+    q, k, v, causal = timing_inputs
+    if tuple(q.shape) != FAMILY_FLASH_SHAPE or q.dtype != torch.bfloat16:
+        fail(f"pixtral's flash launch is {tuple(q.shape)} {q.dtype}, not "
+             f"{FAMILY_FLASH_SHAPE} bf16")
+    ms = float(np.median(time_cuda(
+        lambda: fops.launch(q, k, v, causal=causal), 7)[2:]))
+    simt_ms = float(np.median(time_cuda(
+        lambda: fops.launch(q, k, v, causal=causal, kernel="simt"), 5)[2:]))
+    plain_ms = float(np.median(time_cuda(
+        lambda: flash_ref(q, k, v, causal=causal), 3)))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = float(np.median(time_cuda(
+        lambda: sdpa(qt, kt, vt, is_causal=causal), 7)[2:]))
+    b, s_len, h, d = q.shape
+    nbytes, flops = flash_work(b, s_len, h, d, q.element_size(), causal)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    bound_ms, bound_by = max((t_b, "bytes"), (t_o, "operations"))
+    say("12", f"flash_attention wgmma kernel at pixtral's [{b}, {s_len}, "
+              f"{h}, {d}] bf16 causal: median {ms:.4f} ms (SIMT kernel "
+              f"{simt_ms:.4f} ms); plain {plain_ms:.3f} ms; SDPA "
+              f"{lib_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+              f"({flops / 1e9:.2f} GFLOP at the bf16 tensor-core peak, "
+              f"{nbytes / 1e9:.3f} GB), {bound_ms / ms:.1%} of it; card: "
+              f"{card}")
+    phase_s = time.perf_counter() - t_phase
+    say("12", f"LLM families phase: {phase_s:.1f} s; flash launches per "
+              f"run {json.dumps(launches_by_run)}")
+    return {"launches": sum(launches_by_run.values()),
+            "launches_by_run": launches_by_run, "max_abs_err": max_err,
+            "shape": {"shape": list(FAMILY_FLASH_SHAPE), "dtype": "bf16",
+                      "causal": True, "ms": ms, "simt_ms": simt_ms,
+                      "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by},
+            "seconds": phase_s}
 
 
 def stream_phase(dev, card: str) -> dict:
@@ -3955,13 +4197,14 @@ def main() -> int:
     serve_only = args == ["--serve"]
     pareto_only = args == ["--pareto"]
     fleet_only = args == ["--fleet"]
+    families_only = args == ["--llm-families"]
     rows_ab = args[:1] == ["--rows-ab"] and (
         len(args) == 1 or (len(args) == 3 and args[1] == "--src"))
     if args and not (grid_only or rows_ab or search_only or serve_only
-                     or pareto_only or fleet_only):
+                     or pareto_only or fleet_only or families_only):
         print("usage: chip_smoke.py [--epoch-grid | --search | --serve | "
-              "--pareto | --fleet | --rows-ab [--src DIR]]",
-              file=sys.stderr)
+              "--pareto | --fleet | --llm-families | --rows-ab [--src "
+              "DIR]]", file=sys.stderr)
         return 2
     if rows_ab and len(args) == 3:
         SRC = Path(args[2]).resolve()
@@ -4009,7 +4252,7 @@ def main() -> int:
     say("1", f"device {kind} x{count}; torch {torch.__version__} cuda "
              f"{torch.version.cuda}")
     if grid_only or rows_ab or search_only or serve_only or pareto_only \
-            or fleet_only:
+            or fleet_only or families_only:
         if grid_only:
             ops.build()
             result = {"design_grid": epoch_design_grid(dev, card, GRID_FULL,
@@ -4030,6 +4273,10 @@ def main() -> int:
             ops.build()
             result = {"fleet": fleet_phase(dev, card)}
             result["fleet"].pop("variants")
+        elif families_only:
+            fops.build()
+            result = {"llm_families": llm_families_phase(dev, card, fops,
+                                                         sops)}
         else:
             result = epoch_rows_ab(dev, card)
         print(json.dumps(result), flush=True)
@@ -4073,7 +4320,9 @@ def main() -> int:
                               ("wide", "epoch_wide_metrics_kernel"),
                               ("warp", "epoch_step_kernel"))),
                        (nops, (("node", "noc_node_kernel"),
-                               ("warp", "noc_step_kernel")))):
+                               ("warp", "noc_step_kernel"))),
+                       (fops, (("wgmma", "flash_wgmma_kernel"),
+                               ("simt", "flash_attention_kernel")))):
         entries = ptxas_entries(backend.build_log(m.NAME) or "")
         for design, kname in designs:
             got = [(template_args(e), r, sp) for e, r, sp in entries
@@ -4626,6 +4875,16 @@ def main() -> int:
     # --- 6. LLM serving (a main path a model) --------------------------------
     llm = serve_llms(dev, card, fops, sops, llm_err)
 
+    # --- 12. the remaining LLM families (a main path a run) ----------------
+    p12 = llm_families_phase(dev, card, fops, sops)
+    flash_row = llm[0]
+    flash_row["launches_by_path"] = {"zamba2+mamba2": flash_row["launches"],
+                                     "llm families": p12["launches"]}
+    flash_row["launches"] += p12["launches"]
+    flash_row["max_abs_err"] = max(flash_row["max_abs_err"],
+                                   p12["max_abs_err"])
+    flash_row["shapes"] = {"pixtral-12b prefill": p12["shape"]}
+
     # --- 7. topology and placement DSE (a main path) ------------------------
     p7 = topology_phase(dev, card)
 
@@ -4641,7 +4900,7 @@ def main() -> int:
     # --- 11. fleet and caching (a main path) --------------------------------
     p11 = fleet_phase(dev, card)
 
-    # --- 12. kernels line ---------------------------------------------------
+    # --- 13. kernels line ---------------------------------------------------
     def ran(name):
         return ",".join(sorted({k.split(":")[1] for k in
                                 list(variants) + list(p5["variants"])

@@ -2,10 +2,9 @@
 
 One `ModelConfig` covers all ten architecture families of the reference;
 each `repro_torch/configs/<arch>.py` instantiates the exact published
-numbers and a `smoke()` reduction of the same family for CPU tests. The port
-has two of them so far (zamba2-7b, mamba2-130m). Input-shape cells
-(train_4k / prefill_32k / decode_32k / long_500k) are defined here as
-`ShapeCell`s with per-family skip logic.
+numbers and a `smoke()` reduction of the same family for CPU tests.
+Input-shape cells (train_4k / prefill_32k / decode_32k / long_500k) are
+defined here as `ShapeCell`s with per-family skip logic.
 """
 from __future__ import annotations
 

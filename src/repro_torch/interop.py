@@ -13,10 +13,12 @@ reference's `init_session_states`, or any `SimState` with leading lane
 axes), `fault_frame_from_numpy` a fault frame or a stacked [K] frame, and
 `key_from_jax` a jax PRNG key as a key of the threefry twin.
 
-For the LLM serving slice, `params_from_numpy` carries a reference
-parameter tree (nested dicts of numpy arrays, with the stacked layer axes)
+For LLM serving, `params_from_numpy` carries a reference parameter tree of
+any family (nested dicts of numpy arrays, with the stacked layer axes)
 across as float32 tensors with the same keys, and `caches_to_numpy` brings
-a model's serving caches back as numpy, KV caches as dicts.
+a model's serving caches back as numpy, KV caches as dicts: the
+encoder-decoder's `(KVCache, (mem_k, mem_v))` keeps its nesting, its
+leaves in the reference's order.
 """
 from __future__ import annotations
 

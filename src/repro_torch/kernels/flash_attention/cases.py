@@ -5,10 +5,13 @@ version, built in one place for every caller.
 (`tests/test_torch_cuda.py`) too, and the CPU tests at a small size through
 the plain version. Inputs are drawn from a seeded `torch.Generator` on the
 device, in float32, then cast. The cases cover float32 and bfloat16,
-causal and not, head dims 16 / 64 / 112 / 128, S of 1, 127, 1024, 2048 and
-2049 (a causal bf16 S one past a multiple of the 64-row query tile), and
-B x H from 1 to 128 (the first case is zamba2-7b's prefill shape). The
-bfloat16 cases run the tensor-core kernel, the float32 ones the SIMT kernel
+causal and not, head dims 16 to 256 (16 / 64 / 80 / 112 / 128, and past 128
+160 / 192 / 200 / 240 / 256: the tensor-core kernel's four-, three- and
+two-stage rings and its split P V product, the SIMT kernel's wider
+instantiations), S of 1, 127, 1024, 2048 and 2049 (a causal bf16 S one past
+a multiple of the 64-row query tile), and B x H from 1 to 128 (the first
+case is zamba2-7b's prefill shape, the second pixtral-12b's). The bfloat16
+cases run the tensor-core kernel, the float32 ones the SIMT kernel
 (`ops.variant`).
 """
 from __future__ import annotations
@@ -22,6 +25,7 @@ from repro_torch.kernels.flash_attention.ref import reference_attention
 # name: (B, S, H, d, dtype, causal)
 SPECS = {
     "zamba2-bf16-causal-d112-S2048-BH128": (4, 2048, 32, 112, "bf16", True),
+    "pixtral-bf16-causal-d160-S2048-BH64": (2, 2048, 32, 160, "bf16", True),
     "f32-causal-d128-S1024-BH2": (1, 1024, 2, 128, "f32", True),
     "bf16-full-d64-S127-BH64": (4, 127, 16, 64, "bf16", False),
     "f32-full-d16-S2048-BH1": (1, 2048, 1, 16, "f32", False),
@@ -32,6 +36,17 @@ SPECS = {
     "f32-causal-d64-S2048-BH4": (2, 2048, 2, 64, "f32", True),
     "bf16-causal-d128-S127-BH1": (1, 127, 1, 128, "bf16", True),
     "bf16-causal-d112-S2049-BH2": (1, 2049, 2, 112, "bf16", True),
+    "bf16-causal-d80-S1024-BH16": (2, 1024, 8, 80, "bf16", True),
+    "f32-causal-d80-S127-BH4": (2, 127, 2, 80, "f32", True),
+    "f32-full-d160-S1024-BH2": (1, 1024, 2, 160, "f32", False),
+    "bf16-full-d160-S127-BH4": (2, 127, 2, 160, "bf16", False),
+    "bf16-causal-d192-S2049-BH2": (1, 2049, 2, 192, "bf16", True),
+    "f32-causal-d200-S127-BH2": (1, 127, 2, 200, "f32", True),
+    "bf16-full-d240-S1024-BH4": (1, 1024, 4, 240, "bf16", False),
+    "bf16-causal-d256-S2049-BH2": (1, 2049, 2, 256, "bf16", True),
+    "bf16-full-d256-S127-BH8": (2, 127, 4, 256, "bf16", False),
+    "f32-causal-d256-S2048-BH2": (1, 2048, 2, 256, "f32", True),
+    "f32-full-d256-S1-BH3": (1, 1, 3, 256, "f32", False),
 }
 NAMES = tuple(SPECS)
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}

@@ -20,7 +20,7 @@
 // Two kernels, chosen by the wrapper (ops.py `variant`) from the dtype and
 // the head dim alone:
 //
-// `flash_wgmma_kernel` (bf16, d a multiple of 16 up to 128; the prefill's
+// `flash_wgmma_kernel` (bf16, d a multiple of 16 up to 256; the prefill's
 // path): one block of two warpgroups per (query tile of 128 rows, head,
 // batch), each warpgroup owning 64 rows (`wgmma` M = 64). The query tiles of
 // a (batch, head) are walked longest first (the x index counts down) and
@@ -29,13 +29,19 @@
 // warpgroup (its registers given to the two consumers with setmaxnreg)
 // has one thread issue the TMA copies (the map fetched through the
 // runtime, rebuilt per launch, passed as a __grid_constant__ parameter):
-// Q once, and K and V through a ring of four 64-key stages, each with a
-// full and an empty mbarrier, so the consumers never wait on one another.
+// Q once, and K and V through a ring of 64-key stages, each with a full and
+// an empty mbarrier, so the consumers never wait on one another. The ring
+// is as deep as the 227 KB of shared memory allow (`stages(D)`): four
+// stages up to d = 176, three to 224, two past it.
 // The boxes are 16 bytes wide, so the tiles land unswizzled in the
 // core-matrix layout that wgmma reads (hopper/wgmma.cuh), ragged S edges
-// zero-filled by TMA. Q is read once into registers, the A operand of
-// S = Q K^T (`wgmma.m64n64k16`, K-major K from shared memory, f32
-// accumulation, d / 16 steps: 112 = 7 x 16 runs unpadded). Step j issues
+// zero-filled by TMA. Up to d = 128, Q is read once into registers, the A
+// operand of S = Q K^T (`wgmma.m64n64k16`, K-major K from shared memory,
+// f32 accumulation, d / 16 steps: 112 = 7 x 16 runs unpadded); past 128
+// the products read Q from shared memory instead (both operands K-major
+// descriptors), which keeps the d / 2 output accumulators of a thread (128
+// floats at d = 256) and the S and P fragments within the consumers' 240
+// registers. Step j issues
 // S of tile j and P V of tile j - 1 together and runs the softmax of tile
 // j under P V; no product stays in flight from one step into the next
 // (ptxas serialises the products, C7514, when it cannot prove that).
@@ -44,7 +50,8 @@
 // and sum take two shuffles; only the diagonal tile and the ragged edge are
 // masked. O += P V is `wgmma.m64n{d}k16` with P as the register A operand
 // (the S fragment rounded to bf16 and packed pairwise) and V read MN-major
-// (transpose bit). The epilogue divides by max(l, 1e-30) and writes bf16
+// (transpose bit); past d = 128 it is two products a k16 step, columns
+// [0, 128) and [128, d), one accumulator array split at element 64. The epilogue divides by max(l, 1e-30) and writes bf16
 // pairs. Numerics: the one change from the plain version is that P is
 // rounded to bf16 before P V (the plain version keeps it in float32); l
 // sums the float32 p. Held to the bf16 bound of 3e-2, the reference's own.
@@ -58,7 +65,8 @@
 // rows: lane j scores keys j and j + 32 of the tile against the 8 rows
 // (float4 reads of q and k), the row max and sum go through warp shuffles,
 // p goes to a per-warp scratch row and the accumulator is split over lanes
-// (lane owns dims lane + 32 t, any d <= 128). Float32 throughout (TF32
+// (lane owns dims lane + 32 t, any d <= 256: eight instantiations by
+// (d + 31) / 32; at d = 256 the three tiles and the scratch take 216 KB). Float32 throughout (TF32
 // stays off, as everywhere in the port); the key sum of each score runs in
 // dimension order, as a dot product; only summation order and FMA
 // contraction differ from the plain version.
@@ -304,7 +312,12 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
     case 1: return launch<T, 1>(FLASH_ARGS);
     case 2: return launch<T, 2>(FLASH_ARGS);
     case 3: return launch<T, 3>(FLASH_ARGS);
-    default: return launch<T, 4>(FLASH_ARGS);
+    case 4: return launch<T, 4>(FLASH_ARGS);
+    case 5: return launch<T, 5>(FLASH_ARGS);
+    case 6: return launch<T, 6>(FLASH_ARGS);
+    case 7: return launch<T, 7>(FLASH_ARGS);
+    case 8: return launch<T, 8>(FLASH_ARGS);
+    default: return cudaErrorInvalidValue;
   }
 #undef FLASH_ARGS
 }
@@ -319,16 +332,40 @@ constexpr int kWg = 2;                      // consumer warpgroups
 constexpr int kThreads = 128 * (kWg + 1);   // and one producer warpgroup
 constexpr int kRows = 64 * kWg;             // query rows per block
 constexpr int kKeys = 64;                   // keys per tile (N of S)
-constexpr int kStages = 4;                  // K / V ring depth
 constexpr int kProducerRegs = 24;           // 24 x 128 + 240 x 256 <= 64 K
 constexpr int kConsumerRegs = 240;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// q, then kStages stages of (k, v) tiles, then the mbarriers; 1 KB of
+// q, then `stages` stages of (k, v) tiles, then the mbarriers; 1 KB of
 // slack to align the tiles.
-__host__ __device__ constexpr size_t smem_bytes(int D) {
-  return static_cast<size_t>(kRows + 2 * kStages * kKeys) * D * 2 +
-         (2 * kStages + 1) * 8 + 1024;
+__host__ __device__ constexpr size_t smem_bytes(int D, int stages) {
+  return static_cast<size_t>(kRows + 2 * stages * kKeys) * D * 2 +
+         (2 * stages + 1) * 8 + 1024;
+}
+
+// The K / V ring depth at head dim D: the deepest of 4, 3, 2 that fits.
+__host__ __device__ constexpr int stages(int D) {
+  return smem_bytes(D, 4) <= kMaxSmem ? 4
+         : smem_bytes(D, 3) <= kMaxSmem ? 3 : 2;
+}
+
+// O += P V of one k16 slice (V MN-major from shared memory, chunk step
+// `chunk`): one product up to D = 128, past it two, columns [0, 128) and
+// [128, D) (chunk 16 on), into the two parts of the accumulator array.
+template <int D>
+__device__ __forceinline__ void mma_pv(float (&acc)[D / 2],
+                                       const uint32_t (&p)[4],
+                                       const uint8_t* v, int chunk) {
+  using namespace hopper;
+  if constexpr (D <= 128) {
+    Wgmma<D>::template rs<1>(acc, p, desc_mn(v, 128, chunk), 1);
+  } else {
+    Wgmma<128>::template rs<1>(*reinterpret_cast<float(*)[64]>(acc), p,
+                               desc_mn(v, 128, chunk), 1);
+    Wgmma<D - 128>::template rs<1>(
+        *reinterpret_cast<float(*)[(D - 128) / 2]>(acc + 64), p,
+        desc_mn(v + 16 * chunk, 128, chunk), 1);
+  }
 }
 
 // Every tile is written by TMA in 16-byte-wide boxes (8 bf16 columns) of
@@ -342,9 +379,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wgmma_kernel(
     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
     int Sq, int Skv, int H, float scale_log2, int causal) {
   using namespace hopper;
+  constexpr int kStages = stages(D);        // K / V ring depth
+  constexpr bool kQInRegs = D <= 128;       // Q as a register operand
   constexpr int kChunks = D / 8;
   constexpr int kTile = kKeys * D * 2;      // bytes of one k or v tile
   constexpr int kKChunk = kKeys * 16;       // chunk step of a k / v tile
+  constexpr int kQChunk = kRows * 16;       // chunk step of the q tile
   extern __shared__ uint8_t smem_raw[];
   uint8_t* qs = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -413,17 +453,22 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wgmma_kernel(
       wg_tiles = wg_tiles < last ? wg_tiles : last;
     }
 
-    // Q as the register A operand of S = Q K^T, read once.
+    // Q as the register A operand of S = Q K^T, read once (up to D =
+    // 128); past it the products read this warpgroup's 64 rows of the Q
+    // tile in shared memory.
     mbar_wait(q_full, 0);
-    uint32_t qa[D / 16][4];
+    uint32_t qa[kQInRegs ? D / 16 : 1][4];
+    if constexpr (kQInRegs) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < D / 16; ++kk)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-        qa[kk][jj] = *reinterpret_cast<const uint32_t*>(
-            qs + (2 * kk + (jj >> 1)) * kRows * 16 +
-            (64 * wg + warp * 16 + lane / 4 + 8 * (jj & 1)) * 16 +
-            4 * (lane % 4));
+        for (int jj = 0; jj < 4; ++jj)
+          qa[kk][jj] = *reinterpret_cast<const uint32_t*>(
+              qs + (2 * kk + (jj >> 1)) * kQChunk +
+              (64 * wg + warp * 16 + lane / 4 + 8 * (jj & 1)) * 16 +
+              4 * (lane % 4));
+    }
+    const uint8_t* wq_tile = qs + 64 * wg * 16;
 
     float acc[D / 2];
 #pragma unroll
@@ -439,10 +484,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wgmma_kernel(
       mbar_wait(full + t % kStages, (t / kStages) & 1);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        Wgmma<kKeys>::rs<0>(s, qa[kk],
-                            desc_k(ks + kk * 2 * kKChunk, 128, kKChunk),
-                            kk > 0);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint64_t kd = desc_k(ks + kk * 2 * kKChunk, 128, kKChunk);
+        if constexpr (kQInRegs)
+          Wgmma<kKeys>::rs<0>(s, qa[kk], kd, kk > 0);
+        else
+          Wgmma<kKeys>::ss<0, 0>(
+              s, desc_k(wq_tile + kk * 2 * kQChunk, 128, kQChunk), kd,
+              kk > 0);
+      }
       wgmma_commit();
     };
     // Online softmax of tile t in log2 units on the S fragment: p (in
@@ -504,8 +554,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wgmma_kernel(
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kKeys / 16; ++kk)
-        Wgmma<D>::template rs<1>(
-            acc, pa[kk], desc_mn(vs + kk * 256, 128, kKChunk), 1);
+        mma_pv<D>(acc, pa[kk], vs + kk * 256, kKChunk);
       wgmma_commit();
     };
     auto release = [&](int t) {
@@ -539,8 +588,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wgmma_kernel(
     fence_operands(acc);
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk) fence_operands(pa[kk]);
+    if constexpr (kQInRegs) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) fence_operands(qa[kk]);
+      for (int kk = 0; kk < D / 16; ++kk) fence_operands(qa[kk]);
+    }
     // Release the last tile this warpgroup read, and those it skips.
     release(wg_tiles - 1);
     if (lane == 0) {
@@ -617,7 +668,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       !make_map(&tk, k, B, Skv, H, D, kKeys) ||
       !make_map(&tv, v, B, Skv, H, D, kKeys))
     return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(D);
+  const size_t smem = smem_bytes(D, stages(D));
   auto kernel = flash_wgmma_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -635,13 +686,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q [B, Sq, H, D], k and v [B, Skv, H, D], o [B, Sq, H, D], all contiguous
-// and of one type: dtype 0 = float32, 1 = bfloat16. D <= 128. The SIMT
+// and of one type: dtype 0 = float32, 1 = bfloat16. D <= 256. The SIMT
 // kernel. Returns a cudaError_t.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Sq,
                                       int Skv, int H, int D, int dtype,
                                       float scale, int causal, void* stream) {
-  if (B < 1 || Sq < 1 || Skv < 1 || H < 1 || D < 1 || D > 128 ||
+  if (B < 1 || Sq < 1 || Skv < 1 || H < 1 || D < 1 || D > 256 ||
       (dtype != 0 && dtype != 1) || smem_bytes(D) > kMaxSmem ||
       H > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -654,14 +705,15 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   return static_cast<int>(err);
 }
 
-// The same contract for bfloat16 only, D a multiple of 16 up to 128, the
-// pointers 16-byte aligned: the tensor-core kernel. Returns a cudaError_t.
+// The same contract for bfloat16 only, D a multiple of 16 up to 256, the
+// pointers 16-byte aligned: the tensor-core kernel, one instantiation per
+// head dim. Returns a cudaError_t.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
                                             const void* v, void* o, int B,
                                             int Sq, int Skv, int H, int D,
                                             float scale, int causal,
                                             void* stream) {
-  if (B < 1 || Sq < 1 || Skv < 1 || H < 1 || D < 16 || D > 128 ||
+  if (B < 1 || Sq < 1 || Skv < 1 || H < 1 || D < 16 || D > 256 ||
       D % 16 != 0 || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -679,7 +731,16 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
     case 80: err = tc::launch<80>(FLASH_TC_ARGS); break;
     case 96: err = tc::launch<96>(FLASH_TC_ARGS); break;
     case 112: err = tc::launch<112>(FLASH_TC_ARGS); break;
-    default: err = tc::launch<128>(FLASH_TC_ARGS); break;
+    case 128: err = tc::launch<128>(FLASH_TC_ARGS); break;
+    case 144: err = tc::launch<144>(FLASH_TC_ARGS); break;
+    case 160: err = tc::launch<160>(FLASH_TC_ARGS); break;
+    case 176: err = tc::launch<176>(FLASH_TC_ARGS); break;
+    case 192: err = tc::launch<192>(FLASH_TC_ARGS); break;
+    case 208: err = tc::launch<208>(FLASH_TC_ARGS); break;
+    case 224: err = tc::launch<224>(FLASH_TC_ARGS); break;
+    case 240: err = tc::launch<240>(FLASH_TC_ARGS); break;
+    case 256: err = tc::launch<256>(FLASH_TC_ARGS); break;
+    default: err = cudaErrorInvalidValue; break;
   }
 #undef FLASH_TC_ARGS
   return static_cast<int>(err);

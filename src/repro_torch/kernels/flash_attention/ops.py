@@ -4,7 +4,7 @@
 `repro.kernels.flash_attention.ops.flash_attention` and for the model's
 `_flash_attend` on the prefill path. Given CUDA tensors it launches one
 kernel of `csrc/flash_attention.cu` once, with no padding copies (the
-kernels mask the ragged S edge and take head dims up to 128 unpadded; the
+kernels mask the ragged S edge and take head dims up to 256 unpadded; the
 scale is 1/sqrt(d)); given CPU tensors it runs the plain version
 (`ref.reference_attention`). `variant(dtype, d)` picks the kernel from the
 dtype and head dim alone: "wgmma" (the tensor-core kernel) for bfloat16
@@ -28,7 +28,7 @@ from repro_torch.kernels.flash_attention.ref import reference_attention
 NAME = "flash_attention"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 FLAGS = backend.NVCC_FLAGS_FMA + ("-I", str(backend.HOPPER_INCLUDE))
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
@@ -49,10 +49,10 @@ def build() -> ctypes.CDLL:
 
 
 def variant(dtype: torch.dtype, d: int) -> str:
-    """The kernel that runs q, k, v of `dtype` with head dim `d`: "wgmma"
-    for bfloat16 with d a multiple of 16 (the tensor-core kernel), "simt"
-    for float32 and other bfloat16 head dims. Raises for what no kernel
-    takes."""
+    """The kernel that runs q, k, v of `dtype` with head dim `d` (1 to
+    MAX_HEAD_DIM): "wgmma" for bfloat16 with d a multiple of 16 (the
+    tensor-core kernel), "simt" for float32 and other bfloat16 head dims.
+    Raises for what no kernel takes."""
     if dtype not in DTYPES:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16 "
                         f"q, k, v of one dtype, got {dtype}")

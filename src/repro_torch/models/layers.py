@@ -8,7 +8,11 @@ sequence, D d_model, H q-heads, G kv heads, d head_dim, F d_ff, V vocab.
 The reference's `shard(...)` annotations have no counterpart on one device.
 Where the reference calls its blockwise `_flash_attend`, the port calls the
 flash-attention kernel op (`kernels/flash_attention/ops.py`), as the TPU
-path swaps in its Pallas kernel.
+path swaps in its Pallas kernel. Without causal masking (the encoder) the
+reference's `_flash_attend` counts its zero padding of K and V (up to a
+multiple of `flash_block_kv`) as real keys, each adding exp(0 - m) to the
+softmax denominator; `_flash` pads the same way before the kernel, so the
+port computes what the reference does (ROADMAP.md, queue 3, P15).
 """
 from __future__ import annotations
 
@@ -136,6 +140,17 @@ def _check_index_positions(positions: torch.Tensor) -> None:
                          "prefill that starts at an empty cache)")
 
 
+def _flash(q, k, v, causal: bool, cfg: ModelConfig) -> torch.Tensor:
+    """The flash kernel op on [B,S,H,d] q and repeated k, v. Without causal
+    masking K and V are zero-padded to a multiple of cfg.flash_block_kv
+    first, as the reference's `_flash_attend` pads them (with causal
+    masking its padded keys lie past every query and drop out)."""
+    pad = (-k.shape[1]) % cfg.flash_block_kv
+    if not causal and pad:
+        k, v = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (k, v))
+    return flash_ops.flash_attention(q, k, v, causal=causal)
+
+
 @dataclasses.dataclass
 class KVCache:
     """Decode-time cache. k/v: [B, S_max, G, d]; length: filled positions
@@ -149,29 +164,37 @@ def attention(p, x: torch.Tensor, cfg: ModelConfig, *,
               positions: torch.Tensor,
               causal: bool = True,
               cache: Optional[KVCache] = None,
-              memory=None,
+              memory: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              memory_positions: Optional[torch.Tensor] = None,
               use_flash: Optional[bool] = None
               ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """GQA attention with three execution paths.
+    """GQA attention with four execution paths.
 
-      * cache is None: self-attention (train/prefill); the flash kernel
-        when S > cfg.flash_block_q (or use_flash=True).
+      * cache is None, memory is None: self-attention (train/prefill); the
+        flash kernel when S > cfg.flash_block_q (or use_flash=True).
+      * memory given: cross-attention over the projected encoder output
+        (k, v) [B, S_enc, G, d]: RoPE on q alone, dense and non-causal, as
+        the reference computes it outside its kernels.
       * cache given, S > 1: prefill into an empty cache through the flash
         kernel; K/V written into the cache in place.
       * cache given, S == 1: single-token decode, appended to the cache in
         place, attending over it.
 
-    The cross-attention branch (`memory`) waits for the encoder-decoder
-    slice. Returns (output [B,S,D], updated cache or None).
+    Returns (output [B,S,D], updated cache or None).
     """
-    if memory is not None:
-        raise NotImplementedError(
-            "cross-attention (memory=...) is not ported yet: it waits for "
-            "the encoder-decoder slice (ROADMAP.md, queue 1, the LLM stack)")
     b, s, _ = x.shape
     h = cfg.n_heads
 
-    if cache is not None and s > 1:
+    if memory is not None:
+        mem_k, mem_v = memory
+        q = torch.einsum("bsd,dhk->bshk", x, cast(p["wq"]))
+        if cfg.use_bias:
+            q = q + cast(p["bq"])
+        q = rope(q, positions, cfg.rope_theta)
+        out = _dense_attend(q, _repeat_kv(mem_k, h), _repeat_kv(mem_v, h),
+                            False, positions, memory_positions)
+        new_cache = None
+    elif cache is not None and s > 1:
         # Prefill-into-cache: the cache must be empty and positions arange,
         # since the kernel masks by index.
         if bool((cache.length != 0).any()):
@@ -181,7 +204,7 @@ def attention(p, x: torch.Tensor, cfg: ModelConfig, *,
         q, k_new, v_new = _project_qkv(p, x, cfg, positions)
         kr = _repeat_kv(k_new, h)
         vr = _repeat_kv(v_new, h)
-        out = flash_ops.flash_attention(q, kr, vr, causal=causal)
+        out = _flash(q, kr, vr, causal, cfg)
         cache.k[:, :s] = k_new
         cache.v[:, :s] = v_new
         new_cache = KVCache(k=cache.k, v=cache.v, length=cache.length + s)
@@ -218,7 +241,7 @@ def attention(p, x: torch.Tensor, cfg: ModelConfig, *,
             else s > cfg.flash_block_q
         if flash:
             _check_index_positions(positions)
-            out = flash_ops.flash_attention(q, kr, vr, causal=causal)
+            out = _flash(q, kr, vr, causal, cfg)
         else:
             out = _dense_attend(q, kr, vr, causal, positions, positions)
         new_cache = None

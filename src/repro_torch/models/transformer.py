@@ -1,6 +1,6 @@
 """Decoder model assemblies of the port (from `repro.models.transformer`):
-the pure SSM stack (mamba2) and the hybrid (zamba2), with the reference's
-serving API:
+dense / MoE / VLM (`DecoderLM`), the pure SSM stack (mamba2) and the hybrid
+(zamba2), with the reference's serving API:
 
     spec()                                ParamSpec tree
     prefill(params, batch, max_len)       (caches, last_logits)
@@ -9,8 +9,8 @@ serving API:
 Parameters are dicts of tensors with the reference's stacked leading axes;
 the reference's scans over layers are Python loops over those axes, and the
 per-layer caches come back stacked as the scans stack them. Training
-(`train_loss`, `chunked_cross_entropy`), the dense / MoE / VLM `DecoderLM`
-and the encoder-decoder wait for later slices (ROADMAP.md).
+(`train_loss`, `chunked_cross_entropy`) waits for a later slice
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -20,43 +20,55 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.params import stack_specs
 
 
 # ---------------------------------------------------------------------------
-# Transformer decoder block (the hybrid's shared attention + MLP block)
+# Transformer decoder block (dense / moe families, the hybrid's shared block)
 # ---------------------------------------------------------------------------
 
-def _no_moe(cfg: ModelConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            "MoE blocks are not ported yet (ROADMAP.md, queue 1, the LLM "
-            "stack)")
-
-
 def block_spec(cfg: ModelConfig) -> Dict[str, Any]:
-    _no_moe(cfg)
-    return {
+    s = {
         "ln1": L.rmsnorm_spec(cfg.d_model),
         "attn": L.attention_spec(cfg),
         "ln2": L.rmsnorm_spec(cfg.d_model),
-        "mlp": L.mlp_spec(cfg),
     }
+    if cfg.moe is not None:
+        s["moe"] = MOE.moe_spec(cfg)
+    else:
+        s["mlp"] = L.mlp_spec(cfg)
+    return s
 
 
 def block_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
                 positions: torch.Tensor,
                 cache: Optional[L.KVCache] = None,
                 causal: bool = True):
-    _no_moe(cfg)
+    """-> (x, new cache or None, MoE load stats or None)."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     attn_out, new_cache = L.attention(p["attn"], h, cfg,
                                       positions=positions, causal=causal,
                                       cache=cache)
     x = x + attn_out
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + L.mlp(p["mlp"], h, cfg), new_cache, None
+    stats = None
+    if cfg.moe is not None:
+        ffn, stats = MOE.moe_block(p["moe"], h, cfg)
+    else:
+        ffn = L.mlp(p["mlp"], h, cfg)
+    return x + ffn, new_cache, stats
+
+
+def _zero_stats(cfg: ModelConfig, device):
+    if cfg.moe is None:
+        return None
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return {"tokens_per_expert": torch.zeros((cfg.moe.n_experts,),
+                                             dtype=torch.float32,
+                                             device=device),
+            "aux_loss": zero, "drop_frac": zero}
 
 
 def _layer(tree: Dict[str, Any], *idx: int) -> Dict[str, Any]:
@@ -88,6 +100,73 @@ def _mamba_layer(p_layer, x, cfg: ModelConfig, cache, decode: bool):
 
 def _mamba_layer_spec(cfg: ModelConfig) -> Dict[str, Any]:
     return {"ln": L.rmsnorm_spec(cfg.d_model), "mamba": SSM.mamba_spec(cfg)}
+
+
+# ---------------------------------------------------------------------------
+# Decoder-only transformer (dense / moe / vlm)
+# ---------------------------------------------------------------------------
+
+class DecoderLM:
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+
+    def spec(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        return {
+            "embed": L.embed_spec(cfg),
+            "layers": stack_specs(block_spec(cfg), cfg.n_layers),
+            "ln_f": L.rmsnorm_spec(cfg.d_model),
+            "unembed": L.unembed_spec(cfg),
+        }
+
+    def _run_stack(self, params, x, positions, caches: L.KVCache):
+        """caches: KVCache with a leading [n_layers] axis on k and v (written
+        in place) and the scalar length every layer shares. Returns (x, MoE
+        stats summed over the layers or None, new caches)."""
+        cfg = self.cfg
+        stats_acc = _zero_stats(cfg, x.device)
+        for i in range(cfg.n_layers):
+            cache = L.KVCache(k=caches.k[i], v=caches.v[i],
+                              length=caches.length)
+            x, cache, stats = block_apply(
+                _layer(params["layers"], i), x, cfg, positions=positions,
+                cache=cache)
+            if stats is not None:
+                stats_acc = {k: stats_acc[k] + stats[k] for k in stats_acc}
+        new = L.KVCache(k=caches.k, v=caches.v, length=cache.length)
+        return x, stats_acc, new
+
+    def _embed_inputs(self, params, batch):
+        """Token embeddings, after the image embeddings for a VLM batch that
+        carries `image_embeds` [B, n_img, D]; positions run over both."""
+        cfg = self.cfg
+        x = L.embed(params["embed"], batch["tokens"])
+        if cfg.family == "vlm" and "image_embeds" in batch:
+            x = torch.cat([L.cast(batch["image_embeds"]), x], dim=1)
+        b, s, _ = x.shape
+        return x, _positions(b, s, x.device)
+
+    def prefill(self, params, batch, max_len: int):
+        cfg = self.cfg
+        x, positions = self._embed_inputs(params, batch)
+        caches = L.make_cache(cfg, x.shape[0], max_len, x.device,
+                              n_layers=cfg.n_layers)
+        x, _, new_caches = self._run_stack(params, x, positions, caches)
+        x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+        logits = L.unembed(params["unembed"], x[:, -1:])[:, 0]
+        return new_caches, logits
+
+    def decode_step(self, params, tokens, caches: L.KVCache):
+        """tokens [B, 1] -> (logits [B, V], new caches). The KV cache is
+        written in place (the returned cache shares its k / v)."""
+        cfg = self.cfg
+        x = L.embed(params["embed"], tokens)
+        b = x.shape[0]
+        pos = caches.length.reshape(1, 1).expand(b, 1).to(torch.int32)
+        x, _, new_caches = self._run_stack(params, x, pos, caches)
+        x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+        logits = L.unembed(params["unembed"], x)[:, 0]
+        return logits, new_caches
 
 
 # ---------------------------------------------------------------------------

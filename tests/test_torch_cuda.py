@@ -968,8 +968,8 @@ def test_ssd_tensor_core_kernel_reads_projection_slices(cuda_device):
 def test_llm_wrappers_reject_what_the_kernels_do_not_run(cuda_device):
     q, k, v = flash_cases.kernel_cases(
         cuda_device, names=["f32-causal-d112-S127-BH6"])[0].args
-    wide = torch.zeros((1, 4, 1, 136), device=cuda_device)
-    with pytest.raises(ValueError, match="up to 128"):
+    wide = torch.zeros((1, 4, 1, 272), device=cuda_device)
+    with pytest.raises(ValueError, match="up to 256"):
         flash_ops.flash_attention(wide, wide, wide)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_ops.flash_attention(q.half(), k.half(), v.half())
@@ -991,28 +991,53 @@ def test_llm_wrappers_reject_what_the_kernels_do_not_run(cuda_device):
         ssd_ops.ssd_intra_chunk(big, dt1, a[:1], big, big)
 
 
-@pytest.mark.parametrize("arch", ["zamba2-7b", "mamba2-130m"])
-def test_smoke_models_on_the_card_match_the_cpu(arch, cuda_device):
+@pytest.mark.parametrize("arch", ["zamba2-7b", "mamba2-130m",
+                                  "phi4-mini-3.8b", "starcoder2-7b",
+                                  "grok-1-314b", "kimi-k2-1t-a32b",
+                                  "pixtral-12b", "seamless-m4t-large-v2"])
+def test_smoke_models_on_the_card_match_the_cpu(arch, cuda_device,
+                                                monkeypatch):
     """prefill + 3 decode steps of a smoke model, bf16, with the same
     weights on the card (kernels) and on the CPU (plain versions): logits
     and caches within 5e-2 in relative RMS (the bf16 bound of
-    tests/test_torch_models.py), launches counted."""
+    tests/test_torch_models.py), launches counted (the VLM with image
+    embeddings, the encoder-decoder with speech frames).
+
+    The MoE archs run in float32 compute, held at 1e-4: in bf16 the card's
+    and the CPU's router logits round apart, a token's top-k flips and its
+    expert output with it (grok-smoke: 0.41 relative RMS on one leaf)."""
     from repro_torch import backend, interop
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import get_model
+    from repro_torch.models import layers as TL
     from repro_torch.models.params import init_params
 
     cfg = get_smoke_config(arch)
+    bound = 5e-2
+    if cfg.moe is not None:
+        monkeypatch.setattr(TL, "COMPUTE_DTYPE", torch.float32)
+        bound = 1e-4
     model = get_model(cfg)
     cpu_params = init_params(model.spec(), torch.Generator().manual_seed(0),
                              "cpu")
+    rng = np.random.RandomState(1)
+    toks_np = rng.randint(0, cfg.real_vocab, (2, 43))
+    extra_np = {}
+    if cfg.family == "vlm":
+        extra_np["image_embeds"] = rng.randn(2, cfg.frontend_embeds,
+                                             cfg.d_model)
+    if cfg.family == "encdec":
+        extra_np["frames"] = rng.randn(2, 24, cfg.d_model)
     runs = {}
     for dev in ("cpu", cuda_device):
         params = _to(cpu_params, dev)
-        toks = torch.tensor(np.random.RandomState(1).randint(
-            0, cfg.real_vocab, (2, 43)), device=dev)
+        toks = torch.tensor(toks_np, device=dev)
+        batch = {"tokens": toks[:, :40], **{
+            k: torch.tensor(v, dtype=torch.float32, device=dev)
+            for k, v in extra_np.items()}}
         backend.reset_counters()
-        caches, logits = model.prefill(params, {"tokens": toks[:, :40]}, 48)
+        caches, logits = model.prefill(params, batch,
+                                       48 + cfg.frontend_embeds)
         launches = dict(backend.COUNTERS["launches"])
         out = [(logits, interop.caches_to_numpy(caches))]
         for i in range(3):
@@ -1021,9 +1046,15 @@ def test_smoke_models_on_the_card_match_the_cpu(arch, cuda_device):
                                                caches)
             out.append((logits, interop.caches_to_numpy(caches)))
         runs[str(dev)] = (out, launches)
-    n_ssd = cfg.n_layers
-    n_flash = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
-    want_launches = {"ssd_scan": n_ssd}
+    if cfg.family in ("ssm", "hybrid"):
+        n_ssd = cfg.n_layers
+        n_flash = cfg.n_layers // cfg.attn_every \
+            if cfg.family == "hybrid" else 0
+    else:                        # one prefill launch a decoder layer
+        n_ssd, n_flash = 0, cfg.decoder_layers
+    want_launches = {}
+    if n_ssd:
+        want_launches["ssd_scan"] = n_ssd
     if n_flash:
         want_launches["flash_attention"] = n_flash
     assert runs["cpu"][1] == {}
@@ -1042,7 +1073,7 @@ def test_smoke_models_on_the_card_match_the_cpu(arch, cuda_device):
         for u, v in pairs:
             assert u.shape == v.shape
             rel = np.linalg.norm(u - v) / max(np.linalg.norm(v), 1e-30)
-            assert rel <= 5e-2, rel
+            assert rel <= bound, rel
 
 
 def _to(tree, dev):

@@ -54,7 +54,7 @@ def _qkv(b, s, h, d, seed):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("d", [16, 112])
+@pytest.mark.parametrize("d", [16, 80, 112, 160, 256])
 @pytest.mark.parametrize("s", [45, 64])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_flash_matches_reference(causal, s, d, dtype):

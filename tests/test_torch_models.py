@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_NAMES as JARCH_NAMES
 from repro.configs import get_smoke_config as jget_smoke
 from repro.configs import get_config as jget_config
 from repro.models import get_model as jget_model
@@ -33,7 +34,8 @@ from repro.models import ssm as JS
 from repro.models.params import count_params as jcount
 from repro.models.params import init_params as jinit
 from repro_torch import interop
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import (ARCH_NAMES, all_configs, get_config,
+                                  get_smoke_config)
 from repro_torch.models import get_model
 from repro_torch.models import layers as TL
 from repro_torch.models import ssm as TS
@@ -76,7 +78,7 @@ def _params(cfg, seed=0):
 # configs, specs, params
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", JARCH_NAMES)
 def test_configs_equal_the_reference(arch):
     for t, j in ((get_config(arch), jget_config(arch)),
                  (get_smoke_config(arch), jget_smoke(arch))):
@@ -84,7 +86,7 @@ def test_configs_equal_the_reference(arch):
         assert t.param_count() == j.param_count()
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", JARCH_NAMES)
 @pytest.mark.parametrize("size", ["full", "smoke"])
 def test_spec_trees_equal_the_reference(arch, size):
     """Same keys, shapes, axes, init kinds, scales and fan-in dims."""
@@ -134,13 +136,24 @@ def test_params_from_numpy_keeps_the_tree():
 
 
 def test_unported_families_and_archs_raise():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("stablelm-3b")
-    for family in ("dense", "moe", "vlm", "encdec"):
-        cfg = dataclasses.replace(get_smoke_config("zamba2-7b"),
-                                  family=family)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_model(cfg)
+    """Every arch of the reference and all six families resolve, in the
+    reference's order; an unknown arch or family still raises."""
+    assert ARCH_NAMES == JARCH_NAMES
+    assert list(all_configs()) == list(ARCH_NAMES)
+    families = set()
+    for arch in ARCH_NAMES:
+        for cfg in (get_config(arch), get_smoke_config(arch)):
+            model = get_model(cfg)
+            assert type(model).__name__ == type(jget_model(cfg)).__name__
+            families.add(cfg.family)
+    assert families == {"dense", "moe", "vlm", "ssm", "hybrid", "encdec"}
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gpt-9")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_smoke_config("gpt-9")
+    cfg = dataclasses.replace(get_smoke_config("zamba2-7b"), family="rnn")
+    with pytest.raises(ValueError, match="unknown family"):
+        get_model(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -304,8 +317,6 @@ def test_attention_flash_path_refuses_non_index_positions():
         TL.attention(tp, x, cfg, positions=pos, cache=cache)
     with pytest.raises(ValueError, match="arange"):
         TL.attention(tp, x, cfg, positions=pos + 1, use_flash=True)
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        TL.attention(tp, x, cfg, positions=pos, memory=(x, x))
 
 
 # ---------------------------------------------------------------------------
@@ -433,8 +444,10 @@ def test_decode_consistent_with_prefill(arch):
 
 
 def test_llm_modules_import_and_serve_with_jax_blocked():
-    """The slice imports no JAX and no reference module: with both blocked
-    it imports and serves the smoke model on the CPU."""
+    """The port's LLM stack imports no JAX and no reference module: with
+    both blocked it imports and serves a smoke model of every family on
+    the CPU (hybrid, ssm, dense, MoE, VLM with image embeddings, encdec
+    with speech frames)."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -446,14 +459,21 @@ def test_llm_modules_import_and_serve_with_jax_blocked():
         "from repro_torch.models.params import init_params\n"
         "from repro_torch.kernels.flash_attention import cases, ops\n"
         "from repro_torch.kernels.ssd_scan import cases, ops\n"
-        "cfg = get_smoke_config('zamba2-7b')\n"
-        "m = get_model(cfg)\n"
-        "p = init_params(m.spec(), torch.Generator().manual_seed(0), 'cpu')\n"
-        "c, logits = m.prefill(p, {'tokens': torch.zeros(1, 5, "
-        "dtype=torch.long)}, 8)\n"
-        "logits, c = m.decode_step(p, torch.zeros(1, 1, dtype=torch.long), "
-        "c)\n"
-        "assert logits.shape == (1, cfg.vocab)\n"
+        "for arch in ('zamba2-7b', 'mamba2-130m', 'phi4-mini-3.8b',\n"
+        "             'grok-1-314b', 'pixtral-12b',\n"
+        "             'seamless-m4t-large-v2'):\n"
+        "    cfg = get_smoke_config(arch)\n"
+        "    m = get_model(cfg)\n"
+        "    p = init_params(m.spec(), torch.Generator().manual_seed(0),\n"
+        "                    'cpu')\n"
+        "    batch = {'tokens': torch.zeros(1, 5, dtype=torch.long),\n"
+        "             'image_embeds': torch.zeros(1, cfg.frontend_embeds,\n"
+        "                                         cfg.d_model),\n"
+        "             'frames': torch.zeros(1, 6, cfg.d_model)}\n"
+        "    c, logits = m.prefill(p, batch, 5 + cfg.frontend_embeds + 3)\n"
+        "    logits, c = m.decode_step(p, torch.zeros(1, 1,\n"
+        "                              dtype=torch.long), c)\n"
+        "    assert logits.shape == (1, cfg.vocab), arch\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,

@@ -43,7 +43,8 @@ KEY_TILE = 64                     # keys per tile of the flash wgmma kernel
 # Kernel choice
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("d", [8, 16, 20, 64, 100, 112, 128])
+@pytest.mark.parametrize("d", [8, 16, 20, 64, 100, 112, 128, 144, 160, 200,
+                               240, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_variant(dtype, d):
     want = "wgmma" if dtype == torch.bfloat16 and d % 16 == 0 else "simt"
@@ -53,8 +54,8 @@ def test_flash_variant(dtype, d):
 def test_flash_variant_refuses_what_no_kernel_takes():
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_ops.variant(torch.float16, 64)
-    for d in (0, 129, 256):
-        with pytest.raises(ValueError, match="up to 128"):
+    for d in (0, 257, 272, 512):
+        with pytest.raises(ValueError, match="up to 256"):
             flash_ops.variant(torch.bfloat16, d)
 
 
