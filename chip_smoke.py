@@ -90,7 +90,8 @@ exits non-zero):
      x 2048 tokens (max_len 2064), then 16 greedy decode steps; (b)
      mamba2-130m, 8 x 2048, then 16 steps. Every ssd_scan and
      flash_attention launch of those runs is held against its plain
-     version on its own inputs (inline), the launches are counted (81 + 13
+     version on its own inputs (inline; flash also at FLASH_REL_RMS_TOL
+     relative RMS, in every main path), the launches are counted (81 + 13
      and 24, every one of them the tensor-core kernel: the prefill runs in
      bf16), and the whole prefill's logits against the same prefill with
      the plain ops (held in float32 compute; in bf16, where rounding noise
@@ -216,12 +217,32 @@ exits non-zero):
      then the flash kernel at
      pixtral's shape [2, 2048, 32, 160] (kernel, SIMT kernel, plain,
      SDPA, bound) and the phase's seconds;
-  13. a `kernels` JSON line (launches on the main paths, error against
+  13. training, run right after phase 12 (`train_phase`): (a)
+     stablelm-3b at full size (32 layers, AdamW, batch 4 x 2048) and (b)
+     mamba2-130m (batch 8 x 2048), from the twin key's weights (the
+     reference launcher's), each run a main path of its own: one warm-up
+     step whose every flash / SSD launch is held against the plain
+     version, then 3 timed steps, each launching the kernel twice a layer
+     (forward and rematerialization, all `wgmma`) with the plain VJP as
+     the backward (`backward_plain`, once a layer); step ms, tokens/s,
+     model FLOP/s against the bf16 peak, peak memory and one profiled
+     step's idle share and top operations; (c) one step of stablelm-3b at
+     full width on 2 layers and of mamba2-130m in float32 compute against
+     the same step with the kernels' plain versions (loss 1e-5, every
+     gradient leaf present and within 1e-4 relative RMS, the attention /
+     SSM projection gradients nonzero; the plain step uses no kernel
+     route, the kernel step both the kernel and `backward_plain`); (d)
+     `launch.train.main` at smoke
+     size with the lane controller live, a checkpoint at step 2 resumed
+     against the uninterrupted run, and the laned step over a 2-process
+     gloo group on the card at lane widths 1, 2 and 4;
+  14. a `kernels` JSON line (launches on the main paths, error against
      plain, times, the bound and the kernel variant that ran) for all four
      kernels; the simulator kernels' entries add the first design's time
      in the same run (`warp_ms`), the times per launch shape (`shapes`,
      phases 5's, 7's-11's among them) and the launches per main path;
-     flash's adds phase 12's launches and its shape at pixtral's prefill.
+     flash's adds phase 12's launches and its shape at pixtral's prefill;
+     flash's and SSD's add phase 13's training launches and runs.
 
 Phases 3 and 4 are the first main path: the launch counters are zeroed
 before phase 3 and read after the last DSE, before any check or timing.
@@ -230,7 +251,8 @@ Phase 5 is the second, zeroed before its streaming and read after its last
 counters zeroed just before its prefill and read just after its last
 decode step, and so is each run of phase 12. Phase 7 is zeroed before
 its walkthrough scan and read after its placement search; phase 8 before
-its search (a) and after (e); phase 9 before its walkthroughs and after
+its search (a) and after (e); phase 13 before each run's first timed
+step and after its last; phase 9 before its walkthroughs and after
 (c) drains; phase 10 before its walkthrough search and after (b)'s
 re-scoring; phase 11, the last, just before and just after (a)'s sharded
 sweep (the launcher's child
@@ -250,7 +272,8 @@ where a tree without topology rows times the constants alone.
 `python3 chip_smoke.py --pareto` builds epoch_step alone and runs phase
 10, `python3 chip_smoke.py --fleet` builds epoch_step alone and runs phase
 11, `python3 chip_smoke.py --llm-families` builds flash_attention alone and
-runs phase 12.
+runs phase 12, `python3 chip_smoke.py --train` builds flash_attention and
+ssd_scan and runs phase 13.
 
 The last line is {"ok": true, "device": {...}}. Without a card, or without
 the rest of the repository beside this file, it exits non-zero and prints
@@ -353,6 +376,13 @@ BF16_FLOPS_PER_S = 989e12
 # LLM serving (phase 6): (arch, batch, prompt tokens, decode steps).
 LLM_RUNS = (("zamba2-7b", 4, 2048, 16), ("mamba2-130m", 8, 2048, 16))
 LLM_SEED = 2026
+# Each flash launch of a main path is also held to this relative RMS
+# against the plain version on its inputs: late causal rows average many
+# keys, their outputs are a few hundredths in size, and the absolute
+# bound alone would pass a normalisation error there. On an H100 the bf16
+# launches of phases 6, 12 and 13 read 1.2e-3 to 2.2e-3 (one rounding of
+# P and one of the output, 2^-9 relative each).
+FLASH_REL_RMS_TOL = 5e-3
 # Bound of the whole prefill's logits against the same prefill with the
 # plain ops, in relative RMS, with float32 compute. In bf16 these
 # random-weight models at full depth are dominated by rounding noise: every
@@ -1351,11 +1381,13 @@ def ssd_work(b, nc, q, h, p, g, n, in_bytes) -> tuple:
     return nbytes, ops
 
 
-def device_breakdown(fn, label: str, top: int = 6, phase: str = "6"):
+def device_breakdown(fn, label: str, top: int = 6, phase: str = "6",
+                     ops: int = 0):
     """Information: one call of `fn` under torch.profiler; prints its host
     wall time, the summed device time of its kernels, the device's busy
     share (kernels run one at a time on one stream) and the kernels that
-    take the most device time. Returns (wall seconds, {kernel: device
+    take the most device time, and with `ops` the PyTorch operators whose
+    own kernels take the most. Returns (wall seconds, {kernel: device
     microseconds}), or None when the profiler recorded no device time. A
     failure of `fn` itself is raised, not reported as "not measured"."""
     from torch.autograd import DeviceType
@@ -1378,13 +1410,15 @@ def device_breakdown(fn, label: str, top: int = 6, phase: str = "6"):
             call()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        kernels = {}
+        kernels, by_op = {}, {}
         for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
-                continue
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = e.self_cuda_time_total
+            if e.device_type != DeviceType.CUDA:
+                if us > 0:
+                    by_op[e.key] = by_op.get(e.key, 0.0) + us
+                continue
             kernels[e.key] = kernels.get(e.key, 0.0) + us
     except Exception as e:                   # information only
         if raised:
@@ -1403,6 +1437,11 @@ def device_breakdown(fn, label: str, top: int = 6, phase: str = "6"):
              f"top: " + "; ".join(f"{k[:48]} {v / 1e3:.3f} ms "
                                   f"({v / 1e6 / busy:.1%})"
                                   for k, v in ranked))
+    if ops:
+        ranked = sorted(by_op.items(), key=lambda kv: -kv[1])[:ops]
+        say(phase, f"{label}: operators by their kernels' device time: "
+                   + "; ".join(f"{k} {v / 1e3:.3f} ms ({v / 1e6 / busy:.1%})"
+                               for k, v in ranked))
     return wall, kernels
 
 
@@ -1422,42 +1461,163 @@ def rel_rms(a: torch.Tensor, b: torch.Tensor) -> float:
                  / torch.linalg.vector_norm(b).clamp(min=1e-30))
 
 
-def llm_checked_ops(fops, sops, flash_ref, ssd_ref, errs: dict,
-                    first: dict):
+def llm_checked_ops(fops, sops, errs: dict, first: dict):
     """Wrappers for the two kernel ops that hold every call against the
     plain version on its own inputs right after it (float32 outputs at
-    the cases' bounds; a bf16 attention output at 3e-2), and keep the
-    first call's inputs for timing."""
+    the cases' bounds; a bf16 attention output at 3e-2 and, every
+    attention output, at FLASH_REL_RMS_TOL relative RMS), and keep the
+    first call's inputs (detached) for timing. `errs` gathers the largest
+    absolute errors ("flash", "ssd"), the largest flash relative RMS
+    ("flash_rel") and the smallest flash output RMS ("flash_rms")."""
+    from repro_torch.kernels.ssd_scan.ref import reference_intra_chunk
+
     kernel_flash, kernel_intra = fops.flash_attention, sops.ssd_intra_chunk
 
     def flash(q, k, v, *, causal=True):
         out = kernel_flash(q, k, v, causal=causal)
-        want = flash_ref(q, k, v, causal=causal)
+        with torch.no_grad():
+            want = fops._plain(q, k, v, causal).float()
+            err = float((out.float() - want).abs().max())
+            rel = rel_rms(out, want)
+            rms = float(want.double().pow(2).mean().sqrt())
         tol = 2e-5 if q.dtype == torch.float32 else 3e-2
-        if not torch.allclose(out.float(), want.float(), rtol=tol, atol=tol):
+        if not torch.allclose(out.float(), want, rtol=tol, atol=tol) \
+                or rel > FLASH_REL_RMS_TOL:
             fail(f"main path flash_attention launch {tuple(q.shape)} "
-                 f"differs from plain (max abs err "
-                 f"{float((out.float() - want.float()).abs().max()):.3g})")
-        errs["flash"] = max(errs.get("flash", 0.0), float(
-            (out.float() - want.float()).abs().max()))
-        first.setdefault("flash", (q, k, v, causal))
+                 f"{q.dtype} differs from plain (max abs err {err:.3g}, "
+                 f"relative RMS {rel:.3g}, bound {FLASH_REL_RMS_TOL}; "
+                 f"output RMS {rms:.3g})")
+        errs["flash"] = max(errs.get("flash", 0.0), err)
+        errs["flash_rel"] = max(errs.get("flash_rel", 0.0), rel)
+        errs["flash_rms"] = min(errs.get("flash_rms", float("inf")), rms)
+        first.setdefault("flash", (*(t.detach() for t in (q, k, v)),
+                                   causal))
         return out
 
     def intra(x, dt, a, b_in, c_in):
         out = kernel_intra(x, dt, a, b_in, c_in)
-        want = ssd_ref(x, dt, a, b_in, c_in)
+        with torch.no_grad():
+            want = reference_intra_chunk(x, dt, a, b_in, c_in)
         tol = 2e-4 if x.shape[2] >= 128 else 1e-4
         for name, u, w in zip(("y_intra", "states"), out, want):
-            if not torch.allclose(u, w, rtol=tol, atol=tol):
+            err = float((u.detach() - w).abs().max())
+            if not torch.allclose(u.detach(), w, rtol=tol, atol=tol):
                 fail(f"main path ssd_scan launch {tuple(x.shape)}: {name} "
-                     f"differs from plain (max abs err "
-                     f"{float((u - w).abs().max()):.3g})")
-            errs["ssd"] = max(errs.get("ssd", 0.0),
-                              float((u - w).abs().max()))
-        first.setdefault("ssd", (x, dt, a, b_in, c_in))
+                     f"differs from plain (max abs err {err:.3g})")
+            errs["ssd"] = max(errs.get("ssd", 0.0), err)
+        first.setdefault("ssd", tuple(t.detach() for t in
+                                      (x, dt, a, b_in, c_in)))
         return out
 
     return flash, intra
+
+
+def flash_errs_text(errs: dict) -> str:
+    """The flash checks' readings, as `llm_checked_ops` gathered them."""
+    return (f"max abs err {errs['flash']:.3g}, worst relative RMS "
+            f"{errs['flash_rel']:.3g} (bound {FLASH_REL_RMS_TOL}), smallest "
+            f"output RMS {errs['flash_rms']:.3g}")
+
+
+def flash_times(fops, inputs: tuple, label: str, phase: str, card: str,
+                backward: bool = False) -> dict:
+    """The flash kernel at one launch shape of a main path, on the inputs
+    it gave (q, k, v, causal), CUDA events, medians after warm-up: the
+    kernel the main path ran, the SIMT kernel on the same inputs
+    (information), the plain version, SDPA, and the bound; with
+    `backward`, the backward as training runs it, the plain VJP
+    (recompute + backward of the plain version for a unit cotangent),
+    beside SDPA's backward (information). Prints one line."""
+    q, k, v, causal = inputs
+    ms = float(np.median(time_cuda(
+        lambda: fops.launch(q, k, v, causal=causal), 7)[2:]))
+    simt_ms = float(np.median(time_cuda(
+        lambda: fops.launch(q, k, v, causal=causal, kernel="simt"), 7)[2:]))
+    plain_ms = float(np.median(time_cuda(
+        lambda: fops._plain(q, k, v, causal), 3)))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = float(np.median(time_cuda(
+        lambda: sdpa(qt, kt, vt, is_causal=causal), 7)[2:]))
+    b, s_len, h, d = q.shape
+    nbytes, flops = flash_work(b, s_len, h, d, q.element_size(), causal)
+    bound_ms, bound_by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                             (flops / BF16_FLOPS_PER_S * 1e3, "operations"))
+    t = {"shape": [b, s_len, h, d], "dtype": str(q.dtype).split(".")[1],
+         "causal": causal, "variant": fops.variant(q.dtype, d), "ms": ms,
+         "simt_ms": simt_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+         "bound_ms": bound_ms, "bound_by": bound_by}
+    text = ""
+    if backward:
+        t["backward_plain_ms"] = float(np.median(time_cuda(
+            lambda: unit_vjp(lambda *a: fops._plain(*a, causal),
+                             (q, k, v)), 4)[1:]))
+        t["library_backward_ms"] = float(np.median(time_cuda(
+            lambda: unit_vjp(lambda *a: sdpa(*a, is_causal=causal),
+                             (qt, kt, vt)), 4)[1:]))
+        text = (f"; backward (information): the plain VJP "
+                f"{t['backward_plain_ms']:.3f} ms, SDPA's backward "
+                f"{t['library_backward_ms']:.3f} ms")
+    say(phase, f"{label}flash_attention {t['variant']} kernel at "
+               f"{t['shape']} {q.dtype}{', causal' if causal else ''}: "
+               f"median {ms:.4f} ms (SIMT kernel {simt_ms:.4f} ms); plain "
+               f"{plain_ms:.3f} ms; SDPA {lib_ms:.4f} ms; bound "
+               f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP "
+               f"at the bf16 tensor-core peak, {nbytes / 1e9:.3f} GB), "
+               f"{bound_ms / ms:.1%} of it{text}; card: {card}")
+    return t
+
+
+def ssd_times(sops, inputs: tuple, label: str, phase: str, card: str,
+              backward: bool = False) -> dict:
+    """`flash_times` for the SSD intra-chunk kernel (x, dt, a, B, C): no
+    library call computes it; its bound at the float32 peak is printed
+    beside the bf16 one."""
+    from repro_torch.kernels.ssd_scan.ref import reference_intra_chunk
+
+    x, dt, a, b_in, c_in = inputs
+    ms = float(np.median(time_cuda(lambda: sops.launch(*inputs), 7)[2:]))
+    simt_ms = float(np.median(time_cuda(
+        lambda: sops.launch(*inputs, kernel="simt"), 7)[2:]))
+    plain_ms = float(np.median(time_cuda(
+        lambda: reference_intra_chunk(*inputs), 3)))
+    bsz, nc, cq, h, p = x.shape
+    g, n = b_in.shape[3], b_in.shape[4]
+    nbytes, n_ops = ssd_work(bsz, nc, cq, h, p, g, n, x.element_size())
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = max((t_b, "bytes"),
+                             (n_ops / BF16_FLOPS_PER_S * 1e3, "operations"))
+    t = {"shape": [bsz, nc, cq, h, p, g, n],
+         "dtype": str(x.dtype).split(".")[1],
+         "variant": sops.variant(x.dtype, cq, p, n), "ms": ms,
+         "simt_ms": simt_ms, "plain_ms": plain_ms, "library_ms": None,
+         "bound_ms": bound_ms, "bound_by": bound_by,
+         "bound_f32_peak_ms": max(t_b, n_ops / F32_FLOPS_PER_S * 1e3)}
+    text = ""
+    if backward:
+        t["backward_plain_ms"] = float(np.median(time_cuda(
+            lambda: unit_vjp(reference_intra_chunk, inputs), 4)[1:]))
+        text = (f"; backward (information): the plain VJP "
+                f"{t['backward_plain_ms']:.3f} ms")
+    say(phase, f"{label}ssd_scan {t['variant']} kernel [B {bsz}, NC {nc}, "
+               f"Q {cq}, H {h}, P {p}, G {g}, N {n}] {x.dtype}: median "
+               f"{ms:.4f} ms (SIMT kernel {simt_ms:.4f} ms); plain "
+               f"{plain_ms:.3f} ms; no library call; bound {bound_ms:.4f} "
+               f"ms by {bound_by} ({nbytes / 1e9:.4f} GB, {n_ops / 1e9:.3f} "
+               f"GFLOP at the bf16 tensor-core peak), {bound_ms / ms:.1%} "
+               f"of it; at the float32 peak {t['bound_f32_peak_ms']:.4f} "
+               f"ms{text}; card: {card}")
+    return t
+
+
+def unit_vjp(fn, args: tuple) -> None:
+    """`fn`'s backward for a unit cotangent on every output, recomputed
+    from detached copies of `args`."""
+    leaves = [t.detach().requires_grad_() for t in args]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    torch.autograd.grad(outs, leaves, [torch.ones_like(o) for o in outs],
+                        allow_unused=True)
 
 
 def prefill_against_plain(phase: str, name: str, model, params, inputs,
@@ -1554,15 +1714,9 @@ def serve_llms(dev, card: str, fops, sops, llm_err: dict) -> list:
     kernels' timings; returns their rows of the `kernels` line."""
     from repro_torch import backend
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.ref import reference_attention
     from repro_torch.kernels.ssd_scan.ref import reference_intra_chunk
     from repro_torch.models import get_model
     from repro_torch.models.params import count_params, init_params
-
-    def flash_ref(q, k, v, *, causal=True):
-        return reference_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                   v.transpose(1, 2),
-                                   causal=causal).transpose(1, 2)
 
     launches_total: dict = {}
     timing_inputs: dict = {}
@@ -1583,8 +1737,7 @@ def serve_llms(dev, card: str, fops, sops, llm_err: dict) -> list:
         max_len = prompt + steps
         errs: dict = {}
         first: dict = {}
-        flash, intra = llm_checked_ops(fops, sops, flash_ref,
-                                       reference_intra_chunk, errs, first)
+        flash, intra = llm_checked_ops(fops, sops, errs, first)
         kernel_flash, kernel_intra = fops.flash_attention, \
             sops.ssd_intra_chunk
         fops.flash_attention, sops.ssd_intra_chunk = flash, intra
@@ -1619,6 +1772,9 @@ def serve_llms(dev, card: str, fops, sops, llm_err: dict) -> list:
             launches_total[k] = launches_total.get(k, 0) + v
         for name in ("flash", "ssd"):
             llm_err[name] = max(llm_err[name], errs.get(name, 0.0))
+        if "flash" in errs:
+            say("6", f"{arch}: flash launches against plain: "
+                     + flash_errs_text(errs))
         if prefill_logits.shape != (batch, cfg.vocab) or logits.shape != (
                 batch, cfg.vocab):
             fail(f"{arch}: logits shape {tuple(logits.shape)}")
@@ -1629,13 +1785,14 @@ def serve_llms(dev, card: str, fops, sops, llm_err: dict) -> list:
                  f"decode steps; launches {launches}, variants {variants} "
                  f"(expected); every "
                  f"launch == plain on its own inputs (max abs err "
-                 + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + ")")
+                 + ", ".join(f"{k} {errs[k]:.3g}" for k in ("flash", "ssd")
+                             if k in errs) + ")")
 
         del caches
         inputs = {"tokens": toks}
         prefill_against_plain(
             "6", arch, model, params, inputs, max_len, prefill_logits,
-            ((fops, "flash_attention", flash_ref),
+            ((fops, "flash_attention", fops._plain),
              (sops, "ssd_intra_chunk", reference_intra_chunk)))
         serving_speed("6", arch, model, params, inputs, max_len, steps,
                       cfg.real_vocab, card)
@@ -1656,83 +1813,28 @@ def serve_llms(dev, card: str, fops, sops, llm_err: dict) -> list:
         del params, logits, prefill_logits
         torch.cuda.empty_cache()
 
-    # Kernel times at the main-path shapes: median of 5 launches after
-    # warm-up (CUDA events) of the tensor-core kernel the main path ran and
-    # of the SIMT kernel on the same inputs (information), the plain
-    # version's median of 3, SDPA's.
-    rows = []
-    q, k, v, causal = timing_inputs["flash"]
-    ms = float(np.median(time_cuda(
-        lambda: fops.launch(q, k, v, causal=causal), 7)[2:]))
-    simt_ms = float(np.median(time_cuda(
-        lambda: fops.launch(q, k, v, causal=causal, kernel="simt"), 7)[2:]))
-    plain_ms = float(np.median(time_cuda(
-        lambda: flash_ref(q, k, v, causal=causal), 3)))
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = float(np.median(time_cuda(
-        lambda: sdpa(qt, kt, vt, is_causal=causal), 7)[2:]))
-    b, s_len, h, d = q.shape
-    variant = fops.variant(q.dtype, d)
-    nbytes, flops = flash_work(b, s_len, h, d, q.element_size(), causal)
-    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
-    bound_ms, bound_by = max((t_b, "bytes"), (t_o, "operations"))
-    say("6", f"flash_attention {variant} kernel at [{b}, {s_len}, {h}, {d}] "
-             f"{q.dtype}, causal: median {ms:.4f} ms (SIMT kernel "
-             f"{simt_ms:.4f} ms); plain {plain_ms:.3f} ms; SDPA "
-             f"{lib_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
-             f"({flops / 1e9:.2f} GFLOP at the bf16 tensor-core peak, "
-             f"{nbytes / 1e9:.3f} GB), {bound_ms / ms:.1%} of it; card: "
-             f"{card}")
-    rows.append({
-        "name": fops.NAME, "route": "cuda", "variant": variant,
+    # Kernel times at the main-path shapes (`flash_times`, `ssd_times`).
+    t = flash_times(fops, timing_inputs["flash"], "", "6", card)
+    rows = [{
+        "name": fops.NAME, "route": "cuda", "variant": t["variant"],
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:30",
         "launches": launches_total.get(fops.NAME, 0),
-        "max_abs_err": llm_err["flash"], "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-        "simt_ms": simt_ms})
-
-    ssd_rows = []
-    for arch, *_ in LLM_RUNS:
-        x, dt, a, b_in, c_in = timing_inputs["ssd", arch]
-        ms = float(np.median(time_cuda(
-            lambda: sops.launch(x, dt, a, b_in, c_in), 7)[2:]))
-        simt_ms = float(np.median(time_cuda(
-            lambda: sops.launch(x, dt, a, b_in, c_in, kernel="simt"),
-            7)[2:]))
-        plain_ms = float(np.median(time_cuda(
-            lambda: reference_intra_chunk(x, dt, a, b_in, c_in), 3)))
-        bsz, nc, cq, h, p = x.shape
-        g, n = b_in.shape[3], b_in.shape[4]
-        variant = sops.variant(x.dtype, cq, p, n)
-        nbytes, n_ops = ssd_work(bsz, nc, cq, h, p, g, n, x.element_size())
-        t_b = nbytes / HBM_BYTES_PER_S * 1e3
-        bound_ms, bound_by = max((t_b, "bytes"),
-                                 (n_ops / BF16_FLOPS_PER_S * 1e3,
-                                  "operations"))
-        f32_bound_ms = max(t_b, n_ops / F32_FLOPS_PER_S * 1e3)
-        say("6", f"ssd_scan {variant} kernel, {arch} layer [B {bsz}, NC "
-                 f"{nc}, Q {cq}, H {h}, P {p}, G {g}, N {n}] {x.dtype}: "
-                 f"median {ms:.4f} ms (SIMT kernel {simt_ms:.4f} ms); plain "
-                 f"{plain_ms:.3f} ms; no library call; bound {bound_ms:.4f} "
-                 f"ms by {bound_by} ({nbytes / 1e9:.4f} GB, "
-                 f"{n_ops / 1e9:.3f} GFLOP at the bf16 tensor-core peak), "
-                 f"{bound_ms / ms:.1%} of it; at the float32 peak "
-                 f"{f32_bound_ms:.4f} ms; card: {card}")
-        ssd_rows.append((ms, plain_ms, bound_ms, bound_by, simt_ms,
-                         f32_bound_ms, variant))
-    ms, plain_ms, bound_ms, bound_by, simt_ms, f32_bound_ms, variant = \
-        ssd_rows[0]                                      # zamba2-7b's layer
+        "max_abs_err": llm_err["flash"],
+        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "simt_ms")}}]
+    ssd = [ssd_times(sops, timing_inputs["ssd", arch], f"{arch} layer: ",
+                     "6", card) for arch, *_ in LLM_RUNS]
+    t = ssd[0]                                         # zamba2-7b's layer
     rows.append({
-        "name": sops.NAME, "route": "cuda", "variant": variant,
+        "name": sops.NAME, "route": "cuda", "variant": t["variant"],
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:29",
         "launches": launches_total.get(sops.NAME, 0),
-        "max_abs_err": llm_err["ssd"], "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "simt_ms": simt_ms, "bound_f32_peak_ms": f32_bound_ms})
+        "max_abs_err": llm_err["ssd"],
+        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "simt_ms", "bound_f32_peak_ms")}})
     return rows
 
 
@@ -1772,15 +1874,9 @@ def llm_families_phase(dev, card: str, fops, sops) -> dict:
     import dataclasses as dc
     from repro_torch import backend
     from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.kernels.flash_attention.ref import reference_attention
     from repro_torch.models import get_model
     from repro_torch.models import moe as MOE
     from repro_torch.models.params import count_params, init_params
-
-    def flash_ref(q, k, v, *, causal=True):
-        return reference_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                   v.transpose(1, 2),
-                                   causal=causal).transpose(1, 2)
 
     t_phase = time.perf_counter()
     kernel_flash = fops.flash_attention
@@ -1818,7 +1914,7 @@ def llm_families_phase(dev, card: str, fops, sops) -> dict:
         errs: dict = {}
         first: dict = {}
         moe_stats: list = []
-        flash, _ = llm_checked_ops(fops, sops, flash_ref, None, errs, first)
+        flash, _ = llm_checked_ops(fops, sops, errs, first)
 
         def recorded_moe(p, x, c):
             y, stats = kernel_moe(p, x, c)
@@ -1869,7 +1965,7 @@ def llm_families_phase(dev, card: str, fops, sops) -> dict:
                      if cfg.family == "encdec" else "")
                   + f" + {steps} greedy decode steps; launches {launches}, "
                   f"all wgmma (expected); every launch == plain on its own "
-                  f"inputs (max abs err {errs.get('flash', 0.0):.3g})")
+                  f"inputs ({flash_errs_text(errs)})")
         if cfg.moe is not None:
             pre = [st for n, st in moe_stats if n > 1]
             dec = [st for n, st in moe_stats if n == 1]
@@ -1886,7 +1982,7 @@ def llm_families_phase(dev, card: str, fops, sops) -> dict:
 
         prefill_against_plain("12", name, model, params, inputs, max_len,
                               prefill_logits,
-                              ((fops, "flash_attention", flash_ref),))
+                              ((fops, "flash_attention", fops._plain),))
         serving_speed("12", name, model, params, inputs, max_len, steps,
                       cfg.real_vocab, card)
         if arch == "pixtral-12b":
@@ -1894,44 +1990,390 @@ def llm_families_phase(dev, card: str, fops, sops) -> dict:
         del params, logits, prefill_logits, first, inputs
         torch.cuda.empty_cache()
 
-    # The flash kernel at pixtral's prefill shape: the tensor-core kernel
-    # the main path ran, the SIMT kernel on the same inputs (information),
-    # the plain version, SDPA; CUDA events, median after warm-up.
-    q, k, v, causal = timing_inputs
+    # The flash kernel at pixtral's prefill shape (`flash_times`).
+    q = timing_inputs[0]
     if tuple(q.shape) != FAMILY_FLASH_SHAPE or q.dtype != torch.bfloat16:
         fail(f"pixtral's flash launch is {tuple(q.shape)} {q.dtype}, not "
              f"{FAMILY_FLASH_SHAPE} bf16")
-    ms = float(np.median(time_cuda(
-        lambda: fops.launch(q, k, v, causal=causal), 7)[2:]))
-    simt_ms = float(np.median(time_cuda(
-        lambda: fops.launch(q, k, v, causal=causal, kernel="simt"), 5)[2:]))
-    plain_ms = float(np.median(time_cuda(
-        lambda: flash_ref(q, k, v, causal=causal), 3)))
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = float(np.median(time_cuda(
-        lambda: sdpa(qt, kt, vt, is_causal=causal), 7)[2:]))
-    b, s_len, h, d = q.shape
-    nbytes, flops = flash_work(b, s_len, h, d, q.element_size(), causal)
-    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
-    bound_ms, bound_by = max((t_b, "bytes"), (t_o, "operations"))
-    say("12", f"flash_attention wgmma kernel at pixtral's [{b}, {s_len}, "
-              f"{h}, {d}] bf16 causal: median {ms:.4f} ms (SIMT kernel "
-              f"{simt_ms:.4f} ms); plain {plain_ms:.3f} ms; SDPA "
-              f"{lib_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
-              f"({flops / 1e9:.2f} GFLOP at the bf16 tensor-core peak, "
-              f"{nbytes / 1e9:.3f} GB), {bound_ms / ms:.1%} of it; card: "
-              f"{card}")
+    shape = flash_times(fops, timing_inputs, "pixtral-12b prefill: ", "12",
+                        card)
     phase_s = time.perf_counter() - t_phase
     say("12", f"LLM families phase: {phase_s:.1f} s; flash launches per "
               f"run {json.dumps(launches_by_run)}")
     return {"launches": sum(launches_by_run.values()),
             "launches_by_run": launches_by_run, "max_abs_err": max_err,
-            "shape": {"shape": list(FAMILY_FLASH_SHAPE), "dtype": "bf16",
-                      "causal": True, "ms": ms, "simt_ms": simt_ms,
-                      "plain_ms": plain_ms, "library_ms": lib_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by},
-            "seconds": phase_s}
+            "shape": shape, "seconds": phase_s}
+
+
+# Phase 13: training, each run a main path of its own: (label, arch, batch,
+# sequence length), full size, TRAIN_STEPS timed steps after one warm-up.
+TRAIN_RUNS = (("a", "stablelm-3b", 4, 2048), ("b", "mamba2-130m", 8, 2048))
+TRAIN_STEPS = 3
+# (c) kernel against plain in float32 compute: (arch, layers kept (None:
+# all), batch, sequence length); loss and gradient-leaf bounds.
+TRAIN_PLAIN_RUNS = (("stablelm-3b", 2, 2, 2048), ("mamba2-130m", None, 4,
+                                                  2048))
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-4
+# A leaf whose plain-op gradient is below this share of the whole
+# gradient's norm is held absolutely, to the bound times this share.
+TRAIN_LEAF_FLOOR = 1e-4
+# (d) the launcher at smoke size, and the laned step over a 2-process gloo
+# group on the card.
+TRAIN_LAUNCH = ["--arch", "mamba2-130m", "--smoke", "--batch", "4", "--seq",
+                "64", "--log-every", "1", "--epoch-steps", "2"]
+LANED_CHILD = r"""
+import sys
+import torch, torch.distributed as dist
+from repro_torch.configs import get_smoke_config
+from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.models import get_model
+from repro_torch.random import prng_key
+from repro_torch.train.laned_sync import compile_lane_variants
+from repro_torch.train.train_step import init_train_state
+from repro_torch import backend
+rank, port = int(sys.argv[1]), sys.argv[2]
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        world_size=2, rank=rank)
+dev = torch.device("cuda")
+model = get_model(get_smoke_config("mamba2-130m"))
+batch = {k: torch.as_tensor(v, device=dev) for k, v in SyntheticLM(
+    model.cfg, DataConfig(global_batch=8, seq_len=64)).host_slice(0).items()}
+steps = compile_lane_variants(model, dist.group.WORLD, None, None,
+                              {"total_steps": 10, "lr": 1e-2, "warmup": 1})
+out = {}
+for lanes in sorted(steps):
+    state = init_train_state(model, prng_key(0, device=dev))
+    for _ in range(2):
+        state, metrics = steps[lanes](state, batch)
+    torch.cuda.synchronize()
+    out[lanes] = (float(metrics["loss"]), torch.cat(
+        [p.reshape(-1) for p in (state["params"]["layers"]["mamba"]
+                                 ["in_proj"],
+                                 state["params"]["embed"]["embedding"])]))
+same = all(torch.equal(out[w][1], out[1][1]) and out[w][0] == out[1][0]
+           for w in out)
+dist.destroy_process_group()
+print("RESULT", same, out[1][0], backend.COUNTERS["launches"])
+"""
+
+
+def train_model_flops(cfg, count: int, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step: 6 per matmul parameter (every
+    parameter but the embedding table) and token, plus three times the
+    forward's attention (causal pairs) or SSD intra-chunk operations;
+    rematerialization and the plain backward's recomputation not
+    counted."""
+    tokens = batch * seq
+    flops = 6.0 * (count - cfg.vocab * cfg.d_model) * tokens
+    if cfg.family == "ssm":
+        s = cfg.ssm
+        h = s.expand * cfg.d_model // s.head_dim
+        nc = seq // s.chunk_len
+        flops += 3.0 * cfg.n_layers * ssd_work(
+            batch, nc, s.chunk_len, h, s.head_dim, s.n_groups, s.d_state,
+            2)[1]
+    else:
+        flops += 3.0 * cfg.n_layers * flash_work(
+            batch, seq, cfg.n_heads, cfg.resolved_head_dim, 2)[1]
+    return flops
+
+
+def rel_leaf_distances(got: list, want: list) -> list:
+    total = float(torch.sqrt(sum(w.double().pow(2).sum() for w in want)))
+    return [float((g.double() - w.double()).norm()
+                  / max(float(w.double().norm()), TRAIN_LEAF_FLOOR * total))
+            for g, w in zip(got, want)]
+
+
+def train_phase(dev, card: str, fops, sops) -> dict:
+    """Phase 13: training. (a) stablelm-3b and (b) mamba2-130m at full size
+    (TRAIN_RUNS; the twin key's weights, the reference launcher's), each
+    run a main path of its own: one warm-up step whose every kernel launch
+    is held against the plain version, then TRAIN_STEPS timed steps
+    (counters zeroed just before the first, read just after the last):
+    flash / SSD launches twice a layer a step (forward and
+    rematerialization, the tensor-core kernel), the backward the plain
+    VJP once a layer (`backward_plain`); step ms, tokens/s, model FLOP/s
+    against the bf16 peak, peak memory, one profiled step's idle share
+    and top operations. (c) one step's loss and every gradient leaf with
+    the kernels against the same step with their plain versions, float32
+    compute (TRAIN_PLAIN_RUNS). (d) at smoke size: `launch.train.main`
+    with the lane controller live, a checkpoint at step 2 resumed against
+    the uninterrupted run (bit for bit, or as close as two uninterrupted
+    runs), and the laned step over a 2-process gloo group on the card at
+    lane widths 1, 2 and 4 (equal parameters). Returns the flash and SSD
+    rows' additions to the kernels line."""
+    import contextlib
+    import dataclasses as dc
+    import io
+    import os
+    import tempfile
+
+    from repro_torch import backend
+    from repro_torch import random as trandom
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.ssd_scan.ref import reference_intra_chunk
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as L
+    from repro_torch.models.params import (count_params, init_params,
+                                           tree_leaves)
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step,
+                                              value_and_grad)
+
+    t_phase = time.perf_counter()
+    kernel_flash, kernel_intra = fops.flash_attention, sops.ssd_intra_chunk
+    out = {"flash_attention": {"launches": 0, "runs": {}},
+           "ssd_scan": {"launches": 0, "runs": {}}}
+    short = {fops.NAME: "flash", sops.NAME: "ssd"}
+    errs: dict = {}
+    first: dict = {}        # each kernel's first training inputs, timed
+    checked_flash, checked_intra = llm_checked_ops(fops, sops, errs, first)
+
+    # --- (a), (b): full-size training runs ---------------------------------
+    for label, arch, batch, seq in TRAIN_RUNS:
+        cfg = get_config(arch)
+        model = get_model(cfg)
+        kname = sops.NAME if cfg.family == "ssm" else fops.NAME
+        n_params = count_params(model.spec())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = init_train_state(model, trandom.prng_key(0, device=dev))
+        torch.cuda.synchronize()
+        say("13", f"({label}) {arch}: {n_params / 1e9:.4g} B parameters "
+                  f"drawn on the card from the twin key prng_key(0) in "
+                  f"{time.perf_counter() - t0:.2f} s (the reference's "
+                  f"init_params bit for bit, in slices of the counter; "
+                  f"draw peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+                  f" GiB; train state "
+                  f"{torch.cuda.memory_allocated() / 2**30:.2f}"
+                  f" GiB: float32 params, {cfg.optimizer} state)")
+        data = SyntheticLM(cfg, DataConfig(global_batch=batch, seq_len=seq))
+
+        def batch_at(step):
+            return {k: torch.as_tensor(v, device=dev)
+                    for k, v in data.host_slice(step).items()}
+
+        step_fn = make_train_step(model)
+        fops.flash_attention, sops.ssd_intra_chunk = checked_flash, \
+            checked_intra
+        try:
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch_at(0))
+            warm_loss = float(metrics["loss"])
+            warm_s = time.perf_counter() - t0
+        finally:
+            fops.flash_attention, sops.ssd_intra_chunk = kernel_flash, \
+                kernel_intra
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times, skipped = [], [], []
+        backend.reset_counters()                   # main path starts here
+        for step in range(1, 1 + TRAIN_STEPS):
+            b = batch_at(step)
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, b)
+            losses.append(float(metrics["loss"]))
+            times.append(time.perf_counter() - t0)
+            skipped.append(int(metrics["skipped"]))
+        launches = dict(backend.COUNTERS["launches"])  # ... ends here
+        variants = dict(backend.COUNTERS["variants"])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n = cfg.n_layers * TRAIN_STEPS
+        want_launches = {kname: 2 * n}
+        want_variants = {f"{kname}:wgmma": 2 * n,
+                         f"{kname}:backward_plain": n}
+        if launches != want_launches or variants != want_variants:
+            fail(f"({label}) {arch}: {TRAIN_STEPS} steps launched "
+                 f"{launches}, variants {variants}; expected "
+                 f"{want_launches}, {want_variants}")
+        if not all(np.isfinite([warm_loss] + losses)) or any(skipped) \
+                or not np.isfinite(float(metrics["grad_norm"])):
+            fail(f"({label}) {arch}: losses {[warm_loss] + losses}, "
+                 f"skipped {skipped}, grad norm "
+                 f"{float(metrics['grad_norm'])}")
+        step_s = float(np.median(times))
+        flops = train_model_flops(cfg, n_params, batch, seq)
+        say("13", f"({label}) {arch}: batch {batch} x {seq}, "
+                  f"{cfg.optimizer}; warm-up step {warm_s:.2f} s (loss "
+                  f"{warm_loss:.4f}; every kernel launch == plain: "
+                  + (flash_errs_text(errs) if kname == fops.NAME else
+                     f"max abs err {errs['ssd']:.3g}") + f"); {TRAIN_STEPS} "
+                  f"timed steps, losses {[round(x, 4) for x in losses]}; "
+                  f"per step {launches[kname] // TRAIN_STEPS} {kname} "
+                  f"launches (forward + rematerialization, all wgmma) and "
+                  f"{variants[f'{kname}:backward_plain'] // TRAIN_STEPS} "
+                  f"backward_plain backward passes (expected)")
+        say("13", f"({label}) {arch}: step {step_s * 1e3:.1f} ms (median of "
+                  f"{TRAIN_STEPS}, host clock to float(loss); "
+                  f"{', '.join(f'{t * 1e3:.1f}' for t in times)}), "
+                  f"{batch * seq / step_s:.6g} tokens/s, model "
+                  f"{flops / step_s / 1e12:.1f} TFLOP/s = "
+                  f"{flops / step_s / BF16_FLOPS_PER_S:.1%} of the "
+                  f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s dense bf16 peak "
+                  f"({flops / 1e12:.2f} TFLOP a step: 6 N T + 3 x "
+                  f"attention/SSD forward), peak memory {peak:.2f} GiB; "
+                  f"card: {card}")
+
+        def one_step():
+            nonlocal state
+            state, m = step_fn(state, batch_at(1 + TRAIN_STEPS))
+            float(m["loss"])
+
+        prof = device_breakdown(one_step, f"({label}) {arch} train step",
+                                top=8, phase="13", ops=12)
+        out[kname]["launches"] += launches[kname]
+        out[kname]["runs"][arch] = {
+            "batch": batch, "seq": seq, "step_ms": step_s * 1e3,
+            "tokens_per_s": batch * seq / step_s,
+            "model_tflops_per_s": flops / step_s / 1e12,
+            "mfu": flops / step_s / BF16_FLOPS_PER_S, "peak_gib": peak,
+            "launches_per_step": launches[kname] // TRAIN_STEPS,
+            "backward_plain_per_step":
+                variants[f"{kname}:backward_plain"] // TRAIN_STEPS,
+            "idle": None if prof is None
+            else 1 - sum(prof[1].values()) / 1e6 / prof[0]}
+        del state, step_fn, metrics
+        torch.cuda.empty_cache()
+        times_of = flash_times if kname == fops.NAME else ssd_times
+        out[kname]["shape"] = times_of(
+            fops if kname == fops.NAME else sops, first[short[kname]],
+            f"({label}) {arch} training: ", "13", card, backward=True)
+    for kname, key in short.items():
+        out[kname]["max_abs_err"] = errs[key]
+
+    # --- (c): kernels against their plain versions, float32 compute -------
+    for arch, layers, batch, seq in TRAIN_PLAIN_RUNS:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dc.replace(cfg, n_layers=layers)
+        model = get_model(cfg)
+        gen = torch.Generator(device=dev).manual_seed(LLM_SEED)
+        params = init_params(model.spec(), gen, dev)
+        b = {k: torch.as_tensor(v, device=dev) for k, v in SyntheticLM(
+            cfg, DataConfig(global_batch=batch, seq_len=seq))
+            .host_slice(0).items()}
+        kept = L.COMPUTE_DTYPE
+        L.COMPUTE_DTYPE = torch.float32
+        try:
+            backend.reset_counters()
+            loss_k, _, grads_k = value_and_grad(model, params, b)
+            variants = dict(backend.COUNTERS["variants"])
+            fops.flash_attention, sops.ssd_intra_chunk = fops._plain, \
+                reference_intra_chunk
+            backend.reset_counters()
+            loss_p, _, grads_p = value_and_grad(model, params, b)
+            plain_counts = (dict(backend.COUNTERS["launches"]),
+                            dict(backend.COUNTERS["variants"]))
+        finally:
+            L.COMPUTE_DTYPE = kept
+            fops.flash_attention, sops.ssd_intra_chunk = kernel_flash, \
+                kernel_intra
+        if plain_counts != ({}, {}):
+            fail(f"(c) {arch}: the plain-op step went through a kernel "
+                 f"route: launches, variants {plain_counts}")
+        kname = sops.NAME if cfg.family == "ssm" else fops.NAME
+        forward = sum(v for k, v in variants.items()
+                      if k.startswith(f"{kname}:")
+                      and k != f"{kname}:backward_plain")
+        if not forward or not variants.get(f"{kname}:backward_plain"):
+            fail(f"(c) {arch}: the kernel step's routes {variants} lack "
+                 f"the {kname} kernel or its plain backward")
+        leaves_k, leaves_p = tree_leaves(grads_k), tree_leaves(grads_p)
+        missing = sum(g is None for g in leaves_k)
+        rel_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+        dists = rel_leaf_distances(leaves_k, leaves_p) if not missing \
+            else []
+        named = (("layers", "attn") if cfg.family != "ssm"
+                 else ("layers", "mamba"))
+        proj = grads_k[named[0]][named[1]]
+        keys = ("wq", "wk", "wv", "wo") if cfg.family != "ssm" \
+            else ("in_proj", "out_proj", "conv_w")
+        zero = [k for k in keys if not bool(proj[k].abs().max() > 0)]
+        name = f"{arch}" + (f", {layers} of {get_config(arch).n_layers} "
+                            f"layers" if layers else "")
+        if missing or zero or rel_loss > TRAIN_LOSS_RTOL \
+                or max(dists) > TRAIN_GRAD_RTOL:
+            fail(f"(c) {name}: kernel step against plain step: loss "
+                 f"relative {rel_loss:.3g} (bound {TRAIN_LOSS_RTOL}), "
+                 f"{missing} leaves without a gradient, zero projection "
+                 f"gradients {zero}, worst leaf {max(dists or [0]):.3g} "
+                 f"(bound {TRAIN_GRAD_RTOL})")
+        say("13", f"(c) {name}, batch {batch} x {seq}, float32 compute: "
+                  f"loss {float(loss_k):.6f} against the plain-op step's "
+                  f"{float(loss_p):.6f} (relative {rel_loss:.3g}, bound "
+                  f"{TRAIN_LOSS_RTOL}); all {len(leaves_k)} gradient leaves "
+                  f"present, worst leaf relative RMS {max(dists):.3g} "
+                  f"(bound {TRAIN_GRAD_RTOL}), {', '.join(keys)} nonzero; "
+                  f"kernel routes {variants}")
+        del params, grads_k, grads_p
+        torch.cuda.empty_cache()
+
+    # --- (d): the launcher, resume, the laned step -------------------------
+    def launch(*extra):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            losses = launch_train.main(TRAIN_LAUNCH + list(extra))
+        return losses, buf.getvalue()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        full, log = launch("--steps", "4")
+        again, _ = launch("--steps", "4")
+        head, _ = launch("--steps", "2", "--ckpt-dir", tmp,
+                         "--ckpt-every", "2")
+        rest, log_c = launch("--steps", "4", "--ckpt-dir", tmp,
+                             "--ckpt-every", "2", "--resume")
+    if "[lanes] mean width" not in log or "[lanes] epoch" not in log:
+        fail(f"(d) the launcher ran no lane-controller epoch:\n{log}")
+    if "[train] resumed from step 2" not in log_c:
+        fail(f"(d) the launcher did not resume:\n{log_c}")
+    resumed = head + rest
+    if resumed == full:
+        verdict = "bit for bit"
+    elif again != full and max(abs(a - b) for a, b in zip(resumed, full)) \
+            <= max(abs(a - b) for a, b in zip(again, full)):
+        spread = max(abs(a - b) for a, b in zip(again, full))
+        verdict = (f"not bit for bit, but as close as two uninterrupted "
+                   f"runs are to each other (the card's run-to-run "
+                   f"difference {spread:.3g})")
+    else:
+        fail(f"(d) resumed losses {resumed} against the uninterrupted "
+             f"{full} (a second uninterrupted run: {again})")
+    lanes = [x for x in log.splitlines() if x.startswith("[lanes]")]
+    say("13", f"(d) launch.train.main (mamba2-130m smoke, 4 steps): losses "
+              f"{[round(x, 4) for x in full]}; lane controller: "
+              + "; ".join(lanes) + f"; a checkpoint at step 2 resumed: "
+              f"steps 2-3 {verdict} the uninterrupted run's")
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = [subprocess.Popen([sys.executable, "-c", LANED_CHILD, str(r),
+                               str(port)], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    results = []
+    for p in procs:
+        try:
+            text = p.communicate(timeout=600)[0]
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        line = [x for x in text.splitlines() if x.startswith("RESULT")]
+        if p.returncode != 0 or not line or line[0].split()[1] != "True":
+            fail(f"(d) laned step over a 2-process gloo group: rank exit "
+                 f"{p.returncode}:\n{text[-3000:]}")
+        results.append(line[0])
+    say("13", f"(d) make_laned_train_step over a 2-process gloo group on "
+              f"the card, lane widths 1, 2, 4, two steps each: parameters "
+              f"equal across widths on both ranks ({'; '.join(results)})")
+    phase_s = time.perf_counter() - t_phase
+    say("13", f"training phase: {phase_s:.1f} s")
+    out["seconds"] = phase_s
+    return out
 
 
 def stream_phase(dev, card: str) -> dict:
@@ -4198,13 +4640,15 @@ def main() -> int:
     pareto_only = args == ["--pareto"]
     fleet_only = args == ["--fleet"]
     families_only = args == ["--llm-families"]
+    train_only = args == ["--train"]
     rows_ab = args[:1] == ["--rows-ab"] and (
         len(args) == 1 or (len(args) == 3 and args[1] == "--src"))
     if args and not (grid_only or rows_ab or search_only or serve_only
-                     or pareto_only or fleet_only or families_only):
+                     or pareto_only or fleet_only or families_only
+                     or train_only):
         print("usage: chip_smoke.py [--epoch-grid | --search | --serve | "
-              "--pareto | --fleet | --llm-families | --rows-ab [--src "
-              "DIR]]", file=sys.stderr)
+              "--pareto | --fleet | --llm-families | --train | --rows-ab "
+              "[--src DIR]]", file=sys.stderr)
         return 2
     if rows_ab and len(args) == 3:
         SRC = Path(args[2]).resolve()
@@ -4252,7 +4696,7 @@ def main() -> int:
     say("1", f"device {kind} x{count}; torch {torch.__version__} cuda "
              f"{torch.version.cuda}")
     if grid_only or rows_ab or search_only or serve_only or pareto_only \
-            or fleet_only or families_only:
+            or fleet_only or families_only or train_only:
         if grid_only:
             ops.build()
             result = {"design_grid": epoch_design_grid(dev, card, GRID_FULL,
@@ -4277,6 +4721,11 @@ def main() -> int:
             fops.build()
             result = {"llm_families": llm_families_phase(dev, card, fops,
                                                          sops)}
+        elif train_only:
+            with ThreadPoolExecutor(2) as pool:
+                for f in [pool.submit(m.build) for m in (fops, sops)]:
+                    f.result()
+            result = {"training": train_phase(dev, card, fops, sops)}
         else:
             result = epoch_rows_ab(dev, card)
         print(json.dumps(result), flush=True)
@@ -4884,6 +5333,22 @@ def main() -> int:
     flash_row["max_abs_err"] = max(flash_row["max_abs_err"],
                                    p12["max_abs_err"])
     flash_row["shapes"] = {"pixtral-12b prefill": p12["shape"]}
+
+    # --- 13. training (a main path a run) -----------------------------------
+    p13 = train_phase(dev, card, fops, sops)
+    ssd_row = llm[1]
+    for row in (flash_row, ssd_row):
+        trained = p13[row["name"]]
+        row.setdefault("launches_by_path", {
+            "zamba2+mamba2": row["launches"]})
+        row["launches_by_path"]["training"] = trained["launches"]
+        row["launches"] += trained["launches"]
+        row["max_abs_err"] = max(row["max_abs_err"], trained["max_abs_err"])
+        row["training"] = dict(trained["runs"], backward="plain VJP "
+                               "(backward_plain: the plain version's "
+                               "autograd, recomputed from the saved inputs)")
+        row.setdefault("shapes", {})[
+            f"{next(iter(trained['runs']))} training"] = trained["shape"]
 
     # --- 7. topology and placement DSE (a main path) ------------------------
     p7 = topology_phase(dev, card)

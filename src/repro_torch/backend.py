@@ -94,6 +94,15 @@ def count_launch(name: str, variant: Optional[str] = None) -> None:
         variants[key] = variants.get(key, 0) + 1
 
 
+def count_variant(name: str, variant: str) -> None:
+    """Count a route that launches no kernel of the op, such as the plain
+    backward of an op whose forward is a kernel (`name:variant` in
+    `COUNTERS["variants"]`; `launches` is left alone)."""
+    key = f"{name}:{variant}"
+    variants = COUNTERS["variants"]
+    variants[key] = variants.get(key, 0) + 1
+
+
 def count_loop_run() -> None:
     COUNTERS["loop_runs"] += 1
 

@@ -13,12 +13,12 @@ reference's `init_session_states`, or any `SimState` with leading lane
 axes), `fault_frame_from_numpy` a fault frame or a stacked [K] frame, and
 `key_from_jax` a jax PRNG key as a key of the threefry twin.
 
-For LLM serving, `params_from_numpy` carries a reference parameter tree of
-any family (nested dicts of numpy arrays, with the stacked layer axes)
-across as float32 tensors with the same keys, and `caches_to_numpy` brings
-a model's serving caches back as numpy, KV caches as dicts: the
-encoder-decoder's `(KVCache, (mem_k, mem_v))` keeps its nesting, its
-leaves in the reference's order.
+For the LLMs, `params_from_numpy` carries a reference parameter tree (or
+train state) of any family (nested dicts of numpy arrays, with the stacked
+layer axes) across as float32 tensors (int32 counters) with the same keys,
+and `caches_to_numpy` brings a model's serving caches back as numpy, KV
+caches as dicts: the encoder-decoder's `(KVCache, (mem_k, mem_v))` keeps
+its nesting, its leaves in the reference's order.
 """
 from __future__ import annotations
 
@@ -155,11 +155,14 @@ def params_from_numpy(tree, device=None):
     """A reference parameter tree (for example `jax.tree.map(np.asarray,
     params)`: nested dicts of arrays, the stacked [n_groups, group_len, ...]
     and [tail, ...] leading axes as they are) as float32 tensors on `device`
-    (default: the card), keys kept."""
+    (default: the card), keys kept. A train state ({"params", "opt",
+    "step"}, optimizer statistics included) goes across the same way, its
+    integer leaves (the step counters) as int32."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, dev) for k, v in tree.items()}
-    return _tensor(tree, np.float32, dev)
+    integer = np.issubdtype(np.asarray(tree).dtype, np.integer)
+    return _tensor(tree, np.int32 if integer else np.float32, dev)
 
 
 def caches_to_numpy(caches):

@@ -12,6 +12,13 @@ with d a multiple of 16, "simt" for the rest. Each launch counts under the
 op's name and under `flash_attention:<variant>`
 (`backend.COUNTERS["variants"]`). There is no fallback: what no kernel
 runs raises, and a kernel that fails to build or launch raises.
+
+The op is a `torch.autograd.Function`: the forward is the kernel launch
+(the plain version on CPU tensors); the backward is the vector-Jacobian
+product of the plain version, recomputed from the saved q, k, v, counted
+under `flash_attention:backward_plain` (a route, not a launch). The
+reference differentiates its blockwise jnp attention the same way and has
+no backward kernel.
 """
 from __future__ import annotations
 
@@ -79,17 +86,41 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"dim (repeat the kv heads first)")
 
 
+def _plain(q, k, v, causal: bool) -> torch.Tensor:
+    """The plain version in the model's [B, S, H, d] layout."""
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    return reference_attention(qt, kt, vt, causal=causal).transpose(1, 2)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel forward with the plain version's vector-Jacobian
+    product as its backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        if q.device.type == "cpu":
+            return _plain(q, k, v, causal)
+        return launch(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, grad):
+        backend.count_variant(NAME, "backward_plain")
+        inputs = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = _plain(*inputs, ctx.causal)
+            grads = torch.autograd.grad(out, inputs, grad)
+        return (*grads, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q [B, Sq, H, d], k and v [B, Skv, H, d] (kv heads repeated to H) ->
     [B, Sq, H, d] in q's dtype. Causal masking compares indices (query i
-    sees keys 0..i)."""
+    sees keys 0..i). Differentiable (see the module's docstring)."""
     _check(q, k, v)
-    if q.device.type == "cpu":
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        return reference_attention(qt, kt, vt,
-                                   causal=causal).transpose(1, 2)
-    return launch(q, k, v, causal=causal)
+    return _FlashAttention.apply(q, k, v, causal)
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -12,6 +12,13 @@ counts under the op's name and under `ssd_scan:<variant>`. There is no
 fallback: what no kernel runs raises, and a kernel that fails to build or
 launch raises.
 
+The intra-chunk op is a `torch.autograd.Function`: the forward is the
+kernel launch (the plain version on CPU tensors); the backward is the
+vector-Jacobian product of the plain version, recomputed from the saved
+x, dt, a, B, C and counted under `ssd_scan:backward_plain` (a route, not a
+launch). The reference differentiates its jnp scan the same way and has
+no backward kernel.
+
 `ssd_chunked(...)` is the counterpart of `ssd_chunked_pallas`
 (`repro.kernels.ssd_scan.ops`): the intra-chunk op, then the inter-chunk
 state recurrence and the inter-chunk output in plain PyTorch.
@@ -132,9 +139,31 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     s_chunk [B, NC, H, P, N]), float32; the tensor-core kernel's y_intra is
     a view of a head-major buffer (not contiguous)."""
     _check(x, dt, a, b_in, c_in)
-    if x.device.type == "cpu":
-        return reference_intra_chunk(x, dt, a, b_in, c_in)
-    return launch(x, dt, a, b_in, c_in)
+    return _IntraChunk.apply(x, dt, a, b_in, c_in)
+
+
+class _IntraChunk(torch.autograd.Function):
+    """The kernel forward with the plain version's vector-Jacobian
+    product as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b_in, c_in):
+        ctx.save_for_backward(x, dt, a, b_in, c_in)
+        if x.device.type == "cpu":
+            return reference_intra_chunk(x, dt, a, b_in, c_in)
+        return launch(x, dt, a, b_in, c_in)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_s):
+        backend.count_variant(NAME, "backward_plain")
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            outs = reference_intra_chunk(*inputs)
+            pairs = [(o, g) for o, g in zip(outs, (grad_y, grad_s))
+                     if g is not None]
+            return torch.autograd.grad([o for o, _ in pairs], inputs,
+                                       [g for _, g in pairs],
+                                       allow_unused=True)
 
 
 def launch(x, dt, a, b_in, c_in, *, kernel: Optional[str] = None

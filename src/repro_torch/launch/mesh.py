@@ -46,12 +46,17 @@ def make_host_mesh() -> Mesh:
     return Mesh(("cpu",), ("data", "model"), (1, 1), (0,))
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's TPU meshes (16 x 16 single pod, 2 x 16 x 16 two
-    pods) have no counterpart on the card: this raises rather than fake a
-    mesh. The LLM stack's parallelism is ROADMAP queue 1 item 9.6."""
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh, 16 x 16 ("data", "model"), or
+    2 x 16 x 16 ("pod", "data", "model") with `multi_pod`, as a logical
+    mesh: its devices are placeholders ("logical:<i>"), as the reference's
+    dry run lowers onto 512 placeholder devices. It serves spec derivation
+    (`sharding.rules.Rules`, `launch.specs`, `train_step.state_pspecs`);
+    placing a tensor on it raises (`sharding.rules.place`)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
-    raise NotImplementedError(
-        f"make_production_mesh: the reference's TPU pod mesh {shape} has "
-        f"no counterpart on NVIDIA cards; the LLM stack's parallelism is "
-        f"ROADMAP queue 1 item 9.6 (use make_fleet_mesh for the DSE)")
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = 1
+    for a in shape:
+        n *= a
+    return Mesh(tuple(f"logical:{i}" for i in range(n)), axes, shape,
+                (0,) * n)

@@ -1,5 +1,5 @@
 """Model registry of the port: ModelConfig -> Model instance (the
-reference's serving API: `spec`, `prefill`, `decode_step`)."""
+reference's model API: `spec`, `train_loss`, `prefill`, `decode_step`)."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig

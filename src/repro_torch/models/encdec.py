@@ -7,7 +7,10 @@ without causal masking; the decoder is a causal LM with cross-attention
 over the encoder output. Prefill projects each decoder layer's cross K/V
 from the encoder memory once, uses it for the prompt and keeps it, stacked
 [L, B, S_enc, G, d], for decode. Caches: (KVCache with a [n_dec] length
-vector, (mem_k, mem_v)), the reference's leaves in its order.
+vector, (mem_k, mem_v)), the reference's leaves in its order. Training
+(`train_loss`) runs both stacks without caches, each layer rematerialized
+as the reference's `jax.checkpoint` bodies are, and projects each decoder
+layer's cross K/V inside that layer.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamSpec, stack_specs
-from repro_torch.models.transformer import _layer, _positions, block_apply
+from repro_torch.models.transformer import (_layer, _mean_loss, _positions,
+                                            block_apply, remat)
 
 
 def enc_block_spec(cfg: ModelConfig) -> Dict[str, Any]:
@@ -68,9 +72,14 @@ class EncDecLM:
                          L.cast(params["frame_proj"]["w"]))
         b, s, _ = x.shape
         positions = _positions(b, s, x.device)
+
+        def layer(p_layer, xc):
+            return block_apply(p_layer, xc, cfg, positions=positions,
+                               causal=False)[0]
+
         for i in range(self.n_enc):
-            x, _, _ = block_apply(_layer(params["encoder"], i), x, cfg,
-                                  positions=positions, causal=False)
+            x = remat("nothing_saveable", layer, _layer(params["encoder"], i),
+                      x)
         return L.rmsnorm(params["ln_enc"], x, cfg.norm_eps)
 
     # -- decoder --------------------------------------------------------------
@@ -112,7 +121,44 @@ class EncDecLM:
         return x, L.KVCache(k=caches.k, v=caches.v,
                             length=torch.stack(lengths))
 
+    def _train_decoder(self, params, x, positions, memory):
+        """The decoder without caches, cross K/V projected from `memory` in
+        each (rematerialized) layer."""
+        cfg = self.cfg
+        b, s_enc = memory.shape[0], memory.shape[1]
+        mem_pos = _positions(b, s_enc, x.device)
+
+        def layer(p, xc):
+            h = L.rmsnorm(p["ln1"], xc, cfg.norm_eps)
+            attn, _ = L.attention(p["attn"], h, cfg, positions=positions,
+                                  causal=True)
+            xc = xc + attn
+            h = L.rmsnorm(p["ln_x"], xc, cfg.norm_eps)
+            xattn, _ = L.attention(
+                p["xattn"], h, cfg, positions=positions,
+                memory=self._project_memory(p["xattn"], memory),
+                memory_positions=mem_pos)
+            xc = xc + xattn
+            h = L.rmsnorm(p["ln2"], xc, cfg.norm_eps)
+            return xc + L.mlp(p["mlp"], h, cfg)
+
+        for i in range(self.n_dec):
+            x = remat("nothing_saveable", layer, _layer(params["decoder"], i),
+                      x)
+        return x
+
     # -- api ------------------------------------------------------------------
+    def train_loss(self, params, batch) -> Tuple[torch.Tensor, dict]:
+        cfg = self.cfg
+        memory = self.encode(params, batch["frames"])
+        x = L.embed(params["embed"], batch["tokens"])
+        b, s, _ = x.shape
+        x = self._train_decoder(params, x, _positions(b, s, x.device),
+                                memory)
+        x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+        loss = _mean_loss(params, x, batch, cfg)
+        return loss, {"loss": loss}
+
     def prefill(self, params, batch, max_len: int):
         """Encode + decoder prefill. Returns ((kv_caches, mem_kv), logits)."""
         cfg = self.cfg

@@ -1,28 +1,113 @@
 """Decoder model assemblies of the port (from `repro.models.transformer`):
 dense / MoE / VLM (`DecoderLM`), the pure SSM stack (mamba2) and the hybrid
-(zamba2), with the reference's serving API:
+(zamba2), with the reference's model API:
 
     spec()                                ParamSpec tree
+    train_loss(params, batch)             (loss, stats)
     prefill(params, batch, max_len)       (caches, last_logits)
     decode_step(params, tokens, caches)   (logits, caches)
 
 Parameters are dicts of tensors with the reference's stacked leading axes;
 the reference's scans over layers are Python loops over those axes, and the
-per-layer caches come back stacked as the scans stack them. Training
-(`train_loss`, `chunked_cross_entropy`) waits for a later slice
-(ROADMAP.md).
+per-layer caches come back stacked as the scans stack them.
+
+Training passes no cache, so no in-place cache write sits on its path. Where
+the reference wraps a scanned layer in `jax.checkpoint`, the port wraps the
+layer in `torch.utils.checkpoint` (`remat`) while grad mode is on: only the
+layer's input is kept, and its forward, kernel launches included, runs
+again in the backward pass. `chunked_cross_entropy` recomputes each
+chunk's logits the same way, so no [B, S, V] buffer is held for the
+backward either.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.params import stack_specs
+
+
+# ---------------------------------------------------------------------------
+# Rematerialization and loss
+# ---------------------------------------------------------------------------
+
+# The reference's `jax.checkpoint_policies` by whether a policy saves
+# nothing (True: recompute the layer in the backward pass) or everything
+# (False: keep it all); any other name falls back to nothing_saveable, as
+# the reference's `getattr(..., nothing_saveable)` does for names jax lacks.
+REMAT_POLICIES = {"nothing_saveable": True, "everything_saveable": False}
+
+
+def _requires_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_requires_grad(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_requires_grad(v) for v in tree)
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
+
+
+def remat(policy: str, fn: Callable, *args):
+    """`fn(*args)`, rematerialized under `policy` when it is differentiated
+    (grad mode on and an argument that requires grad); as it is
+    otherwise."""
+    if not (torch.is_grad_enabled() and _requires_grad(args)
+            and REMAT_POLICIES.get(policy, True)):
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _chunk_nll(w, h_c, l_c, m_c, real_vocab: Optional[int]):
+    logits = L.unembed({"w": w}, h_c).float()
+    if real_vocab is not None and real_vocab < logits.shape[-1]:
+        keep = torch.arange(logits.shape[-1], device=logits.device) \
+            < real_vocab
+        logits = torch.where(keep, logits, torch.full_like(logits, -1e30))
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, l_c[..., None].long())[..., 0]
+    return torch.sum((lse - gold) * m_c), torch.sum(m_c)
+
+
+def chunked_cross_entropy(unembed_p, hidden: torch.Tensor,
+                          labels: torch.Tensor,
+                          mask: Optional[torch.Tensor], chunk: int = 512,
+                          real_vocab: Optional[int] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy over the vocab, a chunk of `chunk` positions at a
+    time: each step makes only [B, chunk, V] logits (recomputed in the
+    backward pass). Logits at indices >= real_vocab (TP padding) are set to
+    -1e30 before the partition function. Returns (sum_loss, sum_weight),
+    float32 scalars."""
+    b, s, _ = hidden.shape
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=hidden.device)
+    pad = (-s) % chunk
+    hidden = F.pad(hidden, (0, 0, 0, pad))
+    labels = F.pad(labels, (0, pad))
+    mask = F.pad(mask.float(), (0, pad))
+    sum_loss = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    sum_w = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(0, s + pad, chunk):
+        nll, w = remat("nothing_saveable", _chunk_nll, unembed_p["w"],
+                       hidden[:, c:c + chunk], labels[:, c:c + chunk],
+                       mask[:, c:c + chunk], real_vocab)
+        sum_loss = sum_loss + nll
+        sum_w = sum_w + w
+    return sum_loss, sum_w
+
+
+def _mean_loss(params, x, batch, cfg: ModelConfig) -> torch.Tensor:
+    sum_loss, sum_w = chunked_cross_entropy(
+        params["unembed"], x, batch["labels"], batch.get("loss_mask"),
+        real_vocab=cfg.real_vocab)
+    return sum_loss / torch.clamp(sum_w, min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -98,6 +183,10 @@ def _mamba_layer(p_layer, x, cfg: ModelConfig, cache, decode: bool):
     return x + y, new_cache
 
 
+def _mamba_train_layer(p_layer, x, cfg: ModelConfig):
+    return _mamba_layer(p_layer, x, cfg, None, False)[0]
+
+
 def _mamba_layer_spec(cfg: ModelConfig) -> Dict[str, Any]:
     return {"ln": L.rmsnorm_spec(cfg.d_model), "mamba": SSM.mamba_spec(cfg)}
 
@@ -136,6 +225,23 @@ class DecoderLM:
         new = L.KVCache(k=caches.k, v=caches.v, length=cache.length)
         return x, stats_acc, new
 
+    def _train_stack(self, params, x, positions):
+        """The layers without caches, each rematerialized: (x, MoE stats
+        summed over the layers or None)."""
+        cfg = self.cfg
+
+        def layer(p_layer, xc):
+            xc, _, stats = block_apply(p_layer, xc, cfg, positions=positions)
+            return xc, stats
+
+        stats_acc = _zero_stats(cfg, x.device)
+        for i in range(cfg.n_layers):
+            x, stats = remat(cfg.remat_policy, layer,
+                             _layer(params["layers"], i), x)
+            if stats is not None:
+                stats_acc = {k: stats_acc[k] + stats[k] for k in stats_acc}
+        return x, stats_acc
+
     def _embed_inputs(self, params, batch):
         """Token embeddings, after the image embeddings for a VLM batch that
         carries `image_embeds` [B, n_img, D]; positions run over both."""
@@ -145,6 +251,27 @@ class DecoderLM:
             x = torch.cat([L.cast(batch["image_embeds"]), x], dim=1)
         b, s, _ = x.shape
         return x, _positions(b, s, x.device)
+
+    def train_loss(self, params, batch) -> Tuple[torch.Tensor, dict]:
+        """Mean next-token loss over the labels (a VLM's on its text tail
+        only); MoE configs add 0.01 x the mean aux loss and report the load
+        stats."""
+        cfg = self.cfg
+        x, positions = self._embed_inputs(params, batch)
+        x, stats = self._train_stack(params, x, positions)
+        x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+        labels = batch["labels"]
+        if x.shape[1] != labels.shape[1]:       # vlm: loss on text tail only
+            x = x[:, x.shape[1] - labels.shape[1]:]
+        loss = _mean_loss(params, x, batch, cfg)
+        out_stats = {"loss": loss}
+        if stats is not None:
+            aux = stats["aux_loss"] / cfg.n_layers
+            out_stats.update(
+                aux_loss=aux, drop_frac=stats["drop_frac"] / cfg.n_layers,
+                tokens_per_expert=stats["tokens_per_expert"])
+            loss = loss + 0.01 * aux
+        return loss, out_stats
 
     def prefill(self, params, batch, max_len: int):
         cfg = self.cfg
@@ -193,6 +320,16 @@ class SSMLM:
                                 (caches[0][i], caches[1][i]), decode)
             new.append(c)
         return x, _stack(new)
+
+    def train_loss(self, params, batch) -> Tuple[torch.Tensor, dict]:
+        cfg = self.cfg
+        x = L.embed(params["embed"], batch["tokens"])
+        for i in range(cfg.n_layers):
+            x = remat(cfg.remat_policy, _mamba_train_layer,
+                      _layer(params["layers"], i), x, cfg)
+        x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+        loss = _mean_loss(params, x, batch, cfg)
+        return loss, {"loss": loss}
 
     def prefill(self, params, batch, max_len: int):
         cfg = self.cfg
@@ -278,6 +415,26 @@ class HybridLM:
         new_kv = L.KVCache(k=kv_caches.k, v=kv_caches.v,
                            length=torch.stack(lengths))
         return x, (new_ssm, new_tail), new_kv
+
+    def train_loss(self, params, batch) -> Tuple[torch.Tensor, dict]:
+        """As the reference: each mamba layer rematerialized (always
+        nothing_saveable), the shared block after each group not."""
+        cfg = self.cfg
+        x = L.embed(params["embed"], batch["tokens"])
+        b, s, _ = x.shape
+        positions = _positions(b, s, x.device)
+        for g in range(self.n_groups):
+            for i in range(self.group_len):
+                x = remat("nothing_saveable", _mamba_train_layer,
+                          _layer(params["groups"], g, i), x, cfg)
+            x, _, _ = block_apply(params["shared"], x, cfg,
+                                  positions=positions)
+        for i in range(self.tail):
+            x = remat("nothing_saveable", _mamba_train_layer,
+                      _layer(params["tail"], i), x, cfg)
+        x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+        loss = _mean_loss(params, x, batch, cfg)
+        return loss, {"loss": loss}
 
     def _init_caches(self, b: int, max_len: int, device):
         cfg = self.cfg

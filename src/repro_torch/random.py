@@ -104,7 +104,11 @@ def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
 def uniform(key: torch.Tensor, shape) -> torch.Tensor:
     """`jax.random.uniform(key, shape)` (float32 in [0, 1)): the top 23 bits
     as the mantissa of a float in [1, 2), minus 1."""
-    bits = random_bits(key, shape)
+    return _unit(random_bits(key, shape))
+
+
+def _unit(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 bits -> float32 in [0, 1), as `uniform` makes them."""
     f = ((bits >> (32 - _F32_MANTISSA)) | _ONE_F32_BITS).to(torch.int32)
     return f.view(torch.float32) - 1.0
 
@@ -158,9 +162,12 @@ def uniform_range(key: torch.Tensor, shape, minval: float,
     """`jax.random.uniform(key, shape, float32, minval, maxval)`:
     `max(minval, u * (maxval - minval) + minval)` in float32, u = `uniform`
     (the range folded to one float32 constant, as XLA folds it)."""
+    return _to_range(uniform(key, shape), minval, maxval)
+
+
+def _to_range(u: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
     lo = torch.tensor(minval, dtype=torch.float32)
     span = float(torch.tensor(maxval, dtype=torch.float32) - lo)
-    u = uniform(key, shape)
     return torch.maximum(lo.to(u.device), u * span + float(lo))
 
 
@@ -417,6 +424,18 @@ def xla_powf(x: float, y: float) -> float:
 def normal(key: torch.Tensor, shape) -> torch.Tensor:
     """`jax.random.normal(key, shape)` (float32), bit for bit."""
     return normal_erf_inv(key, shape) * SQRT2_F32
+
+
+def normal_range(key: torch.Tensor, start: int, stop: int) -> torch.Tensor:
+    """Elements [start, stop) of the flattened `normal(key, shape)`, float32
+    [stop - start], for any `shape` of at least `stop` elements: each
+    element hashes its own flat index, so a large draw made in slices of
+    the counter holds the bits of the whole draw (with a few int64
+    temporaries of the slice's size only). `key` is one key [2]."""
+    idx = torch.arange(int(start), int(stop), dtype=torch.int64,
+                       device=key.device)
+    b1, b2 = _threefry2x32(key[0], key[1], idx >> 32, idx & _MASK)
+    return erf_inv(_to_range(_unit(b1 ^ b2), _NORMAL_LO, 1.0)) * SQRT2_F32
 
 
 def permutation(key: torch.Tensor, n: int) -> torch.Tensor:

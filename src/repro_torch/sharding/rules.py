@@ -11,12 +11,20 @@ themselves (`core.distributed.GridSharding`).
 
 The DSE axes "sweep" and "islands" both resolve to the fleet mesh's "grid"
 axis; on meshes without one they resolve to replicated. The LLM rows and
-overlays are kept as data for the LLM stack's port.
+overlays resolve the training state's and the batches' specs
+(`models.params.partition_specs`, `train.train_step.state_pspecs`,
+`launch.specs`); `to_shardings` turns a tree of specs into placements and
+`place` puts a whole tensor on a device of the mesh that this process
+owns (it raises for a mesh with none, such as the reference's production
+meshes, which serve spec derivation only).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Sequence, Union
+
+import torch
+import torch.distributed as dist
 
 Axis = Union[str, None]
 
@@ -155,3 +163,43 @@ def shard(x, *logical_axes: Axis):
     """A logical sharding annotation: the identity, as on the reference's
     one-device mesh (the port's sharded paths place lanes themselves)."""
     return x
+
+
+def to_shardings(pspec_tree, mesh):
+    """A tree of partition specs (tuples; nested dicts) as `Sharding`s on
+    `mesh`, the counterpart of the reference's `dryrun.to_shardings`."""
+    if isinstance(pspec_tree, dict):
+        return {k: to_shardings(v, mesh) for k, v in pspec_tree.items()}
+    return Sharding(mesh, tuple(pspec_tree))
+
+
+def _local_device(d) -> Optional[torch.device]:
+    """`d` as a torch device this process has, else None."""
+    try:
+        dev = torch.device(d)
+    except (RuntimeError, TypeError):
+        return None
+    if dev.type == "cpu":
+        return dev
+    if dev.type == "cuda" and torch.cuda.is_available() \
+            and (dev.index or 0) < torch.cuda.device_count():
+        return dev
+    return None
+
+
+def place(x: torch.Tensor, sharding: Sharding) -> torch.Tensor:
+    """`x`, whole, on the first device of `sharding.mesh` that this process
+    owns (the port keeps no sharded tensors); raises, naming the mesh, when
+    the mesh holds no device of this process."""
+    mesh = sharding.mesh
+    rank = dist.get_rank() if dist.is_available() and dist.is_initialized() \
+        else 0
+    for d in mesh.local_devices(rank):
+        dev = _local_device(d)
+        if dev is not None:
+            return x.to(dev)
+    axes = dict(zip(mesh.axis_names, mesh.shape))
+    raise ValueError(
+        f"cannot place a tensor on the mesh {axes}: none of its {mesh.size} "
+        f"devices is a device of process {rank} (a logical mesh serves spec "
+        f"derivation only)")

@@ -55,7 +55,11 @@ walkthroughs take the CPU's heal decisions. Fleet and caching on the card:
 `sweep_workload`, `shard_sweep`, `search_placement_islands` and
 `search_codesign` over emulated devices of the card (`["cuda:0"] * n`)
 bitwise the one-device calls, `laned_all_reduce` over a 1-rank NCCL group,
-and a memoized entry point the plain call. This file imports no JAX.
+and a memoized entry point the plain call. Training on the card: the flash
+and SSD ops under autograd (one kernel launch forward, the plain VJP
+backward, gradients at the plain autograd's) and a smoke model's
+gradients in float32 compute against the CPU's, with the kernels launched
+twice a layer (forward and rematerialization). This file imports no JAX.
 """
 import numpy as np
 import pytest
@@ -1190,3 +1194,126 @@ def test_memoized_entry_on_the_card_is_the_plain_call(cuda_device):
     exe = rcache.aot_compile("simulate", tr, sim, device=cuda_device)
     _bitwise(exe(tr, sim, device=cuda_device),
              tsim.simulate(tr, sim, device=cuda_device))
+
+
+# ---------------------------------------------------------------------------
+# Training: the kernel ops under autograd, a train step on the card
+# ---------------------------------------------------------------------------
+
+def _autograd(fn, inputs, cotangents):
+    leaves = [x.detach().clone().requires_grad_() for x in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    torch.autograd.backward(outs, cotangents)
+    return outs, [x.grad for x in leaves]
+
+
+@pytest.mark.parametrize("case", ["bf16-causal-d80-S1024-BH16",
+                                  "f32-causal-d112-S127-BH6",
+                                  "bf16-full-d64-S127-BH64"])
+def test_flash_op_under_autograd_on_the_card(case, cuda_device):
+    """Forward: one kernel launch (the variant `ops.variant` picks), held
+    to the plain version at the case's bound; backward: the plain VJP
+    (`flash_attention:backward_plain`), q, k, v gradients equal to plain
+    autograd on the card at the same bound."""
+    from repro_torch import backend
+
+    c = flash_cases.kernel_cases(cuda_device, names=[case])[0]
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    cot = torch.randn(c.args[0].shape, generator=gen,
+                      device=cuda_device).to(c.args[0].dtype)
+    backend.reset_counters()
+    got, got_g = _autograd(lambda q, k, v: flash_ops.flash_attention(
+        q, k, v, causal=c.causal), c.args, [cot])
+    torch.cuda.synchronize()
+    kernel = flash_ops.variant(c.args[0].dtype, c.args[0].shape[3])
+    assert backend.COUNTERS["launches"] == {"flash_attention": 1}
+    assert backend.COUNTERS["variants"] == {
+        f"flash_attention:{kernel}": 1, "flash_attention:backward_plain": 1}
+    want, want_g = _autograd(lambda q, k, v: flash_ops._plain(q, k, v,
+                                                              c.causal),
+                             c.args, [cot])
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=c.tol,
+                               atol=c.tol)
+    for a, b in zip(got_g, want_g):
+        assert a.dtype == c.args[0].dtype
+        torch.testing.assert_close(a.float(), b.float(), rtol=c.tol,
+                                   atol=c.tol)
+
+
+@pytest.mark.parametrize("case", ["mamba2-N128-bf16", "N16-G1-f32"])
+def test_ssd_op_under_autograd_on_the_card(case, cuda_device):
+    """The intra-chunk op: one kernel launch forward, the plain VJP
+    backward (`ssd_scan:backward_plain`); outputs at the case's bound of
+    the plain version, the five inputs' gradients at 1e-4 relative RMS of
+    plain autograd on the card."""
+    from repro_torch import backend
+
+    c = ssd_cases.kernel_cases(cuda_device, names=[case])[0]
+    inputs = ssd_cases.chunked_inputs(c)
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    cots = [torch.randn(o.shape, generator=gen, device=cuda_device)
+            for o in reference_intra_chunk(*inputs)]
+    backend.reset_counters()
+    got, got_g = _autograd(ssd_ops.ssd_intra_chunk, inputs, cots)
+    torch.cuda.synchronize()
+    x, _, _, bb, _ = inputs
+    kernel = ssd_ops.variant(x.dtype, c.chunk, x.shape[4], bb.shape[4])
+    assert backend.COUNTERS["launches"] == {"ssd_scan": 1}
+    assert backend.COUNTERS["variants"] == {
+        f"ssd_scan:{kernel}": 1, "ssd_scan:backward_plain": 1}
+    want, want_g = _autograd(reference_intra_chunk, inputs, cots)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=c.tol, atol=c.tol)
+    for t, a, b in zip(inputs, got_g, want_g):
+        assert a.dtype == t.dtype
+        rel = float((a.double() - b.double()).norm() / b.double().norm())
+        assert rel <= 1e-4, rel
+
+
+@pytest.mark.parametrize("arch", ["stablelm-3b", "mamba2-130m"])
+def test_train_gradients_on_the_card_match_the_cpu(arch, cuda_device,
+                                                   monkeypatch):
+    """`train_step.value_and_grad` of a smoke model (flash_block 16, so
+    stablelm-smoke takes the flash kernel) in float32 compute on the card
+    against the CPU, the same weights: loss at 1e-5 relative, every
+    gradient leaf present and at 1e-4 relative RMS; the kernels launch
+    twice a layer (forward and rematerialization), the backward is the
+    plain VJP once a layer."""
+    import dataclasses
+
+    from repro_torch import backend
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as TL
+    from repro_torch.models.params import init_params, tree_leaves
+    from repro_torch.train.train_step import value_and_grad
+
+    monkeypatch.setattr(TL, "COMPUTE_DTYPE", torch.float32)
+    cfg = dataclasses.replace(get_smoke_config(arch), flash_block_q=16,
+                              flash_block_kv=16)
+    model = get_model(cfg)
+    cpu_params = init_params(model.spec(), torch.Generator().manual_seed(0),
+                             "cpu")
+    rng = np.random.RandomState(2)
+    batch_np = {k: rng.randint(0, cfg.real_vocab, (2, 64))
+                for k in ("tokens", "labels")}
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        batch = {k: torch.tensor(v, device=dev) for k, v in batch_np.items()}
+        backend.reset_counters()
+        loss, _, grads = value_and_grad(model, _to(cpu_params, dev), batch)
+        runs[str(dev)] = (float(loss), tree_leaves(grads),
+                          dict(backend.COUNTERS["launches"]),
+                          dict(backend.COUNTERS["variants"]))
+    (cl, cg, _, _), (gl, gg, launches, variants) = runs["cpu"], \
+        runs[str(cuda_device)]
+    assert abs(gl - cl) <= 1e-5 * abs(cl)
+    for a, b in zip(gg, cg):
+        assert a is not None
+        rel = float((a.cpu().double() - b.double()).norm()
+                    / b.double().norm().clamp(min=1e-30))
+        assert rel <= 1e-4, rel
+    name = "flash_attention" if arch == "stablelm-3b" else "ssd_scan"
+    assert launches == {name: 2 * cfg.n_layers}
+    assert variants[f"{name}:backward_plain"] == cfg.n_layers

@@ -211,8 +211,20 @@ def test_meshes():
         x = torch.ones(2)
         assert trules.shard(x, "sweep") is x
     assert trules.active_rules() is None
-    with pytest.raises(NotImplementedError, match="9.6"):
-        tmesh.make_production_mesh()
+    # The production meshes are logical: the reference's axes and shape
+    # (`repro.launch.mesh.make_production_mesh`, which needs 256 / 512
+    # devices to build) for spec derivation, with no device to place a
+    # tensor on.
+    for multi_pod, axes, shape in (
+            (False, ("data", "model"), (16, 16)),
+            (True, ("pod", "data", "model"), (2, 16, 16))):
+        pm = tmesh.make_production_mesh(multi_pod=multi_pod)
+        assert (pm.axis_names, pm.shape) == (axes, shape)
+        assert pm.size == int(np.prod(shape))
+        with pytest.raises(ValueError, match="logical mesh"):
+            trules.place(x, trules.Rules(pm).sharding("batch"))
+    assert trules.place(x, trules.Rules(h).sharding("batch")).device.type \
+        == "cpu"
 
 
 # ---------------------------------------------------------------------------

@@ -58,6 +58,15 @@ PORT = SimpleNamespace(
     kw={"device": "cpu"})
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _cold_reference_engine():
+    """Leave the reference's jit caches as this module found them: a test
+    file that runs after this one in the same worker may count the engine's
+    fresh traces."""
+    yield
+    jsim.clear_engine_caches()
+
+
 @functools.lru_cache(maxsize=None)
 def _trace(seed: int = 0, t: int = T_TOTAL):
     tr = jtr.generate_trace("dedup", t, jax.random.PRNGKey(seed))

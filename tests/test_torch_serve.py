@@ -72,6 +72,15 @@ PORT = SimpleNamespace(
     replay=lambda sim, s: tengine.replay_standalone(sim, s, device="cpu"))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _cold_reference_engine():
+    """Leave the reference's jit caches as this module found them: a test
+    file that runs after this one in the same worker may count the engine's
+    fresh traces."""
+    yield
+    jsim.clear_engine_caches()
+
+
 @functools.lru_cache(maxsize=None)
 def _trace(seed: int, t: int, scale: float = 1.0, dest: bool = False):
     """dedup from the reference's generator, as numpy (a ring destination
