@@ -236,7 +236,20 @@ exits non-zero):
      size with the lane controller live, a checkpoint at step 2 resumed
      against the uninterrupted run, and the laned step over a 2-process
      gloo group on the card at lane widths 1, 2 and 4;
-  14. a `kernels` JSON line (launches on the main paths, error against
+  14. the dry run, its op analysis and the H100 roofline
+     (`analysis_phase`): (a) every (arch, shape) pair of the ten LLM
+     configs on both production meshes, one trace a pair on `meta`
+     tensors under this machine's torch (`launch.dryrun.run_pairs` in
+     DRYRUN_JOBS worker processes), a line per record, failing on any
+     `error`, and the H100 roofline of the 16 x 16 records (data-sheet
+     peaks, `core.constants.H100`) written to build/analysis/ and printed;
+     (b) phase 13's two training steps at phase 13's shapes on one device,
+     analysed on `meta` and on the card's tensors under the same counter
+     (FLOPs equal, bytes within ANALYSIS_BYTES_RTOL, the kernel calls
+     credited equal to the launch counters), their one-device bound beside
+     phase 13's measured step; (c) EXAMPLES, the two examples, as child
+     processes on the card (exit 0, every section header printed);
+  15. a `kernels` JSON line (launches on the main paths, error against
      plain, times, the bound and the kernel variant that ran) for all four
      kernels; the simulator kernels' entries add the first design's time
      in the same run (`warp_ms`), the times per launch shape (`shapes`,
@@ -256,7 +269,9 @@ step and after its last; phase 9 before its walkthroughs and after
 (c) drains; phase 10 before its walkthrough search and after (b)'s
 re-scoring; phase 11, the last, just before and just after (a)'s sharded
 sweep (the launcher's child
-processes count their own launches, printed from their JSON).
+processes count their own launches, printed from their JSON). Phase 14
+drives no main path: its launches analyse a step, and the kernels line
+takes phase 13's.
 `python3 chip_smoke.py --epoch-grid` builds epoch_step alone and times
 the whole design grid (GRID_FULL: 4-16 chiplets at 1-512 lanes, 17-128 at
 8-32 768, with and without destination matrices), the evidence for
@@ -273,7 +288,9 @@ where a tree without topology rows times the constants alone.
 10, `python3 chip_smoke.py --fleet` builds epoch_step alone and runs phase
 11, `python3 chip_smoke.py --llm-families` builds flash_attention alone and
 runs phase 12, `python3 chip_smoke.py --train` builds flash_attention and
-ssd_scan and runs phase 13.
+ssd_scan and runs phase 13, `python3 chip_smoke.py --dryrun` builds
+flash_attention, ssd_scan and epoch_step and runs phase 14 (without phase
+13's measured steps).
 
 The last line is {"ok": true, "device": {...}}. Without a card, or without
 the rest of the repository beside this file, it exits non-zero and prints
@@ -303,10 +320,10 @@ SRC = ROOT / "src"
 
 T_INTERVALS = 100
 RTOL = ATOL = 1e-6
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and dense
-# float32 rate outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
+# The card's data-sheet peaks (`repro_torch.core.constants.H100`: HBM3
+# bandwidth, float32 on the CUDA cores, dense bf16 on the tensor cores),
+# bound by `main` once the port's sources are on the path.
+H100 = None
 # Float operations of the epoch_step kernel, counted from its source per
 # lane-interval (memory-gateway latency, reductions, power), per chiplet
 # (loads, M/D/1 terms, controller), per chiplet pair when destination
@@ -367,12 +384,11 @@ NOC_AB = {
 DSE_RADIX, DSE_G, DSE_W = (4, 8), (1, 2, 3, 4), (2, 16)
 DSE_LOADS = np.linspace(0.02, 0.64, 32)
 DSE_PAD = 8 * 8 + 4                           # mesh radix 8 plus 4 sinks
-# Dense bf16 tensor-core peak. Flash's and SSD's bf16 main-path launches run
-# their products on the tensor cores (SSD's float32 factors split into bf16
-# terms), so their bound is at this rate; SSD's bound at the float32 peak
-# (what its SIMT kernel's arithmetic is held to) is printed beside it, so
-# the row reads the same work whatever implements it.
-BF16_FLOPS_PER_S = 989e12
+# Flash's and SSD's bf16 main-path launches run their products on the
+# tensor cores (SSD's float32 factors split into bf16 terms), so their
+# bound is at H100.peak_bf16_flops; SSD's bound at the float32 peak (what
+# its SIMT kernel's arithmetic is held to) is printed beside it, so the row
+# reads the same work whatever implements it.
 # LLM serving (phase 6): (arch, batch, prompt tokens, decode steps).
 LLM_RUNS = (("zamba2-7b", 4, 2048, 16), ("mamba2-130m", 8, 2048, 16))
 LLM_SEED = 2026
@@ -1356,29 +1372,18 @@ def noc_cycle_probe(nops, prep: dict, runs: list, ab_libs: dict,
               f"thread; card: {card}")
 
 
-def flash_work(b, s, h, d, in_bytes, causal=True) -> tuple:
-    """(bytes read once + written once, flops) of one attention call:
-    q, k, v read and o written in the inputs' type; two products of
-    2 d flops per (query, key) pair the mask keeps."""
-    pairs = s * (s + 1) // 2 if causal else s * s
-    return 4 * b * s * h * d * in_bytes, 4 * d * pairs * b * h
+def flash_work(*args, **kwargs) -> tuple:
+    """`kernels.flash_attention.ops.work`: (bytes, flops) of one attention
+    call, the formula the analysis credits (`launch.op_analysis`)."""
+    from repro_torch.kernels.flash_attention.ops import work
+    return work(*args, **kwargs)
 
 
-def ssd_work(b, nc, q, h, p, g, n, in_bytes) -> tuple:
-    """(bytes read once + written once, float ops) of one intra-chunk
-    call. Read: x, B, C (grouped, in their type), dt and a (float32);
-    written: y_intra and the chunk states (float32). Ops per (batch,
-    chunk, head): for each of the Q(Q+1)/2 kept pairs 2P for y plus 5 for
-    the weight (difference, clamp, exp, two products); 2QPN for the state
-    plus QP for x * decay and 4Q for the cumsum and the decay to the end;
-    per (batch, chunk, group) 2N per pair for the C B^T scores."""
-    pairs = q * (q + 1) // 2
-    nbytes = (b * nc * q * h * p + 2 * b * nc * q * g * n) * in_bytes \
-        + (b * nc * q * h + h) * 4 \
-        + (b * nc * q * h * p + b * nc * h * p * n) * 4
-    ops = b * nc * (h * (pairs * (2 * p + 5) + 2 * q * p * n + q * p + 4 * q)
-                    + g * 2 * n * pairs)
-    return nbytes, ops
+def ssd_work(*args, **kwargs) -> tuple:
+    """`kernels.ssd_scan.ops.work`: (bytes, float ops) of one intra-chunk
+    call, the formula the analysis credits."""
+    from repro_torch.kernels.ssd_scan.ops import work
+    return work(*args, **kwargs)
 
 
 def device_breakdown(fn, label: str, top: int = 6, phase: str = "6",
@@ -1541,8 +1546,9 @@ def flash_times(fops, inputs: tuple, label: str, phase: str, card: str,
         lambda: sdpa(qt, kt, vt, is_causal=causal), 7)[2:]))
     b, s_len, h, d = q.shape
     nbytes, flops = flash_work(b, s_len, h, d, q.element_size(), causal)
-    bound_ms, bound_by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                             (flops / BF16_FLOPS_PER_S * 1e3, "operations"))
+    bound_ms, bound_by = max(
+        (nbytes / H100.hbm_bytes_per_s * 1e3, "bytes"),
+        (flops / H100.peak_bf16_flops * 1e3, "operations"))
     t = {"shape": [b, s_len, h, d], "dtype": str(q.dtype).split(".")[1],
          "causal": causal, "variant": fops.variant(q.dtype, d), "ms": ms,
          "simt_ms": simt_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -1584,15 +1590,16 @@ def ssd_times(sops, inputs: tuple, label: str, phase: str, card: str,
     bsz, nc, cq, h, p = x.shape
     g, n = b_in.shape[3], b_in.shape[4]
     nbytes, n_ops = ssd_work(bsz, nc, cq, h, p, g, n, x.element_size())
-    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_b = nbytes / H100.hbm_bytes_per_s * 1e3
     bound_ms, bound_by = max((t_b, "bytes"),
-                             (n_ops / BF16_FLOPS_PER_S * 1e3, "operations"))
+                             (n_ops / H100.peak_bf16_flops * 1e3,
+                              "operations"))
     t = {"shape": [bsz, nc, cq, h, p, g, n],
          "dtype": str(x.dtype).split(".")[1],
          "variant": sops.variant(x.dtype, cq, p, n), "ms": ms,
          "simt_ms": simt_ms, "plain_ms": plain_ms, "library_ms": None,
          "bound_ms": bound_ms, "bound_by": bound_by,
-         "bound_f32_peak_ms": max(t_b, n_ops / F32_FLOPS_PER_S * 1e3)}
+         "bound_f32_peak_ms": max(t_b, n_ops / H100.peak_f32_flops * 1e3)}
     text = ""
     if backward:
         t["backward_plain_ms"] = float(np.median(time_cuda(
@@ -2212,8 +2219,9 @@ def train_phase(dev, card: str, fops, sops) -> dict:
                   f"{', '.join(f'{t * 1e3:.1f}' for t in times)}), "
                   f"{batch * seq / step_s:.6g} tokens/s, model "
                   f"{flops / step_s / 1e12:.1f} TFLOP/s = "
-                  f"{flops / step_s / BF16_FLOPS_PER_S:.1%} of the "
-                  f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s dense bf16 peak "
+                  f"{flops / step_s / H100.peak_bf16_flops:.1%} of the "
+                  f"{H100.peak_bf16_flops / 1e12:.0f} TFLOP/s dense bf16 "
+                  f"peak "
                   f"({flops / 1e12:.2f} TFLOP a step: 6 N T + 3 x "
                   f"attention/SSD forward), peak memory {peak:.2f} GiB; "
                   f"card: {card}")
@@ -2230,7 +2238,7 @@ def train_phase(dev, card: str, fops, sops) -> dict:
             "batch": batch, "seq": seq, "step_ms": step_s * 1e3,
             "tokens_per_s": batch * seq / step_s,
             "model_tflops_per_s": flops / step_s / 1e12,
-            "mfu": flops / step_s / BF16_FLOPS_PER_S, "peak_gib": peak,
+            "mfu": flops / step_s / H100.peak_bf16_flops, "peak_gib": peak,
             "launches_per_step": launches[kname] // TRAIN_STEPS,
             "backward_plain_per_step":
                 variants[f"{kname}:backward_plain"] // TRAIN_STEPS,
@@ -2372,6 +2380,181 @@ def train_phase(dev, card: str, fops, sops) -> dict:
               f"equal across widths on both ranks ({'; '.join(results)})")
     phase_s = time.perf_counter() - t_phase
     say("13", f"training phase: {phase_s:.1f} s")
+    out["seconds"] = phase_s
+    return out
+
+
+# Phase 14, the analysis on the card: (a) the whole dry run in this many
+# worker processes; (b) bytes of the step analysed on the card's tensors
+# within this relative distance of the same step on `meta`.
+DRYRUN_JOBS = 6
+ANALYSIS_BYTES_RTOL = 0.01
+EXAMPLES = ("torch_serve_batch.py", "torch_noc_reconfig_demo.py")
+
+
+def analysis_phase(dev, card: str, p13: Optional[dict] = None) -> dict:
+    """Phase 14: the port's dry run and roofline on this machine's torch.
+    (a) every (arch, shape) pair x both production meshes from one trace a
+    pair on `meta` tensors (`launch.dryrun.run_pairs`, DRYRUN_JOBS worker
+    processes), one line per record; any `error` fails; the H100 roofline
+    of the 16 x 16 records written to build/analysis/ and printed. (b)
+    phase 13's two training steps at phase 13's shapes (TRAIN_RUNS) on a
+    one-device mesh, analysed once on `meta` and once on the card's tensors
+    under the same counter: the FLOPs must be equal, the bytes within
+    ANALYSIS_BYTES_RTOL, and the kernel calls credited on the card equal to
+    the launch counters; the one-device roofline bound printed beside
+    phase 13's measured step (information). (c) the two examples as child
+    processes on the card: each must exit 0 and print every section
+    header."""
+    import importlib.util
+    import os
+
+    from repro_torch import backend
+    from repro_torch.configs import ARCH_NAMES, SHAPES, get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch import op_analysis as OA
+    from repro_torch.models import get_model
+    from repro_torch.models.params import tree_map
+    from repro_torch.train.train_step import (abstract_train_state,
+                                              make_train_step)
+
+    t_phase = time.perf_counter()
+    out = {}
+    # --- (a) the whole dry run ---------------------------------------------
+    t0 = time.perf_counter()
+    pairs = [(a, s.name) for a in ARCH_NAMES for s in SHAPES]
+    data, errors = {}, []
+    for (arch, shape), recs in zip(pairs, dryrun.run_pairs(
+            pairs, jobs=DRYRUN_JOBS)):
+        for rec in recs:
+            data[f"{arch}|{shape}|{rec['mesh']}"] = rec
+            say("14", f"(a) {arch} x {shape} x {rec['mesh']}: "
+                      f"{dryrun.describe(rec)}")
+            if rec["status"] == "error":
+                errors.append(f"{arch} x {shape} x {rec['mesh']}: "
+                              f"{rec['error']}")
+    if errors:
+        fail("phase 14 (a) dry-run records in error:\n" + "\n".join(errors))
+    counts = {k: sum(r["status"] == k for r in data.values())
+              for k in ("ok", "skipped")}
+    dry_s = time.perf_counter() - t0
+    dry_path = dryrun.OUT
+    dry_path.parent.mkdir(parents=True, exist_ok=True)
+    dry_path.write_text(json.dumps(data, indent=1))
+    rows = roofline.main(["--dryrun", str(dry_path)])
+    say("14", f"(a) {len(data)} records ({counts['ok']} ok, "
+              f"{counts['skipped']} skipped, 0 errors) under torch "
+              f"{torch.__version__} in {dry_s:.1f} s; the H100 roofline of "
+              f"the {len(rows)} 16x16 records (data-sheet peaks of an H100 "
+              f"SXM5 80GB at 700 W: {H100.peak_bf16_flops / 1e12:.0f} "
+              f"TFLOP/s bf16, {H100.hbm_bytes_per_s / 1e12:.2f} TB/s HBM, "
+              f"NVLink {H100.nvlink_bytes_per_s / 1e9:.0f} GB/s within "
+              f"{H100.nvlink_domain}, InfiniBand "
+              f"{H100.ib_bytes_per_s / 1e9:.0f} GB/s past it) is in "
+              f"{dry_path.parent / 'roofline.md'}; card: {card}")
+    for r in rows:
+        say("14", f"(a) roofline {r['arch']} {r['shape']}: compute "
+                  f"{r['t_compute_s']:.3e} s, memory {r['t_memory_s']:.3e} "
+                  f"s, collective {r['t_collective_s']:.3e} s, "
+                  f"{r['dominant']}-bound, useful {r['useful_ratio']:.3f}, "
+                  f"RF {r['roofline_fraction']:.4f}, peak "
+                  f"{r['peak_gib']:.2f} GiB/device")
+    out["dryrun"] = {"records": len(data), **counts, "seconds": dry_s,
+                     "roofline": rows}
+
+    # --- (b) the analysis against the card ---------------------------------
+    out["steps"] = {}
+    for label, arch, batch, seq in TRAIN_RUNS:
+        model = get_model(get_config(arch))
+        step = make_train_step(model)
+        host = SyntheticLM(model.cfg, DataConfig(
+            global_batch=batch, seq_len=seq)).host_slice(0)
+        meta_state = abstract_train_state(model)
+        meta_batch = {k: torch.empty(v.shape, dtype=torch.int32,
+                                     device="meta") for k, v in host.items()}
+        t0 = time.perf_counter()
+        on_meta = OA.trace(step, meta_state, meta_batch)
+        meta_s = time.perf_counter() - t0
+        del meta_state
+        state = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                               device=dev),
+                         abstract_train_state(model))
+        card_batch = {k: torch.as_tensor(v, device=dev)
+                      for k, v in host.items()}
+        torch.cuda.synchronize()
+        backend.reset_counters()
+        t0 = time.perf_counter()
+        on_dev = OA.trace(step, state, card_batch)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launched = dict(backend.COUNTERS["launches"])
+        credited = {k: v["calls"] for k, v in on_dev.kernels.items()}
+        del state, card_batch
+        torch.cuda.empty_cache()
+        rel = abs(on_dev.bytes - on_meta.bytes) / on_meta.bytes
+        meta_calls = {k: v["calls"] for k, v in on_meta.kernels.items()}
+        if on_dev.flops != on_meta.flops or rel > ANALYSIS_BYTES_RTOL \
+                or credited != launched or credited != meta_calls:
+            fail(f"phase 14 (b) {arch}: FLOPs on meta {on_meta.flops:.6g}, "
+                 f"on the card {on_dev.flops:.6g}; bytes {on_meta.bytes:.6g}"
+                 f" / {on_dev.bytes:.6g} (relative {rel:.3g}, bound "
+                 f"{ANALYSIS_BYTES_RTOL}); kernel calls credited on the "
+                 f"card {credited}, on meta {meta_calls}, launched "
+                 f"{launched}")
+        t_c = on_meta.flops / H100.peak_bf16_flops
+        t_m = on_meta.bytes / H100.hbm_bytes_per_s
+        bound_ms = max(t_c, t_m) * 1e3
+        kname = "ssd_scan" if model.cfg.family == "ssm" \
+            else "flash_attention"
+        measured = None if p13 is None \
+            else p13[kname]["runs"][arch]["step_ms"]
+        say("14", f"(b) {arch}, batch {batch} x {seq}, one device: FLOPs "
+                  f"{on_meta.flops:.6e} on meta == on the card's tensors; "
+                  f"bytes {on_meta.bytes:.6e} on meta, {on_dev.bytes:.6e} on "
+                  f"the card (relative {rel:.3g}, bound "
+                  f"{ANALYSIS_BYTES_RTOL}); kernel calls credited {credited}"
+                  f" == launched {launched} == meta's; traced in "
+                  f"{meta_s:.2f} s on meta, {card_s:.2f} s on the card; "
+                  f"peak live {on_meta.peak_live_bytes / 2**30:.2f} GiB "
+                  f"(meta) / {on_dev.peak_live_bytes / 2**30:.2f} GiB "
+                  f"(card)")
+        say("14", f"(b) {arch}: roofline bound {bound_ms:.1f} ms a step "
+                  f"(compute {t_c * 1e3:.1f} ms at the bf16 peak, memory "
+                  f"{t_m * 1e3:.1f} ms at the HBM rate; data-sheet peaks) "
+                  + (f"against phase 13's measured {measured:.1f} ms: "
+                     f"{bound_ms / measured:.1%} of the bound reached"
+                     if measured else "(phase 13 did not run: no measured "
+                     "step)") + f"; card: {card}")
+        out["steps"][arch] = {
+            "flops": on_meta.flops, "bytes_meta": on_meta.bytes,
+            "bytes_card": on_dev.bytes, "kernels": credited,
+            "bound_ms": bound_ms, "compute_ms": t_c * 1e3,
+            "memory_ms": t_m * 1e3, "measured_ms": measured}
+
+    # --- (c) the two examples on the card ----------------------------------
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out["examples"] = {}
+    for name in EXAMPLES:
+        path = ROOT / "examples" / name
+        spec = importlib.util.spec_from_file_location(path.stem, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        headers = getattr(mod, "SECTIONS", None) or (mod.HEADER,)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(path)], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=600)
+        sec = time.perf_counter() - t0
+        missing = [h for h in headers if f"== {h} ==" not in proc.stdout]
+        if proc.returncode != 0 or missing:
+            fail(f"phase 14 (c) examples/{name}: exit {proc.returncode}, "
+                 f"missing sections {missing}:\n{proc.stdout[-2000:]}\n"
+                 f"{proc.stderr[-3000:]}")
+        say("14", f"(c) examples/{name} on the card: exit 0 in {sec:.1f} s, "
+                  f"all {len(headers)} section headers printed")
+        out["examples"][name] = sec
+    phase_s = time.perf_counter() - t_phase
+    say("14", f"analysis phase: {phase_s:.1f} s")
     out["seconds"] = phase_s
     return out
 
@@ -2625,8 +2808,8 @@ def stream_phase(dev, card: str) -> dict:
             n_read, t_len, c, csim.cfg.max_gateways_per_chiplet, n_lanes,
             dest=kw["dest"] is not None,
             frames=(1 if shared else n_tr) if kw["faulted"] else 0)
-        bound, by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                        (n_ops / F32_FLOPS_PER_S * 1e3, "operations"))
+        bound, by = max((nbytes / H100.hbm_bytes_per_s * 1e3, "bytes"),
+                        (n_ops / H100.peak_f32_flops * 1e3, "operations"))
         epoch_rows[label] = {"variant": kern, "lanes": n_lanes,
                              "intervals": t_len, "chiplets": c, "ms": ms,
                              "plain_ms": plain, "bound_ms": bound,
@@ -2646,8 +2829,8 @@ def stream_phase(dev, card: str) -> dict:
         plain = time_cuda(lambda: reference_noc_run(*args, **kw), 1)[0]
         nbytes, n_ops = noc_work(prep, kw.get("t_mask") is not None,
                                  nops.MAX_IN_DEGREE)
-        bound, by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                        (n_ops / F32_FLOPS_PER_S * 1e3, "operations"))
+        bound, by = max((nbytes / H100.hbm_bytes_per_s * 1e3, "bytes"),
+                        (n_ops / H100.peak_f32_flops * 1e3, "operations"))
         label = f"R{args[0].shape[-1]}"
         noc_rows[label] = {"variant": "node", "nodes": args[0].shape[-1],
                            "cycles": args[0].shape[0], "ms": ms,
@@ -3035,8 +3218,8 @@ def topology_phase(dev, card: str) -> dict:
         nbytes, n_ops = padded_epoch_work(
             n_tr, t_len, c, csim.cfg.max_gateways_per_chiplet, lane_c,
             lane_g, pair_c)
-        bound, by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                        (n_ops / F32_FLOPS_PER_S * 1e3, "operations"))
+        bound, by = max((nbytes / H100.hbm_bytes_per_s * 1e3, "bytes"),
+                        (n_ops / H100.peak_f32_flops * 1e3, "operations"))
         row = {"variant": kern + "+topo", "lanes": n_lanes,
                "intervals": t_len, "chiplets": c, "dest_matrices": mats,
                "ms": ms, "plain_ms": plain, "bound_ms": bound,
@@ -3343,8 +3526,8 @@ def search_phase(dev, card: str) -> dict:
         nbytes, n_ops = padded_epoch_work(
             n_tr, t_len, c, g_slots, [c] * n_lanes, [g_slots] * n_lanes,
             [c] if dest else None)
-        bound, by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                        (n_ops / F32_FLOPS_PER_S * 1e3, "operations"))
+        bound, by = max((nbytes / H100.hbm_bytes_per_s * 1e3, "bytes"),
+                        (n_ops / H100.peak_f32_flops * 1e3, "operations"))
         rows[f"search-{label}"] = {
             "variant": kern + "+topo", "lanes": n_lanes,
             "intervals": t_len, "chiplets": c,
@@ -3723,8 +3906,8 @@ def serve_phase(dev, card: str) -> dict:
         nbytes, n_ops = epoch_work(n_tr, t_len, c,
                                    csim.cfg.max_gateways_per_chiplet,
                                    n_lanes, kind[2], 1 if kind[3] else 0)
-        bound, by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                        (n_ops / F32_FLOPS_PER_S * 1e3, "operations"))
+        bound, by = max((nbytes / H100.hbm_bytes_per_s * 1e3, "bytes"),
+                        (n_ops / H100.peak_f32_flops * 1e3, "operations"))
         shape_rows[label] = {
             "variant": kern, "lanes": n_lanes, "intervals": t_len,
             "chiplets": c, "dest_matrices": int(kind[2]),
@@ -4288,8 +4471,8 @@ def pareto_phase(dev, card: str) -> dict:
         nbytes, n_ops = padded_epoch_work(
             n_tr, t_len, c, g_slots, lane_c,
             k["topo"]["g_max"].cpu().numpy(), pair_c)
-        bound, by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                        (n_ops / F32_FLOPS_PER_S * 1e3, "operations"))
+        bound, by = max((nbytes / H100.hbm_bytes_per_s * 1e3, "bytes"),
+                        (n_ops / H100.peak_f32_flops * 1e3, "operations"))
         return {"variant": kern + "+topo", "lanes": n_lanes,
                 "intervals": t_len, "chiplets": c,
                 "dest_matrices": int(dest), "ms": ms, "plain_ms": plain,
@@ -4501,8 +4684,8 @@ def fleet_phase(dev, card: str) -> dict:
     lane_g = kw["topo"]["g_max"].cpu().numpy()
     nbytes, n_ops = padded_epoch_work(
         n_tr, t_len, c, csim.cfg.max_gateways_per_chiplet, lane_c, lane_g)
-    bound, by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                    (n_ops / F32_FLOPS_PER_S * 1e3, "operations"))
+    bound, by = max((nbytes / H100.hbm_bytes_per_s * 1e3, "bytes"),
+                    (n_ops / H100.peak_f32_flops * 1e3, "operations"))
     rows = {"fleet-block": {
         "variant": kw["kernel"] + "+topo", "lanes": len(lane_c),
         "traces": n_tr,
@@ -4641,14 +4824,15 @@ def main() -> int:
     fleet_only = args == ["--fleet"]
     families_only = args == ["--llm-families"]
     train_only = args == ["--train"]
+    dryrun_only = args == ["--dryrun"]
     rows_ab = args[:1] == ["--rows-ab"] and (
         len(args) == 1 or (len(args) == 3 and args[1] == "--src"))
     if args and not (grid_only or rows_ab or search_only or serve_only
                      or pareto_only or fleet_only or families_only
-                     or train_only):
+                     or train_only or dryrun_only):
         print("usage: chip_smoke.py [--epoch-grid | --search | --serve | "
-              "--pareto | --fleet | --llm-families | --train | --rows-ab "
-              "[--src DIR]]", file=sys.stderr)
+              "--pareto | --fleet | --llm-families | --train | --dryrun | "
+              "--rows-ab [--src DIR]]", file=sys.stderr)
         return 2
     if rows_ab and len(args) == 3:
         SRC = Path(args[2]).resolve()
@@ -4662,6 +4846,8 @@ def main() -> int:
               f"from the root of a checkout", file=sys.stderr)
         return 3
     sys.path.insert(0, str(SRC))
+    global H100
+    from repro_torch.core.constants import H100
 
     from repro_torch import backend
     from repro_torch import figures
@@ -4681,6 +4867,7 @@ def main() -> int:
     from repro_torch.core.simulator import (Arch, SimConfig, epoch_inputs,
                                             sweep_batch)
 
+    t_run = time.perf_counter()
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -4696,7 +4883,7 @@ def main() -> int:
     say("1", f"device {kind} x{count}; torch {torch.__version__} cuda "
              f"{torch.version.cuda}")
     if grid_only or rows_ab or search_only or serve_only or pareto_only \
-            or fleet_only or families_only or train_only:
+            or fleet_only or families_only or train_only or dryrun_only:
         if grid_only:
             ops.build()
             result = {"design_grid": epoch_design_grid(dev, card, GRID_FULL,
@@ -4726,6 +4913,11 @@ def main() -> int:
                 for f in [pool.submit(m.build) for m in (fops, sops)]:
                     f.result()
             result = {"training": train_phase(dev, card, fops, sops)}
+        elif dryrun_only:
+            with ThreadPoolExecutor(3) as pool:
+                for f in [pool.submit(m.build) for m in (fops, sops, ops)]:
+                    f.result()
+            result = {"analysis": analysis_phase(dev, card)}
         else:
             result = epoch_rows_ab(dev, card)
         print(json.dumps(result), flush=True)
@@ -5176,8 +5368,8 @@ def main() -> int:
         nbytes, n_ops = epoch_work(n_tr, t_len, c,
                                    cfg.max_gateways_per_chiplet, n_lanes,
                                    dest=kw["dest"] is not None)
-        bound, by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                        (n_ops / F32_FLOPS_PER_S * 1e3, "operations"))
+        bound, by = max((nbytes / H100.hbm_bytes_per_s * 1e3, "bytes"),
+                        (n_ops / H100.peak_f32_flops * 1e3, "operations"))
         epoch_shapes[label] = dict(row, lanes=n_lanes, intervals=t_len,
                                    bound_ms=bound, bound_by=by)
         say("4", f"epoch_step {label} launch ({n_lanes} lane(s) x {t_len} "
@@ -5283,8 +5475,8 @@ def main() -> int:
         b_runs, t_cyc, _ = prep["arrivals"].shape
         nbytes, n_ops = noc_work(prep, noc_kw[label].get("t_mask")
                                  is not None, nops.MAX_IN_DEGREE)
-        bound, by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                        (n_ops / F32_FLOPS_PER_S * 1e3, "operations"))
+        bound, by = max((nbytes / H100.hbm_bytes_per_s * 1e3, "bytes"),
+                        (n_ops / H100.peak_f32_flops * 1e3, "operations"))
         noc_shapes[label] = {"runs": b_runs, "cycles": t_cyc,
                              "ms": row["node"][0], "warp_ms": row["warp"][0],
                              "ms_again": row["node"][1],
@@ -5365,7 +5557,12 @@ def main() -> int:
     # --- 11. fleet and caching (a main path) --------------------------------
     p11 = fleet_phase(dev, card)
 
-    # --- 13. kernels line ---------------------------------------------------
+    # --- 14. the dry run, its op analysis and the roofline on the card ------
+    p14 = analysis_phase(dev, card, p13)
+    say("15", f"phases 1-14 in {time.perf_counter() - t_run:.1f} s "
+              f"(phase 14 {p14['seconds']:.1f} s); card: {card}")
+
+    # --- 15. kernels line ---------------------------------------------------
     def ran(name):
         return ",".join(sorted({k.split(":")[1] for k in
                                 list(variants) + list(p5["variants"])

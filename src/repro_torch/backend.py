@@ -20,6 +20,7 @@ loaded with `ctypes`.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -105,6 +106,49 @@ def count_variant(name: str, variant: str) -> None:
 
 def count_loop_run() -> None:
     COUNTERS["loop_runs"] += 1
+
+
+# Work credited by the kernel ops, for an analysis that counts the program
+# (`launch.op_analysis`): each sink is called as sink(name, bytes, flops)
+# once per kernel call, on `meta` tensors (where the op computes nothing)
+# and after each launch on the card. With no sink installed (the normal
+# case) crediting costs one list test. `_KERNEL_DEPTH` > 0 while an op runs
+# its kernel (or the kernel's stand-in on `meta`): the aten operations it
+# issues there (output allocation, argument preparation) belong to the
+# kernel, whose credited work stands for them.
+_WORK_SINKS: List = []
+_KERNEL_DEPTH = [0]
+
+
+def record_work(name: str, nbytes: float, flops: float) -> None:
+    """Credit one call of kernel `name` with its bytes and float ops to
+    every installed sink."""
+    for sink in _WORK_SINKS:
+        sink(name, nbytes, flops)
+
+
+@contextlib.contextmanager
+def work_sink(sink):
+    """Install `sink(name, bytes, flops)` for the duration of the block."""
+    _WORK_SINKS.append(sink)
+    try:
+        yield sink
+    finally:
+        _WORK_SINKS.remove(sink)
+
+
+@contextlib.contextmanager
+def kernel_region():
+    """Mark the block as the inside of one kernel call (see above)."""
+    _KERNEL_DEPTH[0] += 1
+    try:
+        yield
+    finally:
+        _KERNEL_DEPTH[0] -= 1
+
+
+def in_kernel_region() -> bool:
+    return _KERNEL_DEPTH[0] > 0
 
 
 def contiguous_aligned(x: torch.Tensor) -> torch.Tensor:

@@ -2,8 +2,10 @@
 
 Paper-side constants come from ReSiPI Table 1 and §4.1 (power model inherited
 from PROWAVES [16]/Polster [19]). A verbatim copy of the reference's
-dataclasses, without its TPU roofline constants: the port keeps its own copy
-so that it imports nothing of the JAX package.
+dataclasses: the port keeps its own copy so that it imports nothing of the
+JAX package. In place of the reference's TPU v5e roofline constants it
+holds the card's (`H100SXM`), which `launch/roofline.py` and
+`chip_smoke.py`'s bounds read.
 """
 from __future__ import annotations
 
@@ -178,5 +180,25 @@ AWGR_WAVELENGTHS = 18
 PAPER_L_M = 0.0152
 
 
+# ---------------------------------------------------------------------------
+# NVIDIA H100 SXM5 80GB roofline constants (the port's counterpart of the
+# reference's TPUv5e; targets of launch/roofline.py and chip_smoke.py)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class H100SXM:
+    """Data-sheet peaks of one H100 SXM5 80GB at its 700 W limit (NVIDIA
+    H100 Tensor Core GPU data sheet, SXM5 column; DGX H100 data sheet for
+    the node's links). A card held below 700 W runs slower under load."""
+    peak_bf16_flops: float = 989e12        # dense BF16 tensor-core FLOP/s
+    peak_f32_flops: float = 67e12          # FP32 on the CUDA cores
+    hbm_bytes_per_s: float = 3.35e12       # HBM3 bandwidth
+    hbm_bytes: int = 80 * 10 ** 9          # 80 GB of HBM3
+    nvlink_bytes_per_s: float = 450e9      # NVLink 4, one direction
+    nvlink_domain: int = 8                 # GPUs of one NVSwitch node
+    ib_bytes_per_s: float = 50e9           # one 400 Gb/s NIC per GPU
+
+
 PHOTONIC_POWER = PhotonicPower()
 NETWORK = NetworkConfig()
+H100 = H100SXM()

@@ -26,6 +26,7 @@ from typing import Any, Dict, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch import backend
 from repro_torch.core import photonics
 from repro_torch.core.constants import PHOTONIC_POWER
 from repro_torch.core.gateway_controller import (ControllerConfig,
@@ -64,9 +65,13 @@ class LaneState:
     epoch: torch.Tensor         # int32
 
     @staticmethod
-    def init(cfg: LaneConfig, device="cpu") -> "LaneState":
+    def init(cfg: LaneConfig, device=None) -> "LaneState":
+        """The controller's starting state on `device` (None: the card,
+        as every entry point of the port; `backend.resolve_device`)."""
+        dev = backend.resolve_device(device)
+
         def t(v, dtype):
-            return torch.tensor(v, dtype=dtype, device=device)
+            return torch.tensor(v, dtype=dtype, device=dev)
         return LaneState(lanes=t(cfg.max_lanes, _I32),
                          bytes_seen=t(0.0, _F32), steps_seen=t(0, _I32),
                          epoch=t(0, _I32))

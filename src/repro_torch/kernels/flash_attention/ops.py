@@ -19,6 +19,12 @@ product of the plain version, recomputed from the saved q, k, v, counted
 under `flash_attention:backward_plain` (a route, not a launch). The
 reference differentiates its blockwise jnp attention the same way and has
 no backward kernel.
+
+On `meta` tensors (an analysis of the program, `launch.op_analysis`) the
+forward computes nothing: it returns the kernel's output shape and dtype.
+There and after each launch on the card it credits `work(...)`, the bytes
+and float ops of one call, to the active analysis
+(`backend.record_work`); the backward runs as aten operations everywhere.
 """
 from __future__ import annotations
 
@@ -69,6 +75,22 @@ def variant(dtype: torch.dtype, d: int) -> str:
     return "wgmma" if dtype == torch.bfloat16 and d % 16 == 0 else "simt"
 
 
+def work(b: int, s: int, h: int, d: int, in_bytes: int, causal=True,
+         s_kv: Optional[int] = None) -> tuple:
+    """(bytes read once + written once, flops) of one attention call of
+    `s` queries over `s_kv` keys (default `s`): q, k, v read and o written
+    in the inputs' type; two products of 2 d flops per (query, key) pair
+    the mask keeps (query i keeps keys 0..i under causal masking)."""
+    s_kv = s if s_kv is None else s_kv
+    if not causal:
+        pairs = s * s_kv
+    elif s <= s_kv:
+        pairs = s * (s + 1) // 2
+    else:
+        pairs = s_kv * (s_kv + 1) // 2 + (s - s_kv) * s_kv
+    return 2 * b * (s + s_kv) * h * d * in_bytes, 4 * d * pairs * b * h
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     devs = {t.device for t in (q, k, v)}
     if len(devs) != 1:
@@ -102,7 +124,13 @@ class _FlashAttention(torch.autograd.Function):
         ctx.save_for_backward(q, k, v)
         if q.device.type == "cpu":
             return _plain(q, k, v, causal)
-        return launch(q, k, v, causal=causal)
+        with backend.kernel_region():
+            out = torch.empty_like(q) if q.device.type == "meta" \
+                else launch(q, k, v, causal=causal)
+        b, s, h, d = q.shape
+        backend.record_work(NAME, *work(b, s, h, d, q.element_size(),
+                                        causal, k.shape[1]))
+        return out
 
     @staticmethod
     def backward(ctx, grad):

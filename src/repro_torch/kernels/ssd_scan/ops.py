@@ -19,6 +19,12 @@ x, dt, a, B, C and counted under `ssd_scan:backward_plain` (a route, not a
 launch). The reference differentiates its jnp scan the same way and has
 no backward kernel.
 
+On `meta` tensors (an analysis of the program, `launch.op_analysis`) the
+intra-chunk forward computes nothing: it returns the kernel's output shapes
+and dtypes. There and after each launch on the card it credits `work(...)`,
+the bytes and float ops of one call, to the active analysis
+(`backend.record_work`); the backward runs as aten operations everywhere.
+
 `ssd_chunked(...)` is the counterpart of `ssd_chunked_pallas`
 (`repro.kernels.ssd_scan.ops`): the intra-chunk op, then the inter-chunk
 state recurrence and the inter-chunk output in plain PyTorch.
@@ -98,6 +104,24 @@ def variant(dtype: torch.dtype, q: int, p: int, n: int) -> str:
     return "simt"
 
 
+def work(b: int, nc: int, q: int, h: int, p: int, g: int, n: int,
+         in_bytes: int) -> tuple:
+    """(bytes read once + written once, float ops) of one intra-chunk
+    call. Read: x, B, C (grouped, in their type), dt and a (float32);
+    written: y_intra and the chunk states (float32). Ops per (batch,
+    chunk, head): for each of the Q(Q+1)/2 kept pairs 2P for y plus 5 for
+    the weight (difference, clamp, exp, two products); 2QPN for the state
+    plus QP for x * decay and 4Q for the cumsum and the decay to the end;
+    per (batch, chunk, group) 2N per pair for the C B^T scores."""
+    pairs = q * (q + 1) // 2
+    nbytes = (b * nc * q * h * p + 2 * b * nc * q * g * n) * in_bytes \
+        + (b * nc * q * h + h) * 4 \
+        + (b * nc * q * h * p + b * nc * h * p * n) * 4
+    ops = b * nc * (h * (pairs * (2 * p + 5) + 2 * q * p * n + q * p + 4 * q)
+                    + g * 2 * n * pairs)
+    return nbytes, ops
+
+
 def _check(x, dt, a, b_in, c_in) -> None:
     devs = {t.device for t in (x, dt, a, b_in, c_in)}
     if len(devs) != 1:
@@ -151,7 +175,17 @@ class _IntraChunk(torch.autograd.Function):
         ctx.save_for_backward(x, dt, a, b_in, c_in)
         if x.device.type == "cpu":
             return reference_intra_chunk(x, dt, a, b_in, c_in)
-        return launch(x, dt, a, b_in, c_in)
+        bsz, nc, q, h, p = x.shape
+        g, n = b_in.shape[3], b_in.shape[4]
+        with backend.kernel_region():
+            if x.device.type == "meta":
+                out = (x.new_empty((bsz, nc, q, h, p), dtype=torch.float32),
+                       x.new_empty((bsz, nc, h, p, n), dtype=torch.float32))
+            else:
+                out = launch(x, dt, a, b_in, c_in)
+        backend.record_work(NAME, *work(bsz, nc, q, h, p, g, n,
+                                        x.element_size()))
+        return out
 
     @staticmethod
     def backward(ctx, grad_y, grad_s):

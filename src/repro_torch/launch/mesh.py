@@ -46,17 +46,24 @@ def make_host_mesh() -> Mesh:
     return Mesh(("cpu",), ("data", "model"), (1, 1), (0,))
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The reference's production mesh, 16 x 16 ("data", "model"), or
-    2 x 16 x 16 ("pod", "data", "model") with `multi_pod`, as a logical
-    mesh: its devices are placeholders ("logical:<i>"), as the reference's
-    dry run lowers onto 512 placeholder devices. It serves spec derivation
-    (`sharding.rules.Rules`, `launch.specs`, `train_step.state_pspecs`);
-    placing a tensor on it raises (`sharding.rules.place`)."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+def make_logical_mesh(shape: tuple, axis_names: tuple) -> Mesh:
+    """A mesh of placeholder devices ("logical:<i>", row-major over
+    `shape`): it serves spec derivation (`sharding.rules.Rules`,
+    `launch.specs`, `train_step.state_pspecs`) and the dry run's
+    accounting (`launch.op_analysis`); placing a tensor on it raises
+    (`sharding.rules.place`)."""
     n = 1
     for a in shape:
         n *= a
-    return Mesh(tuple(f"logical:{i}" for i in range(n)), axes, shape,
-                (0,) * n)
+    return Mesh(tuple(f"logical:{i}" for i in range(n)), tuple(axis_names),
+                tuple(shape), (0,) * n)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh, 16 x 16 ("data", "model"), or
+    2 x 16 x 16 ("pod", "data", "model") with `multi_pod`, as a logical
+    mesh (`make_logical_mesh`), as the reference's dry run lowers onto 512
+    placeholder devices."""
+    if multi_pod:
+        return make_logical_mesh((2, 16, 16), ("pod", "data", "model"))
+    return make_logical_mesh((16, 16), ("data", "model"))

@@ -72,7 +72,7 @@ def main(argv=None):
 
     # --- ReSiPI Level-2 lane controller -----------------------------------
     lane_cfg = lanes.LaneConfig()
-    lane_state = lanes.LaneState.init(lane_cfg)
+    lane_state = lanes.LaneState.init(lane_cfg, device=dev)
     lane_history = []
 
     heartbeat = Heartbeat()

@@ -1317,3 +1317,36 @@ def test_train_gradients_on_the_card_match_the_cpu(arch, cuda_device,
     name = "flash_attention" if arch == "stablelm-3b" else "ssd_scan"
     assert launches == {name: 2 * cfg.n_layers}
     assert variants[f"{name}:backward_plain"] == cfg.n_layers
+
+
+def test_kernel_ops_credit_their_work_after_each_launch(cuda_device):
+    """On the card each kernel op launches once and credits `ops.work` for
+    it once, as it credits the same call on `meta` tensors (what the op
+    analysis of `launch/op_analysis.py` counts)."""
+    from repro_torch import backend
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(2, 160, 4, 64, generator=gen, device=cuda_device,
+                           dtype=torch.bfloat16) for _ in range(3))
+    x = torch.randn(2, 2, 64, 4, 64, generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16)
+    dt = torch.rand(2, 2, 64, 4, generator=gen, device=cuda_device) * 0.1
+    a = -torch.rand(4, generator=gen, device=cuda_device)
+    bc = torch.randn(2, 2, 64, 1, 32, generator=gen, device=cuda_device,
+                     dtype=torch.bfloat16)
+    for op, args, want in (
+            (flash_ops.flash_attention, (q, k, v),
+             flash_ops.work(2, 160, 4, 64, 2, True, 160)),
+            (ssd_ops.ssd_intra_chunk, (x, dt, a, bc, bc),
+             ssd_ops.work(2, 2, 64, 4, 64, 1, 32, 2))):
+        got = []
+        backend.reset_counters()
+        with backend.work_sink(lambda *c: got.append(c)):
+            op(*args)
+            meta = op(*(t.to("meta") for t in args))
+        torch.cuda.synchronize()
+        name = op.__module__.split(".")[-2]
+        assert backend.COUNTERS["launches"] == {name: 1}
+        assert got == [(name, *want)] * 2
+        assert all(t.device.type == "meta"
+                   for t in (meta if isinstance(meta, tuple) else (meta,)))

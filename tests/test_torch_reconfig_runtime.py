@@ -47,7 +47,7 @@ def test_controller_trajectory_is_the_references(seed):
     rng = np.random.default_rng(seed)
     cfg_kw = [{}, {"l_m": 0.3, "max_lanes": 8, "min_lanes": 2}][seed % 2]
     tc, jc = trr.LaneConfig(**cfg_kw), jrr.LaneConfig(**cfg_kw)
-    ts, js = trr.LaneState.init(tc), jrr.LaneState.init(jc)
+    ts, js = trr.LaneState.init(tc, device="cpu"), jrr.LaneState.init(jc)
     for _ in range(12):
         steps = int(rng.integers(1, 5))
         scale = float(rng.choice([1e6, 1e7, 5e7, 2e8]))

@@ -11,11 +11,16 @@ dispatches, 13 coalesced, 13 degraded ticks, no heal, 93% availability).
 The port draws its sessions' traces with the threefry twin from the same
 keys. Every printed line but the wall-clock percentiles, every counter of
 `metrics()` and every tick event equal the reference's (latencies at
-rtol 1e-6), and every completed session replays exactly.
+rtol 1e-6), and every completed session replays exactly. Last, the
+serving example `examples/torch_serve_batch.py` prints the summary of
+`examples/serve_batch.py` (after the runs above, which compiled the
+reference's engine at its shapes).
 """
 import contextlib
 import functools
+import importlib.util
 import io
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -146,3 +151,26 @@ def test_launcher_runs_on_the_card_unless_asked_for_the_cpu():
         pytest.skip("a card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tlaunch.main(["--ticks", "1"])
+
+
+def _load(path: Path):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _example_lines(main, *args) -> list:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(*args)
+    return [line for line in _lines(buf.getvalue())
+            if line.startswith("[serve]")]
+
+
+def test_serve_batch_example_is_the_references():
+    examples = Path(__file__).resolve().parents[1] / "examples"
+    want = _example_lines(_load(examples / "serve_batch.py").main)
+    got = _example_lines(_load(examples / "torch_serve_batch.py").main,
+                         ["--device", "cpu"])
+    assert got == want and len(got) == 4
