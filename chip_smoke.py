@@ -57,12 +57,12 @@ exits non-zero):
      10, a RESIPI and a RESIPI_ALL lane of Fig. 11 and Fig. 12, device time
      by CUDA-graph replays and the wrapper call; noc_step on the DSE and
      both Fig. 13 calls, in turns), each beside its bound, with the plain
-     versions' time, the epoch entry point's warm host time, its host
-     stages and its profiled device breakdown, and a per-cycle probe of
-     noc_step: nodes a thread, traffic load, and two A/B builds of its
-     source (NOC_AB: the node kernel without, the warp kernel with the
-     zero-numerator guard on its division, built beside the kernels in
-     phase 1 and held bitwise to them);
+     versions' time, the epoch entry point's warm host time, its self
+     time by program span and its profiled device breakdown, and a
+     per-cycle probe of noc_step: nodes a thread, traffic load, and two
+     A/B builds of its source (NOC_AB: the node kernel without, the warp
+     kernel with the zero-numerator guard on its division, built beside
+     the kernels in phase 1 and held bitwise to them);
   5. streaming, session ticks, fault sweeps and the configurations past
      128 chiplets / nodes, a main path of its own (`stream_phase`): the 8
      apps of Fig. 11 concatenated to 800 intervals and streamed per arch
@@ -120,8 +120,8 @@ exits non-zero):
      Each RESIPI / RESIPI_ALL sweep is one epoch_step launch; every launch
      is held against the padded plain loop; then per launch shape its
      device time, the plain loop's, the bound, the warm host ms and the
-     host stages (and at 64 chiplets the unpadded "warp" launch beside the
-     padded "wide" one);
+     self time by program span (and at 64 chiplets the unpadded "warp"
+     launch beside the padded "wide" one);
   8. the device placement search, a main path of its own
      (`search_phase`), every generation one "+topo" launch whose lanes are
      every chain's candidates, and every generation loop run under
@@ -1086,36 +1086,19 @@ def noc_bitwise(node, warp, what: str) -> None:
                  f"(max abs {float((a - b).abs().max()):.3g}; must be 0)")
 
 
-def sweep_host_stages(sim_mod, ops, traces, sim, dev, grid) -> dict:
-    """Information: host-clock milliseconds of the stages of one warm
-    `sweep_batch` call, as `simulator._run` runs them, each stage ended by
-    a synchronize (median of 3): stacking the traces, `epoch_inputs`, the
-    kernel wrapper's launch, `_reassemble`, the summaries."""
-    names = ("stack_traces", "epoch_inputs", "launch", "_reassemble",
-             "summaries")
-    stages = {k: [] for k in names}
-    for _ in range(3):
-        marks = [time.perf_counter()]
+def span_ms(before: dict, after: dict, calls: int) -> dict:
+    """Self milliseconds per call of each program span (`backend.span`)
+    that ran between two `engine_stats()["spans"]` snapshots."""
+    out = {}
+    for name, rec in after.items():
+        old = before.get(name, {"n": 0, "self_s": 0.0})
+        if rec["n"] > old["n"]:
+            out[name] = (rec["self_s"] - old["self_s"]) * 1e3 / calls
+    return out
 
-        def mark():
-            torch.cuda.synchronize()
-            marks.append(time.perf_counter())
 
-        batch = sim_mod.stack_traces(list(traces), pad=True)
-        mark()
-        state0, xs, tables, kw = sim_mod.epoch_inputs(
-            batch, sim, device=dev, faults=False, **grid)
-        mark()
-        out = ops.launch(state0.ctl.g, xs, sim, tables, **kw)
-        mark()
-        _, recs = ops._reassemble(state0, out, xs, sim, kw["faulted"])
-        mark()
-        sim_mod._summary_from_sums(sim_mod._record_sums(
-            recs, xs[4][kw["lane_trace"]]), sim.cfg.n_chiplets)
-        mark()
-        for name, a, b in zip(names, marks, marks[1:]):
-            stages[name].append((b - a) * 1e3)
-    return {k: float(np.median(v)) for k, v in stages.items()}
+def span_text(ms: dict) -> str:
+    return ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
 
 
 def build_noc_ab(backend, nops, name: str):
@@ -2882,54 +2865,6 @@ def padded_epoch_work(n, t, c, g, lane_c, lane_g, pair_c=None) -> tuple:
     return read + written, ops_
 
 
-def topo_host_stages(S, ops, batch, sim, dev, grid, zipped=False) -> dict:
-    """Information: host-clock milliseconds of the stages of one warm
-    padded entry-point call, as `simulator._topo_run` runs them, each ended
-    by a synchronize (median of 3): the stages of `topology_inputs` (its
-    `on_stage` hook: `_prepare_topology_sweep` with the padded tables a
-    cache hit, the trace arrays with `dest` narrowed and renormalized once,
-    the lanes' knobs and topology rows, each (trace, chiplet count) pair's
-    destination matrix with the second renormalization, the initial
-    state), the kernel wrapper's launch, `_reassemble` and the summaries;
-    and `prepare` again with the padded-table caches cleared first
-    (`prepare_tables_uncached`: the table build of a first call)."""
-    from repro_torch.core import selection as tsel
-
-    stages = {}
-
-    def run(tables_cold: bool):
-        if tables_cold:
-            tsel.clear_padded_table_caches()
-        torch.cuda.synchronize()
-        marks = [("", time.perf_counter())]
-
-        def mark(name):
-            torch.cuda.synchronize()
-            marks.append((name, time.perf_counter()))
-
-        sim_p, state0, xs, kw, nreal = S.topology_inputs(
-            batch, sim, device=dev, zipped=zipped, on_stage=mark, **grid)
-        if tables_cold:
-            stages.setdefault("prepare_tables_uncached", []).append(
-                (marks[1][1] - marks[0][1]) * 1e3)
-            return
-        out = ops.launch(state0.ctl.g, xs, sim_p, None, **kw)
-        mark("launch")
-        _, recs = ops._reassemble(state0, out, xs, sim_p, False, kw["topo"])
-        mark("_reassemble")
-        S._summary_from_sums(S._record_sums(recs, xs[4][kw["lane_trace"]]),
-                             nreal)
-        mark("summaries")
-        for (_, a), (name, b) in zip(marks, marks[1:]):
-            stages.setdefault(name, []).append((b - a) * 1e3)
-
-    for _ in range(3):
-        run(False)
-    for _ in range(3):
-        run(True)
-    return {k: float(np.median(v)) for k, v in stages.items()}
-
-
 def topology_phase(dev, card: str) -> dict:
     """Phase 7, the topology and placement DSE, a main path of its own
     (counters zeroed before (a), read after (e)): (a) the reference's
@@ -2950,7 +2885,7 @@ def topology_phase(dev, card: str) -> dict:
     final state; padded chiplet columns exactly 0), and lane (app 0, 256
     chiplets, 4 gateways) of (b) against an unpadded `simulate`. Then per
     new launch shape its device time, the plain loop's, the bound, the warm
-    host ms of the entry point and its host stages."""
+    host ms of the entry point and its self time by program span."""
     from repro_torch import backend
     from repro_torch import random as trandom
     from repro_torch.core import selection as tsel
@@ -3170,21 +3105,19 @@ def topology_phase(dev, card: str) -> dict:
             out.append((time.perf_counter() - t0) * 1e3)
         return float(np.median(out))
 
-    warm = {label: host_ms(fn, 1 if label == "search" else 3)
-            for label, fn in entry.items()}
+    warm, stage_rows, idle = {}, {}, {}
+    for label, fn in entry.items():
+        reps = 1 if label == "search" else 3
+        spans0 = S.engine_stats()["spans"]
+        warm[label] = host_ms(fn, reps)
+        stage_rows[label] = span_ms(spans0, S.engine_stats()["spans"], reps)
     say("7", "warm host ms of each entry point (host clock, median of 3; "
              "the search once): " + ", ".join(f"{k} {v:.2f}"
                                               for k, v in warm.items())
              + f"; card: {card}")
-    stage_rows, idle = {}, {}
-    for label, batch, grid, zipped in (
-            ("dse-resipi", dse, dse_grid, False),
-            ("split-dse", small, split_grid, False)):
-        stage_rows[label] = topo_host_stages(S, ops, batch, resipi, dev,
-                                             grid, zipped)
-        say("7", f"{label} warm host stages (each ended by a synchronize; "
-                 f"median of 3): " + ", ".join(
-                     f"{k} {v:.3f} ms" for k, v in stage_rows[label].items()))
+    for label in ("dse-resipi", "split-dse"):
+        say("7", f"{label} warm, self ms a call by program span (host "
+                 f"clock): " + span_text(stage_rows[label]))
         prof = device_breakdown(entry[label], f"{label} warm", top=4,
                                 phase="7")
         idle[label] = None if prof is None else \
@@ -4164,9 +4097,7 @@ def pareto_phase(dev, card: str) -> dict:
                   "b-rescore": (1, 0)}
 
     calls, per_call, trails, loop_ms = [], {}, {}, []
-    stages = {}
     kernel_epoch_run, real_core = ops.epoch_run, tpar._codesign_core
-    real_launch = ops.launch
     part = ""
 
     def recorded_epoch_run(state, xs, csim, tables, **k):
@@ -4174,28 +4105,13 @@ def pareto_phase(dev, card: str) -> dict:
         calls.append((part, state, xs, csim, tables, k, out))
         return out
 
-    def timed_launch(*a, **k):
-        t0 = time.perf_counter()
-        try:
-            return real_launch(*a, **k)
-        finally:
-            stages["launch"] = stages.get("launch", 0.0) \
-                + time.perf_counter() - t0
-
     def checked_core(*args, **k):
         # The generation loop: no host synchronization may happen inside.
-        marks = [time.perf_counter()]
-
-        def on_stage(name):
-            now = time.perf_counter()
-            stages[name] = stages.get(name, 0.0) + now - marks[0]
-            marks[0] = now
-
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         t0 = time.perf_counter()
         try:
-            out = real_core(*args, on_stage=on_stage, **k)
+            out = real_core(*args, **k)
         finally:
             loop_ms.append((time.perf_counter() - t0) * 1e3)
             torch.cuda.set_sync_debug_mode(0)
@@ -4392,7 +4308,7 @@ def pareto_phase(dev, card: str) -> dict:
               + ", ".join(f"({k}) {n} call(s) max abs err {m:.3g}"
                           for k, (n, m) in checked.items()))
 
-    # Warm host time per search and per generation, by stage.
+    # Warm host time per search and per generation, by program span.
     def host_ms(fn, reps):
         out = []
         for _ in range(reps):
@@ -4404,12 +4320,11 @@ def pareto_phase(dev, card: str) -> dict:
 
     warm, per_gen, by_stage, evals = {}, {}, {}, {}
     tpar._codesign_core = checked_core
-    ops.launch = timed_launch
     try:
         for label in ("a", "b", "a-host"):
             loop_ms.clear()
-            stages.clear()
             reps = 3
+            spans0 = S.engine_stats()["spans"]
             warm[label] = host_ms(entry[label], reps)
             gens = kw[label[0]]["generations"]
             evals[label] = res[label]["candidate_evals"] \
@@ -4417,26 +4332,15 @@ def pareto_phase(dev, card: str) -> dict:
             if label == "a-host":
                 continue
             per_gen[label] = float(np.median(loop_ms)) / gens
-            st = {k: v * 1e3 / reps / gens for k, v in stages.items()}
-            st["archive"] = st.get("archive", 0.0) * gens
-            st["copy out and set-up"] = warm[label] \
-                - float(np.median(loop_ms))
-            by_stage[label] = st
+            by_stage[label] = span_ms(spans0, S.engine_stats()["spans"],
+                                      reps)
     finally:
         tpar._codesign_core = real_core
-        ops.launch = real_launch
     for label in ("a", "b"):
-        st = by_stage[label]
         say("10", f"({label}) warm host ms per search {warm[label]:.2f} "
-                  f"(median of 3), per generation {per_gen[label]:.3f}; by "
-                  f"stage, ms per generation: proposals "
-                  f"{st.get('proposals', 0):.3f}, tables "
-                  f"{st.get('tables', 0):.3f}, score "
-                  f"{st.get('score', 0):.3f} (of it the launch call "
-                  f"{st.get('launch', 0):.3f}), objectives and acceptance "
-                  f"{st.get('acceptance', 0):.3f}; per search: archive "
-                  f"replay {st['archive']:.3f}, copy out and set-up "
-                  f"{st['copy out and set-up']:.3f}; "
+                  f"(median of 3), per generation {per_gen[label]:.3f}; "
+                  f"self ms a search by program span: "
+                  f"{span_text(by_stage[label])}; "
                   f"{evals[label]:.0f} candidate evaluations per second; "
                   f"card: {card}")
     say("10", f"(a) through the host engine: warm {warm['a-host']:.2f} ms "
@@ -5395,6 +5299,7 @@ def main() -> int:
     # The same DSE through the entry point again, now warm (host clock),
     # then once under the profiler: what sets its pace besides the kernel.
     warm = []
+    spans0 = sim_mod.engine_stats()["spans"]
     for _ in range(3):
         t0 = time.perf_counter()
         sweep_batch(dse_traces, sim, device=dev, **grid)
@@ -5402,10 +5307,9 @@ def main() -> int:
         warm.append(time.perf_counter() - t0)
     say("4", f"DSE sweep_batch warm: median {np.median(warm):.4f} s of 3 "
              f"(host clock; kernel share {ms * 1e-3 / np.median(warm):.1%})")
-    stages = sweep_host_stages(sim_mod, ops, dse_traces, sim, dev, grid)
-    say("4", "DSE sweep_batch warm, host stages (each ended by a "
-             "synchronize; median of 3): " + ", ".join(
-                 f"{k} {v:.3f} ms" for k, v in stages.items()))
+    stages = span_ms(spans0, sim_mod.engine_stats()["spans"], 3)
+    say("4", "DSE sweep_batch warm, self ms a call by program span (host "
+             "clock, no synchronize inside): " + span_text(stages))
     prof = device_breakdown(lambda: sweep_batch(dse_traces, sim, device=dev,
                                                 **grid),
                             "DSE sweep_batch warm", top=8, phase="4")

@@ -17,6 +17,11 @@ directory `REPRO_CACHE_DIR` names (keyed by
 a hash of every file the source can include: its own `csrc/` directory and
 each `-I` directory of its flags, such as the shared `kernels/hopper/`) and
 loaded with `ctypes`.
+
+Beside the launch counters, `span(name, layer)` times a host stage of the
+program (always on, a microsecond or two each) and, while the torch
+profiler runs, marks it as a `record_function` range on the profiler's
+clock; `count_host_read` counts each device-to-host read.
 """
 from __future__ import annotations
 
@@ -27,10 +32,13 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
+import time
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -61,9 +69,11 @@ SOURCE_SUFFIXES = (".cu", ".cuh", ".h", ".hpp")
 # launches its kernel, and `variants["name:variant"]` beside it when the op
 # has more than one kernel (for example `flash_attention:wgmma`);
 # `builds[name]` counts nvcc runs (a cached library loads without one);
-# `loop_runs` counts runs of the plain interval loop.
+# `loop_runs` counts runs of the plain interval loop; `spans[name]` holds
+# each host span's layer, count and total and self seconds (`span`);
+# `host_reads[name]` the count and bytes of device-to-host reads.
 COUNTERS: Dict[str, object] = {"launches": {}, "variants": {}, "builds": {},
-                               "loop_runs": 0}
+                               "loop_runs": 0, "spans": {}, "host_reads": {}}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _BUILD_LOGS: Dict[str, str] = {}
@@ -106,6 +116,91 @@ def count_variant(name: str, variant: str) -> None:
 
 def count_loop_run() -> None:
     COUNTERS["loop_runs"] += 1
+
+
+def count_host_read(name: str, nbytes: int) -> None:
+    """Count one device-to-host read of `nbytes` at site `name`; callers
+    count only reads of tensors on the card."""
+    reads = COUNTERS["host_reads"]
+    rec = reads.get(name)
+    if rec is None:
+        rec = reads[name] = {"n": 0, "bytes": 0}
+    rec["n"] += 1
+    rec["bytes"] += int(nbytes)
+
+
+# The layers a span's self time lands in (PERF.md's layers of the port).
+LAYER_ENTRY = "entry points"
+LAYER_TABLES = "models and tables"
+LAYER_KERNELS = "kernels"
+SPAN_LAYERS = (LAYER_ENTRY, LAYER_TABLES, LAYER_KERNELS)
+
+_SPANS: Dict[str, "_Span"] = {}
+
+
+class _OpenSpans(threading.local):
+    """Each thread's open spans: [start ns, children's ns, profiler range]
+    per span, innermost last."""
+
+    def __init__(self):
+        self.stack = []
+
+
+_OPEN = _OpenSpans()
+
+
+class _Span:
+    """The context manager of one span name, shared by every use of the
+    name (an open span's state lives on its thread's stack)."""
+    __slots__ = ("name", "layer")
+
+    def __init__(self, name: str, layer: str):
+        self.name, self.layer = name, layer
+
+    def __enter__(self):
+        rng = None
+        if _autograd_profiler._is_profiler_enabled:
+            rng = _autograd_profiler.record_function(self.name)
+            rng.__enter__()
+        _OPEN.stack.append([time.perf_counter_ns(), 0, rng])
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        t1 = time.perf_counter_ns()
+        stack = _OPEN.stack
+        t0, child, rng = stack.pop()
+        dur = t1 - t0
+        if stack:
+            stack[-1][1] += dur
+        spans = COUNTERS["spans"]
+        rec = spans.get(self.name)
+        if rec is None:
+            rec = spans[self.name] = {"layer": self.layer, "n": 0,
+                                      "total_s": 0.0, "self_s": 0.0}
+        rec["n"] += 1
+        rec["total_s"] += dur * 1e-9
+        rec["self_s"] += (dur - child) * 1e-9
+        if rng is not None:
+            rng.__exit__(None, None, None)
+        return False
+
+
+def span(name: str, layer: str) -> _Span:
+    """A context manager timing one host stage of the program: its
+    duration adds to `COUNTERS["spans"][name]` (`n`, `total_s`, and
+    `self_s`, the duration less that of the spans opened inside it), in
+    `layer`, one of SPAN_LAYERS; the body raising closes it too. While the
+    torch profiler runs, the stage is also a `record_function(name)` range,
+    so the trace names the host time between the device's work by stage.
+    Names carry no per-call id: a name's totals sum over calls."""
+    sp = _SPANS.get(name)
+    if sp is not None and sp.layer == layer:
+        return sp
+    if sp is not None or layer not in SPAN_LAYERS:
+        raise ValueError(f"span {name!r} in layer {layer!r}: a name keeps "
+                         f"one layer, one of {SPAN_LAYERS}")
+    sp = _SPANS[name] = _Span(name, layer)
+    return sp
 
 
 # Work credited by the kernel ops, for an analysis that counts the program
@@ -163,6 +258,8 @@ def reset_counters() -> None:
     COUNTERS["variants"] = {}
     COUNTERS["builds"] = {}
     COUNTERS["loop_runs"] = 0
+    COUNTERS["spans"] = {}
+    COUNTERS["host_reads"] = {}
 
 
 def _nvcc() -> str:

@@ -596,68 +596,73 @@ class _Chains:
         self.trail = {k: [] for k in ("cands", "objs", "s", "ib", "accepted",
                                       "threshold", "u", "inc_s")}
 
-    def generation(self, gen: int, temp: torch.Tensor, stage) -> None:
+    def generation(self, gen: int, temp: torch.Tensor) -> None:
         """Propose, score (one `epoch_step` launch), accept; appends the
-        generation to `trail`."""
+        generation to `trail`. Each stage is a span (`codesign.proposals`,
+        `.tables`, `.score`, `.acceptance`)."""
         t_pts, k_isl, g, n = self.t_pts, self.k_isl, self.g, self.n
         n_prop, r_pad, rows, draws = self.n_prop, self.r_pad, self.rows, \
             self.draws
-        moves = 2 if gen < self.moves_hi else 1
-        mi = draws["move_i"][:, gen].reshape(n, 2)
-        mg = draws["move_gum"][:, gen].reshape(n, 2, r_pad)
-        pos = _one_move(self.parent[:, :, None].expand(
-            t_pts, k_isl, n_prop, g, 2).reshape(n, g, 2), mi[:, 0],
-            mg[:, 0], self.coords_n, self.blocked_n)
-        if moves > 1:
-            pos = _one_move(pos, mi[:, 1], mg[:, 1], self.coords_n,
-                            self.blocked_n)
-        pos = torch.where(draws["restart"][:, gen].reshape(n)[:, None, None],
-                          self.rpos[:, gen].reshape(n, g, 2), pos)
-        order = _activation_order_mesh(pos, self.mx_n, self.my_n,
-                                       a_bound=self.a_bound,
-                                       big_bound=self.big_bound)
-        props = torch.gather(pos, 1, order[..., None].expand_as(pos))
-        cands = torch.cat([self.parent[:, :, None],
-                           props.reshape(t_pts, k_isl, n_prop, g, 2)], dim=2)
-        stage("proposals")
+        layer = backend.LAYER_TABLES
+        with backend.span("codesign.proposals", layer):
+            moves = 2 if gen < self.moves_hi else 1
+            mi = draws["move_i"][:, gen].reshape(n, 2)
+            mg = draws["move_gum"][:, gen].reshape(n, 2, r_pad)
+            pos = _one_move(self.parent[:, :, None].expand(
+                t_pts, k_isl, n_prop, g, 2).reshape(n, g, 2), mi[:, 0],
+                mg[:, 0], self.coords_n, self.blocked_n)
+            if moves > 1:
+                pos = _one_move(pos, mi[:, 1], mg[:, 1], self.coords_n,
+                                self.blocked_n)
+            pos = torch.where(
+                draws["restart"][:, gen].reshape(n)[:, None, None],
+                self.rpos[:, gen].reshape(n, g, 2), pos)
+            order = _activation_order_mesh(pos, self.mx_n, self.my_n,
+                                           a_bound=self.a_bound,
+                                           big_bound=self.big_bound)
+            props = torch.gather(pos, 1, order[..., None].expand_as(pos))
+            cands = torch.cat([self.parent[:, :, None],
+                               props.reshape(t_pts, k_isl, n_prop, g, 2)],
+                              dim=2)
+        with backend.span("codesign.tables", layer):
+            tables = placement_tables_from_lut_torch(
+                cands, rows["hop_lut"], rows["edge_lut"],
+                rows["router_mask"], rows["caps"], d_pad=self.d_pad,
+                db_per_hop=self.db_per_hop, point=self.cand_pt)
+        with backend.span("codesign.score", layer):
+            objs = S.score_codesign_tables(
+                self.scoring, tables["src_hops"],
+                tables["gw_loss_db"])                       # [T, K, P, 3]
+        with backend.span("codesign.acceptance", layer):
+            # Per-island normalization: the point's generation-0 parent
+            # (its default placement) anchors the scalarization scale.
+            if gen == 0:
+                self.norm = objs[:, :, 0, :]
+            s = _scalarize(objs, self.weights,
+                           torch.clamp_min(torch.abs(self.norm), 1e-12))
+            ib = torch.argmin(s, dim=2)
+            sb = torch.gather(s, 2, ib[..., None])[..., 0]
+            cb = torch.gather(cands, 2, ib[:, :, None, None, None].expand(
+                t_pts, k_isl, 1, g, 2))[:, :, 0]
+            improved = sb < self.inc_s
+            self.inc_pos = torch.where(improved[..., None, None], cb,
+                                       self.inc_pos)
+            self.inc_s = torch.minimum(sb, self.inc_s)
 
-        tables = placement_tables_from_lut_torch(
-            cands, rows["hop_lut"], rows["edge_lut"], rows["router_mask"],
-            rows["caps"], d_pad=self.d_pad, db_per_hop=self.db_per_hop,
-            point=self.cand_pt)
-        stage("tables")
-        objs = S.score_codesign_tables(self.scoring, tables["src_hops"],
-                                       tables["gw_loss_db"])  # [T, K, P, 3]
-        stage("score")
-
-        # Per-island normalization: the point's generation-0 parent (its
-        # default placement) anchors the scalarization scale.
-        if gen == 0:
-            self.norm = objs[:, :, 0, :]
-        s = _scalarize(objs, self.weights,
-                       torch.clamp_min(torch.abs(self.norm), 1e-12))
-        ib = torch.argmin(s, dim=2)
-        sb = torch.gather(s, 2, ib[..., None])[..., 0]
-        cb = torch.gather(cands, 2, ib[:, :, None, None, None].expand(
-            t_pts, k_isl, 1, g, 2))[:, :, 0]
-        improved = sb < self.inc_s
-        self.inc_pos = torch.where(improved[..., None, None], cb,
-                                   self.inc_pos)
-        self.inc_s = torch.minimum(sb, self.inc_s)
-
-        # Annealed Metropolis test per island (the host engine's law).
-        s0 = s[..., 0]
-        delta = sb - s0
-        rel = delta / torch.clamp_min(torch.abs(s0), 1e-12)
-        threshold = trandom.xla_exp(-rel / torch.clamp_min(temp, 1e-30))
-        u = draws["acc_u"][:, gen]
-        accepted = (delta < 0) | ((temp > 0) & (u < threshold))
-        self.parent = torch.where(accepted[..., None, None], cb, self.parent)
-        for k, v in (("cands", cands), ("objs", objs), ("s", s), ("ib", ib),
-                     ("accepted", accepted), ("threshold", threshold),
-                     ("u", u), ("inc_s", self.inc_s)):
-            self.trail[k].append(v)
-        stage("acceptance")
+            # Annealed Metropolis test per island (the host engine's law).
+            s0 = s[..., 0]
+            delta = sb - s0
+            rel = delta / torch.clamp_min(torch.abs(s0), 1e-12)
+            threshold = trandom.xla_exp(-rel / torch.clamp_min(temp, 1e-30))
+            u = draws["acc_u"][:, gen]
+            accepted = (delta < 0) | ((temp > 0) & (u < threshold))
+            self.parent = torch.where(accepted[..., None, None], cb,
+                                      self.parent)
+            for k, v in (("cands", cands), ("objs", objs), ("s", s),
+                         ("ib", ib), ("accepted", accepted),
+                         ("threshold", threshold), ("u", u),
+                         ("inc_s", self.inc_s)):
+                self.trail[k].append(v)
 
 
 def _migrates(gen: int, migrate_every: int) -> bool:
@@ -698,7 +703,7 @@ def _codesign_core(shard, scorings: list, draws: dict, temps: torch.Tensor,
                    rows: dict, weights: torch.Tensor, *, generations: int,
                    population: int, migrate_every: int, archive: int,
                    d_pad: int, db_per_hop: float, a_bound: int,
-                   big_bound: int, on_stage=None) -> tuple:
+                   big_bound: int) -> tuple:
     """Every point's K annealed chains, state [T, K, ...], one
     `epoch_step` launch a generation for each block of islands; then the
     archive replayed in the reference's order. `shard` is a
@@ -712,11 +717,7 @@ def _codesign_core(shard, scorings: list, draws: dict, temps: torch.Tensor,
     from the host (every input is on its device before it starts).
     Returns (packed, trail): the packed result (`_unpack`) and each
     generation's candidates, objectives, scores and decisions ([GEN, T,
-    K, ...] tensors, for diagnosis). `on_stage(name)`, if given, is
-    called as each stage ends ("proposals", "tables", "score",
-    "acceptance" each block and generation, then "archive"), for
-    timing."""
-    stage = on_stage or (lambda name: None)
+    K, ...] tensors, for diagnosis)."""
     blocks = []
     for (dev, idx), scoring in zip(shard.local_blocks(), scorings):
         start, m = int(idx[0]), len(idx)
@@ -734,14 +735,16 @@ def _codesign_core(shard, scorings: list, draws: dict, temps: torch.Tensor,
             for dev, start, m, _, c in blocks:
                 c.parent = rolled.narrow(1, start, m).to(dev)
         for *_, temps_b, c in blocks:
-            c.generation(gen, temps_b[gen], stage)
-    trail = shard.gather([{k: torch.stack(v) for k, v in c.trail.items()}
-                          for *_, c in blocks], axis=2)
-    packed = _archive_replay(
-        trail, shard.gather([c.inc_pos for *_, c in blocks], axis=1),
-        shard.gather([c.inc_s for *_, c in blocks], axis=1),
-        generations=generations, population=population, archive=archive)
-    stage("archive")
+            c.generation(gen, temps_b[gen])
+    with backend.span("codesign.archive", backend.LAYER_TABLES):
+        trail = shard.gather([{k: torch.stack(v)
+                               for k, v in c.trail.items()}
+                              for *_, c in blocks], axis=2)
+        packed = _archive_replay(
+            trail, shard.gather([c.inc_pos for *_, c in blocks], axis=1),
+            shard.gather([c.inc_s for *_, c in blocks], axis=1),
+            generations=generations, population=population,
+            archive=archive)
     return packed, trail
 
 
@@ -879,72 +882,85 @@ def search_codesign(trace, sim, *, islands: int = None,
     history, the island incumbents, scores and weights and the searched
     grids.
     """
-    if engine not in ("device", "host"):
-        raise ValueError(f"unknown engine {engine!r} (device|host)")
-    _check_codesign_params(generations, population, migrate_every, archive)
-    cs, gs, rs = _check_topology_grids(sim, topo_grids)
-    knobs, islands = _check_knob_grids(knob_grids, islands)
-    shard, sharded = S._grid_sharding(islands, devices, device, "islands")
-    dev = shard.devices[0]
-    if engine == "host" or shard.pad:
-        # As the reference: islands shard only when they divide evenly
-        # over the devices; the host engine runs on one device.
-        shard, sharded = S._grid_sharding(islands, None, dev, "islands")
-    batch = _codesign_batch(trace)
-    if engine == "host":
-        return _host_codesign(
-            batch, sim, cs, gs, rs, knobs, islands, device=dev,
-            generations=generations, population=population,
-            migrate_every=migrate_every, archive=archive, seed=seed,
-            temperature=temperature, cooling=cooling,
-            restart_frac=restart_frac)
+    with backend.span("search_codesign", backend.LAYER_ENTRY):
+        if engine not in ("device", "host"):
+            raise ValueError(f"unknown engine {engine!r} (device|host)")
+        _check_codesign_params(generations, population, migrate_every,
+                               archive)
+        cs, gs, rs = _check_topology_grids(sim, topo_grids)
+        knobs, islands = _check_knob_grids(knob_grids, islands)
+        shard, sharded = S._grid_sharding(islands, devices, device,
+                                          "islands")
+        dev = shard.devices[0]
+        if engine == "host" or shard.pad:
+            # As the reference: islands shard only when they divide evenly
+            # over the devices; the host engine runs on one device.
+            shard, sharded = S._grid_sharding(islands, None, dev, "islands")
+        batch = _codesign_batch(trace)
+        if engine == "host":
+            return _host_codesign(
+                batch, sim, cs, gs, rs, knobs, islands, device=dev,
+                generations=generations, population=population,
+                migrate_every=migrate_every, archive=archive, seed=seed,
+                temperature=temperature, cooling=cooling,
+                restart_frac=restart_frac)
 
-    sim_p, rows, _cfgs, c_max, statics = _prepare_codesign(sim, cs, gs, rs,
-                                                           dev)
-    arrays = S._topo_trace_arrays(batch, c_max, dev)
-    knob_grid = _knob_grid(knobs, islands, sim, gs)
-    lane_rows = {k: rows[k] for k in _LANE_ROWS}
-    w_axis = int(arrays[0].shape[0]) if arrays[0].dim() == 3 else 1
-    hyper = _hyper(temperature, cooling, restart_frac)
-    g = gs[0]
-    draws = _draws(trandom.prng_key(seed, device=dev), len(cs), generations,
-                   islands, population - 1, int(rows["coords"].shape[1]), g,
-                   hyper["restart_frac"])
-    temps = torch.as_tensor(_temperatures(
-        hyper["temperature"], hyper["cooling"], generations), device=dev)
-    weights = island_weights(islands)
-    lanes = len(cs) * islands * population * w_axis
-    scorings = []
-    for (_, idx), (_, (rows_b, arrays_b)) in zip(
-            shard.local_blocks(), shard.replicate((lane_rows, arrays))):
-        scoring = S.codesign_scoring(
-            sim_p, rows_b, {f: v[:, idx] for f, v in knob_grid.items()},
-            arrays_b, population, np.asarray(cs))
-        if len(idx) < islands:         # a block launches the whole design
-            scoring.kwargs["kernel"] = S._launch_design(
-                sim_p, scoring.xs, dict(scoring.kwargs, topo=scoring.topo),
-                lanes)
-        scorings.append(scoring)
-    packed, _trail = _codesign_core(
-        shard, scorings, draws, temps, rows,
-        torch.as_tensor(weights, device=dev), generations=generations,
-        population=population, migrate_every=migrate_every, archive=archive,
-        **statics)
-    # Counted once the last generation is launched: a search that raised
-    # never counts.
-    S._STATS["search_dispatches"] += 1
-    host = _unpack(packed.cpu().numpy(), archive, g, len(cs),  # the copy
-                   generations, islands)
-    meta = {"generations": generations, "population": population,
-            "migrate_every": migrate_every, "archive_capacity": archive,
-            "workloads": w_axis,
-            "candidate_evals": len(cs) * generations * islands
-            * population * w_axis}
-    if sharded:
-        meta["sharding"] = shard.describe()
-    return _codesign_result(host["archive"], host["history"],
-                            host["inc_pos"], host["inc_s"], weights, cs, gs,
-                            rs, knobs, islands, "device", meta)
+        with backend.span("codesign.prepare", backend.LAYER_TABLES):
+            sim_p, rows, _cfgs, c_max, statics = _prepare_codesign(
+                sim, cs, gs, rs, dev)
+            arrays = S._topo_trace_arrays(batch, c_max, dev)
+            knob_grid = _knob_grid(knobs, islands, sim, gs)
+            lane_rows = {k: rows[k] for k in _LANE_ROWS}
+            w_axis = int(arrays[0].shape[0]) if arrays[0].dim() == 3 else 1
+            hyper = _hyper(temperature, cooling, restart_frac)
+            g = gs[0]
+            draws = _draws(trandom.prng_key(seed, device=dev), len(cs),
+                           generations, islands, population - 1,
+                           int(rows["coords"].shape[1]), g,
+                           hyper["restart_frac"])
+            temps = torch.as_tensor(_temperatures(
+                hyper["temperature"], hyper["cooling"], generations),
+                device=dev)
+            weights = island_weights(islands)
+            lanes = len(cs) * islands * population * w_axis
+            scorings = []
+            for (_, idx), (_, (rows_b, arrays_b)) in zip(
+                    shard.local_blocks(),
+                    shard.replicate((lane_rows, arrays))):
+                scoring = S.codesign_scoring(
+                    sim_p, rows_b,
+                    {f: v[:, idx] for f, v in knob_grid.items()},
+                    arrays_b, population, np.asarray(cs))
+                if len(idx) < islands:   # a block launches the whole design
+                    scoring.kwargs["kernel"] = S._launch_design(
+                        sim_p, scoring.xs,
+                        dict(scoring.kwargs, topo=scoring.topo), lanes)
+                scorings.append(scoring)
+        packed, _trail = _codesign_core(
+            shard, scorings, draws, temps, rows,
+            torch.as_tensor(weights, device=dev), generations=generations,
+            population=population, migrate_every=migrate_every,
+            archive=archive, **statics)
+        with backend.span("codesign.result", backend.LAYER_ENTRY):
+            # Counted once the last generation is launched: a search that
+            # raised never counts.
+            S._STATS["search_dispatches"] += 1
+            if packed.is_cuda:
+                backend.count_host_read("search_codesign.packed",
+                                        packed.nbytes)
+            host = _unpack(packed.cpu().numpy(), archive, g,  # the copy
+                           len(cs), generations, islands)
+            meta = {"generations": generations, "population": population,
+                    "migrate_every": migrate_every,
+                    "archive_capacity": archive, "workloads": w_axis,
+                    "candidate_evals": len(cs) * generations * islands
+                    * population * w_axis}
+            if sharded:
+                meta["sharding"] = shard.describe()
+            return _codesign_result(host["archive"], host["history"],
+                                    host["inc_pos"], host["inc_s"], weights,
+                                    cs, gs, rs, knobs, islands, "device",
+                                    meta)
 
 
 # ---------------------------------------------------------------------------

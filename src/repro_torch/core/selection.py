@@ -22,7 +22,7 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.backend import resolve_device
+from repro_torch.backend import LAYER_TABLES, resolve_device, span
 from repro_torch.core import photonics, topology
 from repro_torch.core.constants import NETWORK, NetworkConfig
 from repro_torch.core.gateway_controller import activation_order
@@ -250,7 +250,9 @@ def selection_tables_torch(cfg: NetworkConfig = NETWORK,
     the reference's `selection_tables_jax`): the same dict of tensors for
     equal (cfg, device), so repeated runs never re-upload. `device=None`
     means the card (see `backend.resolve_device`)."""
-    return _selection_tables_torch_cached(cfg, str(resolve_device(device)))
+    with span("selection_tables", LAYER_TABLES):
+        return _selection_tables_torch_cached(cfg,
+                                              str(resolve_device(device)))
 
 
 @functools.lru_cache(maxsize=None)

@@ -520,8 +520,13 @@ _STATS = {"search_dispatches": 0}
 
 
 def engine_stats() -> dict:
-    """Kernel launches and builds, plain-loop runs, table builds and
-    device placement searches."""
+    """Kernel launches and builds, plain-loop runs, table and co-design
+    topology builds, device placement searches, and copies of the host
+    spans' and device-to-host reads' totals (`backend.span`,
+    `backend.count_host_read`): a snapshot keeps its values as later
+    spans run."""
+    from repro_torch.core.pareto import _codesign_topology
+
     launches = dict(backend.COUNTERS["launches"])
     return {"epoch_step_launches": launches.get("epoch_step", 0),
             "kernel_launches": launches,
@@ -529,7 +534,13 @@ def engine_stats() -> dict:
             "loop_runs": backend.COUNTERS["loop_runs"],
             "selection_table_builds":
                 build_selection_tables.cache_info().misses,
-            "search_dispatches": _STATS["search_dispatches"]}
+            "codesign_topology_builds":
+                _codesign_topology.cache_info().misses,
+            "search_dispatches": _STATS["search_dispatches"],
+            "spans": {k: dict(v)
+                      for k, v in backend.COUNTERS["spans"].items()},
+            "host_reads": {k: dict(v) for k, v in
+                           backend.COUNTERS["host_reads"].items()}}
 
 
 def reset_engine_stats() -> None:
@@ -757,6 +768,8 @@ def _trace_faults(trace: dict, device
 
 def _numeric_grid(name: str, values) -> np.ndarray:
     """A swept numeric grid as numpy, rejecting non-numeric values."""
+    if isinstance(values, torch.Tensor) and values.is_cuda:
+        backend.count_host_read("simulator._numeric_grid", values.nbytes)
     try:
         a = values.detach().cpu().numpy() if isinstance(values, torch.Tensor) \
             else np.asarray(values)
@@ -802,43 +815,44 @@ def stack_traces(traces: List[dict], *, pad: bool = False) -> dict:
     longest T under a `t_mask` [N, T]. A batch must be uniformly faulted or
     clean, and uniformly destination-aware or not.
     """
-    if not traces:
-        raise ValueError("stack_traces() needs at least one trace")
-    for i, tr in enumerate(traces):
-        traffic.validate_trace(tr, who=f"traces[{i}]")
-    chips = sorted({int(np.shape(tr["ext_load"])[-1]) for tr in traces})
-    if len(chips) != 1:
-        raise ValueError(
-            f"traces cover different chiplet counts {chips}; narrow them "
-            f"to one width first (traffic.slice_trace)")
-    lengths = [int(np.shape(tr["ext_load"])[0]) for tr in traces]
-    ragged = len(set(lengths)) > 1
-    if ragged and not pad:
-        raise ValueError(
-            f"traces have mixed lengths T={lengths}; pass pad=True to "
-            f"zero-pad them to T={max(lengths)} under a t_mask")
-    masked = pad or ragged or any("t_mask" in tr for tr in traces)
-    if masked:
-        traces = [traffic.pad_trace(tr, max(lengths)) for tr in traces]
-    n_faulted = sum(_has_faults(tr) for tr in traces)
-    if n_faulted not in (0, len(traces)):
-        raise ValueError(
-            f"{n_faulted}/{len(traces)} traces carry fault frames; a "
-            f"batch must be uniformly faulted or uniformly clean")
-    n_dest = sum(tr.get("dest") is not None for tr in traces)
-    if n_dest not in (0, len(traces)):
-        raise ValueError(
-            f"{n_dest}/{len(traces)} traces carry destination matrices; a "
-            f"batch must be uniformly destination-aware or not")
-    keys = ("ext_load", "mem_load", "int_load", "ext_frac") \
-        + (("t_mask",) if masked else ()) \
-        + (("dest",) if n_dest else ()) \
-        + (FAULT_KEYS if n_faulted else ())
-    dev = torch.as_tensor(traces[0]["ext_load"]).device
-    out = {k: torch.stack([_as_f32(tr[k], dev) for tr in traces])
-           for k in keys}
-    out["app"] = [tr.get("app", "?") for tr in traces]
-    return out
+    with backend.span("stack_traces", backend.LAYER_TABLES):
+        if not traces:
+            raise ValueError("stack_traces() needs at least one trace")
+        for i, tr in enumerate(traces):
+            traffic.validate_trace(tr, who=f"traces[{i}]")
+        chips = sorted({int(np.shape(tr["ext_load"])[-1]) for tr in traces})
+        if len(chips) != 1:
+            raise ValueError(
+                f"traces cover different chiplet counts {chips}; narrow them "
+                f"to one width first (traffic.slice_trace)")
+        lengths = [int(np.shape(tr["ext_load"])[0]) for tr in traces]
+        ragged = len(set(lengths)) > 1
+        if ragged and not pad:
+            raise ValueError(
+                f"traces have mixed lengths T={lengths}; pass pad=True to "
+                f"zero-pad them to T={max(lengths)} under a t_mask")
+        masked = pad or ragged or any("t_mask" in tr for tr in traces)
+        if masked:
+            traces = [traffic.pad_trace(tr, max(lengths)) for tr in traces]
+        n_faulted = sum(_has_faults(tr) for tr in traces)
+        if n_faulted not in (0, len(traces)):
+            raise ValueError(
+                f"{n_faulted}/{len(traces)} traces carry fault frames; a "
+                f"batch must be uniformly faulted or uniformly clean")
+        n_dest = sum(tr.get("dest") is not None for tr in traces)
+        if n_dest not in (0, len(traces)):
+            raise ValueError(
+                f"{n_dest}/{len(traces)} traces carry destination matrices; a "
+                f"batch must be uniformly destination-aware or not")
+        keys = ("ext_load", "mem_load", "int_load", "ext_frac") \
+            + (("t_mask",) if masked else ()) \
+            + (("dest",) if n_dest else ()) \
+            + (FAULT_KEYS if n_faulted else ())
+        dev = torch.as_tensor(traces[0]["ext_load"]).device
+        out = {k: torch.stack([_as_f32(tr[k], dev) for tr in traces])
+               for k in keys}
+        out["app"] = [tr.get("app", "?") for tr in traces]
+        return out
 
 
 def epoch_inputs(traces, sim: SimConfig, *, device=None, faults=True,
@@ -855,39 +869,41 @@ def epoch_inputs(traces, sim: SimConfig, *, device=None, faults=True,
     pairs instead of crossing: N lanes, lane n on trace n with grid point
     n (K must be N, or no grid).
     """
-    dev = backend.resolve_device(device)
-    if isinstance(traces, (list, tuple)):
-        batch = stack_traces(list(traces), pad=True)
-    elif np.ndim(traces["ext_load"]) == 2:
-        batch = stack_traces([traces])
-    else:
-        batch = traces
-    ext, mem, intra, ext_frac, t_mask, dest = _trace_arrays(batch, dev)
-    flt = _trace_faults(batch, dev) if faults else None
-    ov = _check_sweep_fields(fields, dev) if fields else {}
-    n = ext.shape[0]
-    k = int(next(iter(ov.values())).shape[0]) if ov else 1
-    if zipped:
-        if ov and k != n:
-            raise ValueError(f"zipped grids have length {k} but there are "
-                             f"{n} traces")
-        lane_trace = torch.arange(n, device=dev)
-        knobs = default_knobs(sim, n, dev, ov)
-    else:
-        lane_trace = torch.arange(n, device=dev).repeat_interleave(k)
-        knobs = default_knobs(sim, n * k, dev,
-                              {f: v.repeat(n) for f, v in ov.items()})
-    # Masked intervals inject zero traffic (and record zeros downstream).
-    ext = ext * t_mask[..., None]
-    mem = mem * t_mask
-    intra = intra * t_mask[..., None]
-    xs = (ext, mem, intra, ext_frac.reshape(n, 1).expand_as(mem), t_mask)
-    if flt is not None:
-        xs = xs + flt
-    kwargs = dict(dest=dest, faulted=flt is not None, lane_trace=lane_trace,
-                  knobs=knobs)
-    return (_initial_state(sim, knobs), xs,
-            selection_tables_torch(sim.cfg, dev), kwargs)
+    with backend.span("epoch_inputs", backend.LAYER_TABLES):
+        dev = backend.resolve_device(device)
+        if isinstance(traces, (list, tuple)):
+            batch = stack_traces(list(traces), pad=True)
+        elif np.ndim(traces["ext_load"]) == 2:
+            batch = stack_traces([traces])
+        else:
+            batch = traces
+        ext, mem, intra, ext_frac, t_mask, dest = _trace_arrays(batch, dev)
+        flt = _trace_faults(batch, dev) if faults else None
+        ov = _check_sweep_fields(fields, dev) if fields else {}
+        n = ext.shape[0]
+        k = int(next(iter(ov.values())).shape[0]) if ov else 1
+        if zipped:
+            if ov and k != n:
+                raise ValueError(f"zipped grids have length {k} but there "
+                                 f"are {n} traces")
+            lane_trace = torch.arange(n, device=dev)
+            knobs = default_knobs(sim, n, dev, ov)
+        else:
+            lane_trace = torch.arange(n, device=dev).repeat_interleave(k)
+            knobs = default_knobs(sim, n * k, dev,
+                                  {f: v.repeat(n) for f, v in ov.items()})
+        # Masked intervals inject zero traffic (and record zeros downstream).
+        ext = ext * t_mask[..., None]
+        mem = mem * t_mask
+        intra = intra * t_mask[..., None]
+        xs = (ext, mem, intra, ext_frac.reshape(n, 1).expand_as(mem),
+              t_mask)
+        if flt is not None:
+            xs = xs + flt
+        kwargs = dict(dest=dest, faulted=flt is not None,
+                      lane_trace=lane_trace, knobs=knobs)
+        return (_initial_state(sim, knobs), xs,
+                selection_tables_torch(sim.cfg, dev), kwargs)
 
 
 def _run(traces, sim: SimConfig, shape, *, device, faults=True,
@@ -918,8 +934,9 @@ def simulate(trace: dict, sim: SimConfig, *, device=None) -> dict:
     """Run one trace; returns per-interval records ([T] / [T, C]) and
     summary scalars. A trace carrying a complete fault frame (FAULT_KEYS)
     runs the fault path. Runs on the card unless `device="cpu"`."""
-    traffic.validate_trace(trace)
-    return _run(trace, sim, (), device=device)
+    with backend.span("simulate", backend.LAYER_ENTRY):
+        traffic.validate_trace(trace)
+        return _run(trace, sim, (), device=device)
 
 
 def _stacked(traces) -> dict:
@@ -930,9 +947,10 @@ def _stacked(traces) -> dict:
 def simulate_batch(traces, sim: SimConfig, *, device=None) -> dict:
     """N traces (a list, ragged lengths allowed, or a `stack_traces` dict)
     as N lanes of one run; results gain a leading [N] axis."""
-    batch = _stacked(traces)
-    return _run(batch, sim, (int(np.shape(batch["ext_load"])[0]),),
-                device=device)
+    with backend.span("simulate_batch", backend.LAYER_ENTRY):
+        batch = _stacked(traces)
+        return _run(batch, sim, (int(np.shape(batch["ext_load"])[0]),),
+                    device=device)
 
 
 def _grid_len(fields) -> int:
@@ -946,17 +964,19 @@ def sweep(trace: dict, sim: SimConfig, *, device=None, **fields) -> dict:
     ``sweep(tr, sim, l_m=np.linspace(0.005, 0.03, 64))``. Every swept field
     (SWEEPABLE_FIELDS) is a 1-D grid of one common length K; results carry
     a leading [K] axis."""
-    return _run(trace, sim, (_grid_len(fields),), device=device,
-                faults=False, **fields)
+    with backend.span("sweep", backend.LAYER_ENTRY):
+        return _run(trace, sim, (_grid_len(fields),), device=device,
+                    faults=False, **fields)
 
 
 def sweep_batch(traces, sim: SimConfig, *, device=None, **fields) -> dict:
     """The full DSE grid as N*K lanes: N traces x K grid points, results
     reshaped to leading [N, K] axes (trace-major)."""
-    batch = _stacked(traces)
-    return _run(batch, sim, (int(np.shape(batch["ext_load"])[0]),
-                             _grid_len(fields)),
-                device=device, faults=False, **fields)
+    with backend.span("sweep_batch", backend.LAYER_ENTRY):
+        batch = _stacked(traces)
+        return _run(batch, sim, (int(np.shape(batch["ext_load"])[0]),
+                                 _grid_len(fields)),
+                    device=device, faults=False, **fields)
 
 
 def simulate_all_archs(trace: dict, base: SimConfig = SimConfig(), *,
@@ -1443,7 +1463,7 @@ def _pair_destinations(dest: torch.Tensor, lane_trace: np.ndarray,
 
 
 def topology_inputs(batch, sim: SimConfig, *, device=None, zipped=False,
-                    on_stage=None, pad_chiplets=None, **grids):
+                    pad_chiplets=None, **grids):
     """What the padded entry points hand the interval loop: `(sim_p,
     state0, xs, kwargs, nreal)` such that ``_scan_trace(state0, xs, sim_p,
     None, **kwargs)`` runs the grid. `batch` is one trace, a list of traces
@@ -1451,47 +1471,48 @@ def topology_inputs(batch, sim: SimConfig, *, device=None, zipped=False,
     trace-major lanes (lane n*K + k: trace n, point k); `zipped=True` runs
     K lanes, lane k on trace k with point k (N must be K). `nreal` [B] is
     each lane's real chiplet count (the wavelength summary's divisor).
-    `on_stage(name)`, if given, is called as each stage ends ("prepare",
-    "trace_arrays", "lanes", "dest_pairs", "initial_state"), for timing.
-    `pad_chiplets` pads the chiplet axis wider than the grid needs."""
-    stage = on_stage or (lambda name: None)
+    `pad_chiplets` pads the chiplet axis wider than the grid needs. Each
+    stage is a span (`topology.prepare`, `.trace_arrays`, `.lanes`,
+    `.dest_pairs`, `.initial_state`)."""
+    tables = backend.LAYER_TABLES
     dev = backend.resolve_device(device)
-    grid = _prepare_topology_sweep(sim, grids, dev, pad_chiplets)
-    stage("prepare")
-    ext, mem, intra, ext_frac, t_mask, dest = _topo_trace_arrays(
-        _stacked(batch), grid.c_max, dev)
-    stage("trace_arrays")
-    if ext.dim() == 2:
-        ext, mem, intra, t_mask = ext[None], mem[None], intra[None], \
-            t_mask[None]
-        ext_frac = ext_frac.reshape(1)
-        dest = None if dest is None else dest[None]
-    n, k = int(ext.shape[0]), int(grid.n_chiplets.shape[0])
-    if zipped:
-        if n != k:
-            raise ValueError(f"{n} traces for {k} grid points: zipped "
-                             f"lanes need one trace per point")
-        lane_np, point_np = np.arange(k), np.arange(k)
-    else:
-        lane_np, point_np = np.repeat(np.arange(n), k), np.tile(np.arange(k),
-                                                                n)
-    lane_trace = torch.as_tensor(lane_np, device=dev)
-    point = torch.as_tensor(point_np, device=dev)
-    knobs = default_knobs(grid.sim, len(lane_np), dev,
-                          {f: torch.as_tensor(v[point_np], device=dev)
-                           for f, v in grid.knobs.items()})
-    topo = lane_topology(grid.topo, point, grid.c_max)
-    xs = (ext * t_mask[..., None], mem * t_mask, intra * t_mask[..., None],
-          ext_frac.reshape(n, 1).expand_as(mem), t_mask)
-    kwargs = dict(lane_trace=lane_trace, knobs=knobs, topo=topo)
-    stage("lanes")
-    if dest is not None:
-        kwargs["dest"], kwargs["dest_index"], kwargs["pair_trace"] = \
-            _pair_destinations(dest, lane_np, grid.n_chiplets[point_np],
-                               grid.c_max)
-    stage("dest_pairs")
-    state0 = _initial_state(grid.sim, knobs, topo)
-    stage("initial_state")
+    with backend.span("topology.prepare", tables):
+        grid = _prepare_topology_sweep(sim, grids, dev, pad_chiplets)
+    with backend.span("topology.trace_arrays", tables):
+        ext, mem, intra, ext_frac, t_mask, dest = _topo_trace_arrays(
+            _stacked(batch), grid.c_max, dev)
+    with backend.span("topology.lanes", tables):
+        if ext.dim() == 2:
+            ext, mem, intra, t_mask = ext[None], mem[None], intra[None], \
+                t_mask[None]
+            ext_frac = ext_frac.reshape(1)
+            dest = None if dest is None else dest[None]
+        n, k = int(ext.shape[0]), int(grid.n_chiplets.shape[0])
+        if zipped:
+            if n != k:
+                raise ValueError(f"{n} traces for {k} grid points: zipped "
+                                 f"lanes need one trace per point")
+            lane_np, point_np = np.arange(k), np.arange(k)
+        else:
+            lane_np = np.repeat(np.arange(n), k)
+            point_np = np.tile(np.arange(k), n)
+        lane_trace = torch.as_tensor(lane_np, device=dev)
+        point = torch.as_tensor(point_np, device=dev)
+        knobs = default_knobs(grid.sim, len(lane_np), dev,
+                              {f: torch.as_tensor(v[point_np], device=dev)
+                               for f, v in grid.knobs.items()})
+        topo = lane_topology(grid.topo, point, grid.c_max)
+        xs = (ext * t_mask[..., None], mem * t_mask,
+              intra * t_mask[..., None],
+              ext_frac.reshape(n, 1).expand_as(mem), t_mask)
+        kwargs = dict(lane_trace=lane_trace, knobs=knobs, topo=topo)
+    with backend.span("topology.dest_pairs", tables):
+        if dest is not None:
+            kwargs["dest"], kwargs["dest_index"], kwargs["pair_trace"] = \
+                _pair_destinations(dest, lane_np, grid.n_chiplets[point_np],
+                                   grid.c_max)
+    with backend.span("topology.initial_state", tables):
+        state0 = _initial_state(grid.sim, knobs, topo)
     return grid.sim, state0, xs, kwargs, topo["nreal"]
 
 
@@ -1603,9 +1624,12 @@ def _block_inputs(state0: SimState, xs: tuple, tables, kw: dict, nreal,
     if torch.device(device) == src and np.array_equal(lanes, np.arange(b)):
         return state0, xs, tables, kw, nreal
     if not host:
-        host.update({k: kw[k].cpu().numpy() for k in
-                     ("lane_trace", "dest_index", "pair_trace")
-                     if kw.get(k) is not None})
+        for k in ("lane_trace", "dest_index", "pair_trace"):
+            if kw.get(k) is not None:
+                if kw[k].is_cuda:
+                    backend.count_host_read("simulator._block_inputs",
+                                            kw[k].nbytes)
+                host[k] = kw[k].cpu().numpy()
     sel = torch.as_tensor(lanes, device=src)
 
     def take(a):
@@ -1674,8 +1698,9 @@ def _run_blocks(gs, sim: SimConfig, state0: SimState, xs: tuple, tables,
         _, recs = _scan_trace(state_b, xs_b, sim, tables_b,
                               kernel=design if lanes.size < n_lanes
                               else None, **kw_b)
-        summary = _summary_from_sums(
-            _record_sums(recs, xs_b[4][kw_b["lane_trace"]]), nreal_b)
+        with backend.span("summaries", backend.LAYER_ENTRY):
+            summary = _summary_from_sums(
+                _record_sums(recs, xs_b[4][kw_b["lane_trace"]]), nreal_b)
         outs.append(_shaped(recs, summary, shape_of(len(idx))))
     return gs.gather(outs, axis=axis)
 

@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import backend
+
 # The array keys every trace must carry. "dest" is [C, C] and time-free: it
 # is carried whole by every transform except `slice_trace` (chiplet axis) and
 # `concat_traces` (load-weighted mix).
@@ -28,6 +30,8 @@ def _t(x) -> torch.Tensor:
 
 def _np(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
+        if x.is_cuda:
+            backend.count_host_read("traffic._np", x.nbytes)
         return x.detach().cpu().numpy()
     return np.asarray(x)
 

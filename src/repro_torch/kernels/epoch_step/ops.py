@@ -182,16 +182,19 @@ def epoch_run(state, xs: tuple, sim, tables: dict, *,
       kernel: the design to launch on the card (default `variant(...)` of
         these lanes); a sharded run passes the whole grid's.
     """
-    if xs[0].device.type == "cpu":
-        return epoch_run_reference(state, xs, sim, tables, dest=dest,
-                                   faulted=faulted, lane_trace=lane_trace,
-                                   knobs=knobs, topo=topo,
-                                   dest_index=dest_index,
-                                   pair_trace=pair_trace)
-    out = launch(state.ctl.g, xs, sim, tables, dest=dest, faulted=faulted,
-                 lane_trace=lane_trace, knobs=knobs, kernel=kernel, topo=topo,
-                 dest_index=dest_index, pair_trace=pair_trace)
-    return _reassemble(state, out, xs, sim, faulted, topo)
+    with backend.span(NAME, backend.LAYER_KERNELS):
+        if xs[0].device.type == "cpu":
+            return epoch_run_reference(state, xs, sim, tables, dest=dest,
+                                       faulted=faulted,
+                                       lane_trace=lane_trace, knobs=knobs,
+                                       topo=topo, dest_index=dest_index,
+                                       pair_trace=pair_trace)
+        out = launch(state.ctl.g, xs, sim, tables, dest=dest,
+                     faulted=faulted, lane_trace=lane_trace, knobs=knobs,
+                     kernel=kernel, topo=topo, dest_index=dest_index,
+                     pair_trace=pair_trace)
+    with backend.span(NAME + ".reassemble", backend.LAYER_KERNELS):
+        return _reassemble(state, out, xs, sim, faulted, topo)
 
 
 def launch(g0: torch.Tensor, xs: tuple, sim, tables: dict, *,

@@ -167,6 +167,13 @@ def build() -> ctypes.CDLL:
     return lib
 
 
+def _routing_read(x: torch.Tensor):
+    """The one element of `x` on the host (counted as a host read)."""
+    if x.is_cuda:
+        backend.count_host_read("noc_step.routing", x.nbytes)
+    return x.item()
+
+
 def routing(next_mat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's view of a one-hot routing matrix [B, R, R].
 
@@ -178,12 +185,13 @@ def routing(next_mat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """
     nmat = next_mat.to(_F32)
     r = nmat.shape[-1]
-    binary = bool(((nmat == 0.0) | (nmat == 1.0)).all())
-    if not binary or bool((nmat.sum(dim=-1) > 1.0).any()):
+    binary = bool(_routing_read(((nmat == 0.0) | (nmat == 1.0)).all()))
+    if not binary or bool(_routing_read((nmat.sum(dim=-1) > 1.0).any())):
         raise ValueError("noc_step kernel needs a one-hot next_mat (0/1 "
                          "entries, at most one 1 per row); the plain "
                          "version takes any matrix")
-    in_degree = int(nmat.sum(dim=-2).max()) if nmat.numel() else 0
+    in_degree = int(_routing_read(nmat.sum(dim=-2).max())) \
+        if nmat.numel() else 0
     if in_degree > MAX_IN_DEGREE:
         raise ValueError(f"noc_step kernel supports in-degree up to "
                          f"{MAX_IN_DEGREE}, got {in_degree}")
@@ -231,17 +239,19 @@ def noc_run(arrivals: torch.Tensor, next_mat: torch.Tensor,
     be one-hot, R <= MAX_NODES, every T accepted); on CPU tensors the plain
     version runs. Returns (residency, final_occupancy, drained), [B?, R].
     """
-    if arrivals.device.type == "cpu":
-        return reference_noc_run(arrivals, next_mat, drain_rate, buf_cap,
-                                 valid_mask=valid_mask,
-                                 valid_mask_t=valid_mask_t, t_mask=t_mask,
-                                 link_rate=link_rate)
-    batched = arrivals.dim() == 3
-    outs = run_prepared(prepare(
-        arrivals if batched else arrivals[None], next_mat, drain_rate,
-        buf_cap, valid_mask=valid_mask, valid_mask_t=valid_mask_t,
-        t_mask=t_mask, link_rate=link_rate))
-    return outs if batched else tuple(o[0] for o in outs)
+    with backend.span("noc_run", backend.LAYER_ENTRY):
+        if arrivals.device.type == "cpu":
+            with backend.span(NAME, backend.LAYER_KERNELS):
+                return reference_noc_run(
+                    arrivals, next_mat, drain_rate, buf_cap,
+                    valid_mask=valid_mask, valid_mask_t=valid_mask_t,
+                    t_mask=t_mask, link_rate=link_rate)
+        batched = arrivals.dim() == 3
+        outs = run_prepared(prepare(
+            arrivals if batched else arrivals[None], next_mat, drain_rate,
+            buf_cap, valid_mask=valid_mask, valid_mask_t=valid_mask_t,
+            t_mask=t_mask, link_rate=link_rate))
+        return outs if batched else tuple(o[0] for o in outs)
 
 
 def prepare(arrivals: torch.Tensor, next_mat: torch.Tensor,
@@ -257,44 +267,46 @@ def prepare(arrivals: torch.Tensor, next_mat: torch.Tensor,
     routing as next_hop / in_src, and each run's active prefix
     (`active_prefix`). The one-hot check reads next_mat back to the host;
     nothing else synchronizes."""
-    dev = arrivals.device
-    if dev.type != "cuda":
-        raise RuntimeError(f"noc_step kernel needs CUDA tensors, got {dev}")
-    if arrivals.dim() != 3:
-        raise ValueError(f"noc_step: arrivals must be [B, T, R], got "
-                         f"{tuple(arrivals.shape)}")
-    b, t, r = arrivals.shape
-    if r > MAX_NODES:
-        raise ValueError(f"noc_step kernel supports up to {MAX_NODES} "
-                         f"nodes, got {r}")
-    for name, a in (("next_mat", next_mat), ("drain_rate", drain_rate),
-                    ("buf_cap", buf_cap), ("valid_mask", valid_mask),
-                    ("valid_mask_t", valid_mask_t), ("t_mask", t_mask)):
-        if a is not None and a.device != dev:
-            raise ValueError(f"noc_step: {name} is on {a.device}, arrivals "
-                             f"on {dev}")
+    with backend.span(NAME + ".prepare", backend.LAYER_KERNELS):
+        dev = arrivals.device
+        if dev.type != "cuda":
+            raise RuntimeError(f"noc_step kernel needs CUDA tensors, got "
+                               f"{dev}")
+        if arrivals.dim() != 3:
+            raise ValueError(f"noc_step: arrivals must be [B, T, R], got "
+                             f"{tuple(arrivals.shape)}")
+        b, t, r = arrivals.shape
+        if r > MAX_NODES:
+            raise ValueError(f"noc_step kernel supports up to {MAX_NODES} "
+                             f"nodes, got {r}")
+        for name, a in (("next_mat", next_mat), ("drain_rate", drain_rate),
+                        ("buf_cap", buf_cap), ("valid_mask", valid_mask),
+                        ("valid_mask_t", valid_mask_t), ("t_mask", t_mask)):
+            if a is not None and a.device != dev:
+                raise ValueError(f"noc_step: {name} is on {a.device}, "
+                                 f"arrivals on {dev}")
 
-    def per_run(a, shape, default=1.0):
-        a = torch.full(shape[1:], default, dtype=_F32, device=dev) \
-            if a is None else a.to(_F32)
-        if tuple(a.shape) not in (shape, shape[1:]):
-            raise ValueError(f"noc_step: expected {shape} or {shape[1:]}, "
-                             f"got {tuple(a.shape)}")
-        return a.expand(shape).contiguous()
+        def per_run(a, shape, default=1.0):
+            a = torch.full(shape[1:], default, dtype=_F32, device=dev) \
+                if a is None else a.to(_F32)
+            if tuple(a.shape) not in (shape, shape[1:]):
+                raise ValueError(f"noc_step: expected {shape} or "
+                                 f"{shape[1:]}, got {tuple(a.shape)}")
+            return a.expand(shape).contiguous()
 
-    mask = per_run(valid_mask, (b, r))
-    next_hop, in_src = routing(per_run(next_mat, (b, r, r)))
-    return {"arrivals": arrivals.to(_F32).contiguous(),
-            "t_mask": per_run(t_mask, (b, t)), "mask": mask,
-            # The static lane mask ANDs in here: the kernel sees one
-            # combined per-cycle mask plane.
-            "mask_t": None if valid_mask_t is None
-            else per_run(valid_mask_t, (b, t, r)) * mask[:, None, :],
-            "next_hop": next_hop, "in_src": in_src,
-            "drain": per_run(drain_rate, (b, r)),
-            "buf": per_run(buf_cap, (b, r)),
-            "r_active": active_prefix(mask, next_hop, in_src),
-            "link_rate": float(link_rate)}
+        mask = per_run(valid_mask, (b, r))
+        next_hop, in_src = routing(per_run(next_mat, (b, r, r)))
+        return {"arrivals": arrivals.to(_F32).contiguous(),
+                "t_mask": per_run(t_mask, (b, t)), "mask": mask,
+                # The static lane mask ANDs in here: the kernel sees one
+                # combined per-cycle mask plane.
+                "mask_t": None if valid_mask_t is None
+                else per_run(valid_mask_t, (b, t, r)) * mask[:, None, :],
+                "next_hop": next_hop, "in_src": in_src,
+                "drain": per_run(drain_rate, (b, r)),
+                "buf": per_run(buf_cap, (b, r)),
+                "r_active": active_prefix(mask, next_hop, in_src),
+                "link_rate": float(link_rate)}
 
 
 def run_prepared(p: dict, kernel: Optional[str] = None):
@@ -302,30 +314,31 @@ def run_prepared(p: dict, kernel: Optional[str] = None):
     (never synchronizes); returns (residency, final_occupancy, drained)
     [B, R]. `kernel` is "node" (the default) or "warp" (the first design,
     which tests and timing run on the same inputs, up to WARP_MAX_NODES)."""
-    kernel = "node" if kernel is None else kernel
-    if kernel not in KERNELS:
-        raise ValueError(f"noc_step: no {kernel!r} kernel (have "
-                         f"{sorted(KERNELS)})")
-    arrivals = p["arrivals"]
-    b, t, r = arrivals.shape
-    if kernel == "warp" and r > WARP_MAX_NODES:
-        raise ValueError(f"noc_step: the warp kernel supports up to "
-                         f"{WARP_MAX_NODES} nodes, got {r}")
-    lib = build()
-    out = [torch.empty((b, r), dtype=_F32, device=arrivals.device)
-           for _ in range(3)]
-    ptr = [None if p[k] is None else p[k].data_ptr() for k in
-           ("arrivals", "t_mask", "mask", "mask_t", "next_hop", "in_src",
-            "drain", "buf", "r_active")]
-    err = lib.noc_step_launch(
-        *ptr, *(o.data_ptr() for o in out), b, t, r, MAX_IN_DEGREE,
-        KERNELS[kernel], p["link_rate"],
-        torch.cuda.current_stream(arrivals.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"noc_step {kernel} kernel launch failed: CUDA "
-                           f"error {err}")
-    backend.count_launch(NAME, kernel)
-    return tuple(out)
+    with backend.span(NAME, backend.LAYER_KERNELS):
+        kernel = "node" if kernel is None else kernel
+        if kernel not in KERNELS:
+            raise ValueError(f"noc_step: no {kernel!r} kernel (have "
+                             f"{sorted(KERNELS)})")
+        arrivals = p["arrivals"]
+        b, t, r = arrivals.shape
+        if kernel == "warp" and r > WARP_MAX_NODES:
+            raise ValueError(f"noc_step: the warp kernel supports up to "
+                             f"{WARP_MAX_NODES} nodes, got {r}")
+        lib = build()
+        out = [torch.empty((b, r), dtype=_F32, device=arrivals.device)
+               for _ in range(3)]
+        ptr = [None if p[k] is None else p[k].data_ptr() for k in
+               ("arrivals", "t_mask", "mask", "mask_t", "next_hop", "in_src",
+                "drain", "buf", "r_active")]
+        err = lib.noc_step_launch(
+            *ptr, *(o.data_ptr() for o in out), b, t, r, MAX_IN_DEGREE,
+            KERNELS[kernel], p["link_rate"],
+            torch.cuda.current_stream(arrivals.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"noc_step {kernel} kernel launch failed: "
+                               f"CUDA error {err}")
+        backend.count_launch(NAME, kernel)
+        return tuple(out)
 
 
 def residency_arrivals(keys: torch.Tensor, ext_load: Sequence[float],
