@@ -1407,6 +1407,10 @@ def device_breakdown(fn, label: str, top: int = 6, phase: str = "6",
                 if us > 0:
                     by_op[e.key] = by_op.get(e.key, 0.0) + us
                 continue
+            if getattr(e, "is_user_annotation", False):
+                # A program span's range on the device timeline (over a
+                # graph replay's kernels, say), not device work of its own.
+                continue
             kernels[e.key] = kernels.get(e.key, 0.0) + us
     except Exception as e:                   # information only
         if raised:
@@ -4052,10 +4056,12 @@ def pareto_phase(dev, card: str) -> dict:
     of (a) and the first and last of (b) are held against the padded
     plain loop. Then per launch shape the device time (CUDA-graph
     replays), the plain loop's and the bound; the warm host ms per search
-    and per generation by stage; candidate evaluations per second; the
-    device idle share of a profiled warm (b); and (b)'s launch on its
-    64-chiplet lanes alone against its 256-chiplet lanes alone, padded
-    and unpadded (what "wide" costs per padded chiplet)."""
+    (the warm searches repeat (a)'s and (b)'s keys, so the first of each
+    captures the search as one CUDA graph and the others replay it) and
+    per generation of an eager loop, by stage; candidate evaluations per
+    second; the device idle share of a profiled warm (b); and (b)'s
+    launch on its 64-chiplet lanes alone against its 256-chiplet lanes
+    alone, padded and unpadded (what "wide" costs per padded chiplet)."""
     from repro_torch import backend
     from repro_torch import random as trandom
     from repro_torch.core import pareto as tpar
@@ -4107,13 +4113,19 @@ def pareto_phase(dev, card: str) -> dict:
 
     def checked_core(*args, **k):
         # The generation loop: no host synchronization may happen inside.
-        torch.cuda.synchronize()
+        # A repeated warm search is captured as a CUDA graph, which records
+        # the loop (a synchronization would end the capture) and runs it
+        # in replays: only an eager loop is timed.
+        capturing = torch.cuda.is_current_stream_capturing()
+        if not capturing:
+            torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         t0 = time.perf_counter()
         try:
             out = real_core(*args, **k)
         finally:
-            loop_ms.append((time.perf_counter() - t0) * 1e3)
+            if not capturing:
+                loop_ms.append((time.perf_counter() - t0) * 1e3)
             torch.cuda.set_sync_debug_mode(0)
         trails[part] = out[1]
         return out
@@ -4318,27 +4330,35 @@ def pareto_phase(dev, card: str) -> dict:
             out.append((time.perf_counter() - t0) * 1e3)
         return float(np.median(out))
 
-    warm, per_gen, by_stage, evals = {}, {}, {}, {}
+    # The warm searches repeat the main path's keys: the first of them
+    # captures the search as a CUDA graph, the others replay it.
+    warm, per_gen, by_stage, evals, graphs = {}, {}, {}, {}, {}
     tpar._codesign_core = checked_core
     try:
         for label in ("a", "b", "a-host"):
             loop_ms.clear()
             reps = 3
-            spans0 = S.engine_stats()["spans"]
+            stats0 = S.engine_stats()
             warm[label] = host_ms(entry[label], reps)
             gens = kw[label[0]]["generations"]
             evals[label] = res[label]["candidate_evals"] \
                 / (warm[label] / 1e3)
             if label == "a-host":
                 continue
-            per_gen[label] = float(np.median(loop_ms)) / gens
-            by_stage[label] = span_ms(spans0, S.engine_stats()["spans"],
+            stats1 = S.engine_stats()
+            per_gen[label] = (f"{float(np.median(loop_ms)) / gens:.3f}"
+                              if loop_ms else "none eager")
+            graphs[label] = tuple(
+                stats1[k] - stats0[k] for k in ("codesign_graph_captures",
+                                                "codesign_graph_replays"))
+            by_stage[label] = span_ms(stats0["spans"], stats1["spans"],
                                       reps)
     finally:
         tpar._codesign_core = real_core
     for label in ("a", "b"):
         say("10", f"({label}) warm host ms per search {warm[label]:.2f} "
-                  f"(median of 3), per generation {per_gen[label]:.3f}; "
+                  f"(median of 3; CUDA graph captures, replays "
+                  f"{graphs[label]}), per generation {per_gen[label]}; "
                   f"self ms a search by program span: "
                   f"{span_text(by_stage[label])}; "
                   f"{evals[label]:.0f} candidate evaluations per second; "

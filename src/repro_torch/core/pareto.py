@@ -29,7 +29,10 @@ pure sink and each point's chains start from that point's own default
 placement, so nothing one point computes reaches another's chains. The
 archive is replayed after the loop, in the reference's order (point, then
 generation, lanes island-major), on the device; the loop reads nothing
-back and the result's copy is the only device-to-host transfer.
+back and the result's copy is the only device-to-host transfer. So on the
+card a one-block search from its PRNG key to its packed result is
+captured as one CUDA graph, and a search of the same shapes and scalars
+replays it with one launch (`_SearchGraph`).
 
 The draws are the reference's, bit for bit (one `split(prng_key(seed), 5)`
 and five draws at its full [T, GEN, K, n_prop, ...] shapes). The scores
@@ -46,6 +49,7 @@ the topology (search their placements with `search_placement_islands`).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 from typing import Optional
@@ -58,6 +62,7 @@ from repro_torch import random as trandom
 from repro_torch.core import simulator as S
 from repro_torch.core import topology
 from repro_torch.core.constants import PHOTONIC_POWER
+from repro_torch.core.distributed import process_count
 from repro_torch.core.noc import uniform_mesh_mean_hops
 from repro_torch.core.search import _hyper, _one_move, _temperatures
 from repro_torch.core.selection import (N_DEFAULT_EDGE_SLOTS,
@@ -767,11 +772,140 @@ def _unpack(packed: np.ndarray, capacity: int, g: int, t_pts: int,
             "inc_s": inc_s.reshape(t_pts, k_isl)}
 
 
+# ---------------------------------------------------------------------------
+# The search as one CUDA graph
+# ---------------------------------------------------------------------------
+#
+# From the PRNG key to the packed result a one-block search reads nothing
+# back and every shape is fixed by its arguments, so on the card that
+# stretch (the draws, every generation, the archive replay) is captured
+# once and replayed with one launch. A key's first search runs eager (and
+# warms up what loads lazily: the kernel library, its launch attributes);
+# its second is captured and replayed, every later one only replayed.
+
+# The most search keys kept, least recently used dropped first (each
+# captured one holds its graph's device memory).
+_GRAPH_SLOTS = 4
+# Search key -> None after its first (eager) search, then its graph.
+_GRAPHS: "collections.OrderedDict[tuple, Optional[_SearchGraph]]" = \
+    collections.OrderedDict()
+
+
+def _graph_gate(engine: str, device, blocks: int, processes: int) -> bool:
+    """Whether a search may run as a captured graph: the device engine on a
+    CUDA device, one block of islands in one process (a sharded search
+    gathers across blocks and processes, and stays eager)."""
+    return (engine == "device" and torch.device(device).type == "cuda"
+            and blocks == 1 and processes == 1)
+
+
+def _graph_key(device, sim_p, grid: tuple, inputs: list, **scalars) -> tuple:
+    """What a capture bakes in: the device; the padded config, whose floats
+    reach `epoch_step`'s constants; the grid (`sim.cfg`, `cs`, `g`, `rs`:
+    the memoized rows the graph reads in place); every input tensor's
+    shape and dtype; and the search's Python scalars (generations,
+    population, migrate_every, archive, islands, w_axis, d_pad,
+    db_per_hop, a_bound, big_bound, restart_frac, the launch design)."""
+    return (str(device), sim_p, grid,
+            tuple((tuple(x.shape), x.dtype) for x in inputs),
+            tuple(sorted(scalars.items())))
+
+
+def _graph_slot(key: tuple):
+    """The captured search of `key`, or "eager" for the key's first search
+    (which leaves a mark), or "capture" for its second."""
+    if key in _GRAPHS:
+        _GRAPHS.move_to_end(key)
+        return _GRAPHS[key] or "capture"
+    _GRAPHS[key] = None
+    while len(_GRAPHS) > _GRAPH_SLOTS:
+        _GRAPHS.popitem(last=False)
+    return "eager"
+
+
+def _tensors(obj) -> list:
+    """The tensors inside `obj` (dataclasses, dicts, lists, tuples), in a
+    fixed order."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return [t for f in dataclasses.fields(obj)
+                for t in _tensors(getattr(obj, f.name))]
+    if isinstance(obj, dict):
+        return [t for v in obj.values() for t in _tensors(v)]
+    if isinstance(obj, (list, tuple)):
+        return [t for v in obj for t in _tensors(v)]
+    return []
+
+
+def _with_tensors(obj, new):
+    """`obj` with its tensors, in `_tensors` order, taken from the
+    iterator `new`."""
+    if isinstance(obj, torch.Tensor):
+        return next(new)
+    if not _tensors(obj):
+        return obj
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: _with_tensors(getattr(obj, f.name), new)
+            for f in dataclasses.fields(obj)})
+    if isinstance(obj, dict):
+        return {k: _with_tensors(v, new) for k, v in obj.items()}
+    return type(obj)(_with_tensors(v, new) for v in obj)
+
+
+class _SearchGraph:
+    """One captured search: the graph, the static tensors it reads and the
+    packed result it writes (both its own), and the `epoch_step` launches
+    and variants its capture recorded."""
+
+    def __init__(self, body, inputs, rows: dict):
+        # The rows are the grid's memoized tensors, the same objects for
+        # every search of the key: read in place. Every other input is
+        # copied into a static tensor of the graph's own.
+        keep = {id(t) for t in _tensors(rows)}
+        self.statics = [x if id(x) in keep else x.clone()
+                        for x in _tensors(inputs)]
+        args = _with_tensors(inputs, iter(self.statics))
+        counts = {k: dict(backend.COUNTERS[k])
+                  for k in ("launches", "variants")}
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph):
+                self.packed = body(*args)
+        finally:
+            # A capture launches nothing: it records what each replay adds.
+            self.counts = {k: {n: v - counts[k].get(n, 0)
+                               for n, v in backend.COUNTERS[k].items()
+                               if v != counts[k].get(n, 0)}
+                           for k in counts}
+            for k, v in counts.items():
+                backend.COUNTERS[k] = v
+        S._STATS["codesign_graph_captures"] += 1
+
+    def replay(self, inputs) -> torch.Tensor:
+        """Copy this search's inputs into the static tensors (where one is
+        not the static tensor itself), replay, count the recorded launches;
+        returns the packed result, which the next replay overwrites."""
+        for s, x in zip(self.statics, _tensors(inputs)):
+            if x is not s:
+                s.copy_(x)
+        self.graph.replay()
+        for k, added in self.counts.items():
+            counter = backend.COUNTERS[k]
+            for n, v in added.items():
+                counter[n] = counter.get(n, 0) + v
+        S._STATS["codesign_graph_replays"] += 1
+        return self.packed
+
+
 def clear_codesign_caches() -> None:
     """Drop the co-design's memoized device rows (each grid's padded LUTs
-    and per-point tables), so the next search copies them to the device
-    anew, as a first search does."""
+    and per-point tables) and its captured searches, so the next search
+    copies them to the device anew and runs eager, as a first search
+    does."""
     _codesign_topology.cache_clear()
+    _GRAPHS.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -863,7 +997,13 @@ def search_codesign(trace, sim, *, islands: int = None,
 
     The device engine makes `generations` `epoch_step` launches on the
     card (every point's chains in each), one device-to-host copy and one
-    `engine_stats()["search_dispatches"]`. `engine="host"` runs the same
+    `engine_stats()["search_dispatches"]`. On the card, as one block in
+    one process, a search whose shapes and scalars (`_graph_key`) were
+    searched before runs as one CUDA graph from its key to the packed
+    result: the second such search captures it
+    (`engine_stats()["codesign_graph_captures"]`), every one from there
+    replays it (`"codesign_graph_replays"`); the first runs eager, as
+    every other search does. `engine="host"` runs the same
     searcher with numpy randomness over `sweep_topology_batch` (one call
     per point and generation). Runs on the card unless `device="cpu"`.
 
@@ -914,10 +1054,10 @@ def search_codesign(trace, sim, *, islands: int = None,
             w_axis = int(arrays[0].shape[0]) if arrays[0].dim() == 3 else 1
             hyper = _hyper(temperature, cooling, restart_frac)
             g = gs[0]
-            draws = _draws(trandom.prng_key(seed, device=dev), len(cs),
-                           generations, islands, population - 1,
-                           int(rows["coords"].shape[1]), g,
-                           hyper["restart_frac"])
+            key = trandom.prng_key(seed, device=dev)
+            draw_shape = (len(cs), generations, islands, population - 1,
+                          int(rows["coords"].shape[1]), g,
+                          hyper["restart_frac"])
             temps = torch.as_tensor(_temperatures(
                 hyper["temperature"], hyper["cooling"], generations),
                 device=dev)
@@ -936,11 +1076,40 @@ def search_codesign(trace, sim, *, islands: int = None,
                         sim_p, scoring.xs,
                         dict(scoring.kwargs, topo=scoring.topo), lanes)
                 scorings.append(scoring)
-        packed, _trail = _codesign_core(
-            shard, scorings, draws, temps, rows,
-            torch.as_tensor(weights, device=dev), generations=generations,
-            population=population, migrate_every=migrate_every,
-            archive=archive, **statics)
+            weights_t = torch.as_tensor(weights, device=dev)
+            slot = "eager"
+            if _graph_gate(engine, dev, len(scorings), process_count()):
+                inputs = (key, temps, weights_t, rows, scorings)
+                sc = scorings[0]
+                gkey = _graph_key(
+                    dev, sim_p, (sim.cfg, tuple(cs), g, tuple(rs)),
+                    _tensors(inputs), generations=generations,
+                    population=population, migrate_every=migrate_every,
+                    archive=archive, islands=islands, w_axis=w_axis,
+                    restart_frac=hyper["restart_frac"],
+                    design=S._launch_design(
+                        sim_p, sc.xs, dict(sc.kwargs, topo=sc.topo),
+                        lanes), **statics)
+                slot = _graph_slot(gkey)
+            if slot == "eager":
+                draws = _draws(key, *draw_shape)
+        core_kw = dict(generations=generations, population=population,
+                       migrate_every=migrate_every, archive=archive,
+                       **statics)
+        if slot == "eager":
+            packed, _trail = _codesign_core(shard, scorings, draws, temps,
+                                            rows, weights_t, **core_kw)
+        else:
+            if slot == "capture":
+                # The eager code is the capture's body, run on the graph's
+                # static tensors.
+                def body(key, temps, weights_t, rows, scorings):
+                    return _codesign_core(
+                        shard, scorings, _draws(key, *draw_shape), temps,
+                        rows, weights_t, **core_kw)[0]
+                slot = _GRAPHS[gkey] = _SearchGraph(body, inputs, rows)
+            with backend.span("codesign.replay", backend.LAYER_TABLES):
+                packed = slot.replay(inputs)
         with backend.span("codesign.result", backend.LAYER_ENTRY):
             # Counted once the last generation is launched: a search that
             # raised never counts.

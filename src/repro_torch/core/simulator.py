@@ -514,17 +514,20 @@ def make_step(sim: SimConfig, tables: dict, knobs: Dict[str, torch.Tensor],
 # Engine core
 # ---------------------------------------------------------------------------
 
-# Device placement searches run (`core/search.py`): one per search, counted
-# once its last generation is launched, whatever the island count.
-_STATS = {"search_dispatches": 0}
+# Device placement and co-design searches run (`core/search.py`,
+# `core/pareto.py`): one per search, counted once its last generation is
+# launched, whatever the island count; and the co-design searches captured
+# as a CUDA graph and replayed (`pareto._SearchGraph`).
+_STATS = {"search_dispatches": 0, "codesign_graph_captures": 0,
+          "codesign_graph_replays": 0}
 
 
 def engine_stats() -> dict:
     """Kernel launches and builds, plain-loop runs, table and co-design
-    topology builds, device placement searches, and copies of the host
-    spans' and device-to-host reads' totals (`backend.span`,
-    `backend.count_host_read`): a snapshot keeps its values as later
-    spans run."""
+    topology builds, device searches, co-design graph captures and
+    replays, and copies of the host spans' and device-to-host reads'
+    totals (`backend.span`, `backend.count_host_read`): a snapshot keeps
+    its values as later spans run."""
     from repro_torch.core.pareto import _codesign_topology
 
     launches = dict(backend.COUNTERS["launches"])
@@ -537,6 +540,8 @@ def engine_stats() -> dict:
             "codesign_topology_builds":
                 _codesign_topology.cache_info().misses,
             "search_dispatches": _STATS["search_dispatches"],
+            "codesign_graph_captures": _STATS["codesign_graph_captures"],
+            "codesign_graph_replays": _STATS["codesign_graph_replays"],
             "spans": {k: dict(v)
                       for k, v in backend.COUNTERS["spans"].items()},
             "host_reads": {k: dict(v) for k, v in
@@ -545,7 +550,8 @@ def engine_stats() -> dict:
 
 def reset_engine_stats() -> None:
     backend.reset_counters()
-    _STATS["search_dispatches"] = 0
+    for k in _STATS:
+        _STATS[k] = 0
 
 
 def _initial_state(sim: SimConfig, knobs: Dict[str, torch.Tensor],

@@ -166,9 +166,11 @@ def uniform_range(key: torch.Tensor, shape, minval: float,
 
 
 def _to_range(u: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
-    lo = torch.tensor(minval, dtype=torch.float32)
-    span = float(torch.tensor(maxval, dtype=torch.float32) - lo)
-    return torch.maximum(lo.to(u.device), u * span + float(lo))
+    # The bounds as float32 on the host: the clamp takes `lo` as a scalar
+    # of the same bits, so nothing is copied to the device.
+    lo = float(np.float32(minval))
+    span = float(np.float32(np.float32(maxval) - np.float32(lo)))
+    return torch.clamp_min(u * span + lo, lo)
 
 
 # --- XLA's float32 elementary functions (CPU code generator) ---------------

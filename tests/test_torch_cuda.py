@@ -1161,6 +1161,183 @@ def test_sharded_searches_on_the_card_are_the_one_device_searches(
     _bitwise(got, one)
 
 
+# The co-design search as one CUDA graph (`pareto._SearchGraph`): six
+# generations, so six `epoch_step` launches a search.
+GRAPH_KW = dict(n_chiplets=[8, 16], mesh_radix=[4, 4], islands=2,
+                generations=6, population=3, archive=16,
+                knob_grids={"l_m": [0.01, 0.02]})
+
+
+def _graph_traces(dev, apps=("dedup", "streamcluster")):
+    from repro_torch.core.constants import NETWORK
+
+    cfg = NETWORK.with_topology(n_chiplets=16)
+    return [traffic.generate(traffic.ParsecSpec(a, 6), i, cfg, device=dev)
+            for i, a in enumerate(apps)]
+
+
+def _eager_search(traces, dev, **kw):
+    """A search as a key's first search runs it: eager."""
+    from repro_torch.core import pareto as tpar
+
+    tpar.clear_codesign_caches()
+    return tsim.search_codesign(traces, tsim.SimConfig(), device=dev, **kw)
+
+
+def _graph_counts() -> tuple:
+    stats = tsim.engine_stats()
+    return stats["codesign_graph_captures"], stats["codesign_graph_replays"]
+
+
+def test_codesign_graph_replays_are_the_eager_searches(cuda_device):
+    """Three searches of one key with different seeds through the graph
+    (the first captures) each equal the eager search of their seed bit
+    for bit: front, archive, history, incumbents and scores. The seeds'
+    results differ, so a replay of a stale key fails."""
+    from repro_torch.core import pareto as tpar
+
+    traces = _graph_traces(cuda_device)
+    seeds = (11, 12, 13)
+    want = {s: _eager_search(traces, cuda_device, seed=s, **GRAPH_KW)
+            for s in seeds}
+    assert not np.array_equal(want[11]["island_scores"],
+                              want[12]["island_scores"])
+    assert not np.array_equal(want[12]["island_scores"],
+                              want[13]["island_scores"])
+    tpar.clear_codesign_caches()
+    tsim.reset_engine_stats()
+    tsim.search_codesign(traces, tsim.SimConfig(), device=cuda_device,
+                         seed=10, **GRAPH_KW)
+    assert _graph_counts() == (0, 0)
+    for s in seeds:
+        got = tsim.search_codesign(traces, tsim.SimConfig(),
+                                   device=cuda_device, seed=s, **GRAPH_KW)
+        _bitwise(got, want[s])
+    assert _graph_counts() == (1, 3)
+    tpar.clear_codesign_caches()
+
+
+def test_codesign_graph_reads_new_knobs_and_traces(cuda_device):
+    """Knob-grid values and traces changed at equal shapes reach the
+    replay: each equals the eager search of its inputs bit for bit."""
+    from repro_torch.core import pareto as tpar
+
+    traces = _graph_traces(cuda_device)
+    other = _graph_traces(cuda_device, ("canneal", "facesim"))
+    knobs = dict(GRAPH_KW, knob_grids={"l_m": [0.015, 0.03]})
+    want_k = _eager_search(traces, cuda_device, seed=3, **knobs)
+    want_t = _eager_search(other, cuda_device, seed=3, **GRAPH_KW)
+    tpar.clear_codesign_caches()
+    tsim.reset_engine_stats()
+    for _ in range(2):             # eager, then the capture
+        tsim.search_codesign(traces, tsim.SimConfig(), device=cuda_device,
+                             seed=3, **GRAPH_KW)
+    got_k = tsim.search_codesign(traces, tsim.SimConfig(),
+                                 device=cuda_device, seed=3, **knobs)
+    got_t = tsim.search_codesign(other, tsim.SimConfig(),
+                                 device=cuda_device, seed=3, **GRAPH_KW)
+    assert _graph_counts() == (1, 3)
+    _bitwise(got_k, want_k)
+    _bitwise(got_t, want_t)
+    tpar.clear_codesign_caches()
+
+
+def test_codesign_graph_captures_a_keys_second_search(cuda_device):
+    """A key's first search runs eager and its second captures; a changed
+    `generations` or `archive` is another key and starts over; every
+    search of a key after its capture replays."""
+    from repro_torch.core import pareto as tpar
+
+    traces = _graph_traces(cuda_device)
+    tpar.clear_codesign_caches()
+    tsim.reset_engine_stats()
+    want = [(0, 0), (1, 1), (1, 2), (1, 2), (2, 3), (2, 3), (3, 4),
+            (3, 5)]
+    changes = [{}, {}, {}, dict(generations=7), dict(generations=7),
+               dict(archive=12), dict(archive=12), {}]
+    for change, counts in zip(changes, want):
+        tsim.search_codesign(traces, tsim.SimConfig(), device=cuda_device,
+                             seed=5, **dict(GRAPH_KW, **change))
+        assert _graph_counts() == counts, change
+    tpar.clear_codesign_caches()
+    assert not tpar._GRAPHS
+
+
+def test_codesign_graph_counts_the_launches_of_each_replay(cuda_device):
+    """`engine_stats()`: one capture, then replays, each adding the six
+    `epoch_step` launches and variants of the eager search; the capture
+    adds none."""
+    from repro_torch import backend
+    from repro_torch.core import pareto as tpar
+
+    traces = _graph_traces(cuda_device)
+    tpar.clear_codesign_caches()
+    tsim.reset_engine_stats()
+    tsim.search_codesign(traces, tsim.SimConfig(), device=cuda_device,
+                         seed=2, **GRAPH_KW)
+    launches = dict(backend.COUNTERS["launches"])
+    variants = dict(backend.COUNTERS["variants"])
+    assert launches == {"epoch_step": 6}
+    assert sum(variants.values()) == 6
+    for i in range(3):
+        tsim.reset_engine_stats()
+        tsim.search_codesign(traces, tsim.SimConfig(), device=cuda_device,
+                             seed=2 + i, **GRAPH_KW)
+        assert backend.COUNTERS["launches"] == launches
+        assert backend.COUNTERS["variants"] == variants
+        assert _graph_counts() == (int(i == 0), 1)
+        spans = tsim.engine_stats()["spans"]
+        assert spans["codesign.replay"]["n"] == 1
+        assert spans["codesign.replay"]["layer"] == "models and tables"
+        assert ("codesign.proposals" in spans) == (i == 0)
+    tpar.clear_codesign_caches()
+
+
+def test_codesign_graph_kernels_show_in_the_device_trace(cuda_device):
+    """A replayed search under the profiler: the `epoch_step` kernels
+    inside the graph appear by name among the traced device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import pareto as tpar
+
+    traces = _graph_traces(cuda_device)
+    tpar.clear_codesign_caches()
+    for seed in (1, 2):
+        tsim.search_codesign(traces, tsim.SimConfig(), device=cuda_device,
+                             seed=seed, **GRAPH_KW)
+    torch.cuda.synchronize()
+    tsim.reset_engine_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tsim.search_codesign(traces, tsim.SimConfig(), device=cuda_device,
+                             seed=3, **GRAPH_KW)
+        torch.cuda.synchronize()
+    assert _graph_counts() == (0, 1)
+    names = {e.key for e in prof.key_averages()}
+    assert any("epoch_wide_metrics_kernel" in n for n in names), \
+        sorted(names)[:40]
+    tpar.clear_codesign_caches()
+
+
+def test_codesign_over_two_blocks_on_one_card_stays_eager(cuda_device):
+    """Two blocks of islands on one card (`devices=["cuda:0"] * 2`), three
+    times: no capture, no replay, each the one-device search bit for
+    bit."""
+    from repro_torch.core import pareto as tpar
+
+    traces = _graph_traces(cuda_device)
+    one = _eager_search(traces, cuda_device, seed=4, **GRAPH_KW)
+    tsim.reset_engine_stats()
+    for _ in range(3):
+        got = tsim.search_codesign(traces, tsim.SimConfig(),
+                                   devices=["cuda:0"] * 2, seed=4,
+                                   **GRAPH_KW)
+        assert got.pop("sharding")["devices"] == 2
+        _bitwise(got, one)
+    assert _graph_counts() == (0, 0)
+    tpar.clear_codesign_caches()
+
+
 def test_laned_all_reduce_over_a_one_rank_nccl_group(cuda_device):
     import socket
 
