@@ -522,8 +522,14 @@ def padded_selection_tables_torch(cfgs, pad_to=None, device=None) -> dict:
         str(resolve_device(device)))
 
 
+# Misses of `_padded_tables_torch_cached` (`simulator.engine_stats()`'s
+# "padded_table_builds"; `reset_engine_stats()` zeroes it).
+TABLE_STATS = {"padded_table_builds": 0}
+
+
 @functools.lru_cache(maxsize=None)
 def _padded_tables_torch_cached(cfgs, pad_to, device: str) -> dict:
+    TABLE_STATS["padded_table_builds"] += 1
     return _build_selection_tables_padded_cached(cfgs, pad_to) \
         .as_torch(device)
 

@@ -68,7 +68,7 @@ from repro_torch.core.constants import (NETWORK, PHOTONIC_POWER,
 from repro_torch.core.gateway_controller import (ControllerConfig,
                                                  ControllerState, epoch_step)
 from repro_torch.core.noc import NocModel, uniform_mesh_mean_hops
-from repro_torch.core.selection import (N_DEFAULT_EDGE_SLOTS,
+from repro_torch.core.selection import (N_DEFAULT_EDGE_SLOTS, TABLE_STATS,
                                         build_selection_tables,
                                         mean_access_hops, normalize_placement,
                                         padded_selection_tables_torch,
@@ -523,11 +523,12 @@ _STATS = {"search_dispatches": 0, "codesign_graph_captures": 0,
 
 
 def engine_stats() -> dict:
-    """Kernel launches and builds, plain-loop runs, table and co-design
-    topology builds, device searches, co-design graph captures and
-    replays, and copies of the host spans' and device-to-host reads'
-    totals (`backend.span`, `backend.count_host_read`): a snapshot keeps
-    its values as later spans run."""
+    """Kernel launches and builds, plain-loop runs, table (unpadded and
+    padded device views) and co-design topology builds, device searches,
+    co-design graph captures and replays, and copies of the host spans'
+    and device-to-host reads' totals (`backend.span`,
+    `backend.count_host_read`): a snapshot keeps its values as later spans
+    run."""
     from repro_torch.core.pareto import _codesign_topology
 
     launches = dict(backend.COUNTERS["launches"])
@@ -537,6 +538,7 @@ def engine_stats() -> dict:
             "loop_runs": backend.COUNTERS["loop_runs"],
             "selection_table_builds":
                 build_selection_tables.cache_info().misses,
+            "padded_table_builds": TABLE_STATS["padded_table_builds"],
             "codesign_topology_builds":
                 _codesign_topology.cache_info().misses,
             "search_dispatches": _STATS["search_dispatches"],
@@ -552,6 +554,7 @@ def reset_engine_stats() -> None:
     backend.reset_counters()
     for k in _STATS:
         _STATS[k] = 0
+    TABLE_STATS["padded_table_builds"] = 0
 
 
 def _initial_state(sim: SimConfig, knobs: Dict[str, torch.Tensor],
@@ -1559,8 +1562,9 @@ def sweep_topology(trace: dict, sim: SimConfig, *, device=None,
     if _ndim(trace["ext_load"]) != 2:
         raise ValueError("sweep_topology takes one trace (ext_load [T, C]); "
                          "use sweep_topology_batch for a batch")
-    return _topo_run(trace, sim, (_topo_points(grids),), device=device,
-                     **grids)
+    with backend.span("sweep_topology", backend.LAYER_ENTRY):
+        return _topo_run(trace, sim, (_topo_points(grids),), device=device,
+                         **grids)
 
 
 def sweep_topology_batch(traces, sim: SimConfig, *, devices=None,
@@ -1568,15 +1572,17 @@ def sweep_topology_batch(traces, sim: SimConfig, *, devices=None,
     """N traces x K topologies as N*K trace-major lanes of one padded run
     ([N, K] results). `traces` is a list of same-width trace dicts (ragged
     lengths pad under a `t_mask`) or a `stack_traces` dict. `devices` with
-    more than one entry shards the K axis (see `shard_sweep`)."""
+    more than one entry shards the K axis (see `shard_sweep`). Opens the
+    entry span `sweep_topology`, as `sweep_topology` and `shard_sweep` do."""
     if devices is not None and len(list(devices)) > 1:
         return shard_sweep(traces, sim, devices=devices, **grids)
     if devices is not None and device is None:
         device = list(devices)[0]
-    batch = _stacked(traces)
-    return _topo_run(batch, sim, (int(np.shape(batch["ext_load"])[0]),
-                                  _topo_points(grids)),
-                     device=device, **grids)
+    with backend.span("sweep_topology", backend.LAYER_ENTRY):
+        batch = _stacked(traces)
+        return _topo_run(batch, sim, (int(np.shape(batch["ext_load"])[0]),
+                                      _topo_points(grids)),
+                         device=device, **grids)
 
 
 def _sharding_note(out: dict, describe: dict) -> dict:
@@ -1729,16 +1735,19 @@ def shard_sweep(traces, sim: SimConfig, *, devices=None, device=None,
     batched = not (isinstance(traces, dict)
                    and _ndim(traces["ext_load"]) == 2)
     k = _topo_points(grids)
-    gs, _ = _grid_sharding(k, devices, device)
-    batch = _stacked(traces) if batched else traces
-    sim_p, state0, xs, kw, nreal = topology_inputs(
-        batch, sim, device=gs.devices[0], **grids)
-    n = int(np.shape(batch["ext_load"])[0]) if batched else 1
-    return _sharding_note(_run_blocks(
-        gs, sim_p, state0, xs, None, kw, nreal,
-        lambda idx: (np.arange(n)[:, None] * k + idx[None, :]).reshape(-1),
-        lambda m: (n, m) if batched else (m,), axis=1 if batched else 0),
-        gs.describe())
+    with backend.span("sweep_topology", backend.LAYER_ENTRY):
+        gs, _ = _grid_sharding(k, devices, device)
+        batch = _stacked(traces) if batched else traces
+        sim_p, state0, xs, kw, nreal = topology_inputs(
+            batch, sim, device=gs.devices[0], **grids)
+        n = int(np.shape(batch["ext_load"])[0]) if batched else 1
+        return _sharding_note(_run_blocks(
+            gs, sim_p, state0, xs, None, kw, nreal,
+            lambda idx: (np.arange(n)[:, None] * k
+                         + idx[None, :]).reshape(-1),
+            lambda m: (n, m) if batched else (m,),
+            axis=1 if batched else 0),
+            gs.describe())
 
 
 # ---------------------------------------------------------------------------
