@@ -71,9 +71,12 @@ SOURCE_SUFFIXES = (".cu", ".cuh", ".h", ".hpp")
 # `builds[name]` counts nvcc runs (a cached library loads without one);
 # `loop_runs` counts runs of the plain interval loop; `spans[name]` holds
 # each host span's layer, count and total and self seconds (`span`);
-# `host_reads[name]` the count and bytes of device-to-host reads.
+# `host_reads[name]` the count and bytes of device-to-host reads;
+# `trace_checks` the value checks of trace arrays (`n`) and the checks sent
+# to the host path (`fallbacks`: a value or a key, dtype or shape at fault).
 COUNTERS: Dict[str, object] = {"launches": {}, "variants": {}, "builds": {},
-                               "loop_runs": 0, "spans": {}, "host_reads": {}}
+                               "loop_runs": 0, "spans": {}, "host_reads": {},
+                               "trace_checks": {"n": 0, "fallbacks": 0}}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _BUILD_LOGS: Dict[str, str] = {}
@@ -127,6 +130,12 @@ def count_host_read(name: str, nbytes: int) -> None:
         rec = reads[name] = {"n": 0, "bytes": 0}
     rec["n"] += 1
     rec["bytes"] += int(nbytes)
+
+
+def count_trace_check(fallback: bool = False) -> None:
+    """Count one value check of trace arrays, or (`fallback`) one check
+    sent to the host path."""
+    COUNTERS["trace_checks"]["fallbacks" if fallback else "n"] += 1
 
 
 # The layers a span's self time lands in (PERF.md's layers of the port).
@@ -260,6 +269,7 @@ def reset_counters() -> None:
     COUNTERS["loop_runs"] = 0
     COUNTERS["spans"] = {}
     COUNTERS["host_reads"] = {}
+    COUNTERS["trace_checks"] = {"n": 0, "fallbacks": 0}
 
 
 def _nvcc() -> str:

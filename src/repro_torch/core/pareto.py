@@ -495,9 +495,8 @@ def _codesign_batch(trace):
     stacked batch."""
     if isinstance(trace, dict) and S._ndim(trace["ext_load"]) == 3:
         return trace
-    return S.stack_traces(
-        list(trace) if isinstance(trace, (list, tuple)) else [trace],
-        pad=True)
+    return S._stacked(
+        list(trace) if isinstance(trace, (list, tuple)) else [trace])
 
 
 def _knob_grid(knobs: dict, islands: int, sim, gs) -> dict:

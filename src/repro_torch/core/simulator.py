@@ -61,6 +61,7 @@ import torch
 
 from repro_torch import backend
 from repro_torch.core import photonics, topology, traffic
+from repro_torch.core.traffic import transform as _transform
 from repro_torch.core.constants import (NETWORK, PHOTONIC_POWER,
                                         PROWAVES_MAX_WAVELENGTHS,
                                         PROWAVES_MIN_WAVELENGTHS,
@@ -527,7 +528,9 @@ def engine_stats() -> dict:
     padded device views) and co-design topology builds, device searches,
     co-design graph captures and replays, and copies of the host spans'
     and device-to-host reads' totals (`backend.span`,
-    `backend.count_host_read`): a snapshot keeps its values as later spans
+    `backend.count_host_read`) and of the trace value checks' counts
+    (`trace_checks`: `n` checks run, `fallbacks` sent to the host path,
+    `traffic.validate_trace`): a snapshot keeps its values as later spans
     run."""
     from repro_torch.core.pareto import _codesign_topology
 
@@ -547,7 +550,8 @@ def engine_stats() -> dict:
             "spans": {k: dict(v)
                       for k, v in backend.COUNTERS["spans"].items()},
             "host_reads": {k: dict(v) for k, v in
-                           backend.COUNTERS["host_reads"].items()}}
+                           backend.COUNTERS["host_reads"].items()},
+            "trace_checks": dict(backend.COUNTERS["trace_checks"])}
 
 
 def reset_engine_stats() -> None:
@@ -739,11 +743,24 @@ def _as_f32(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
 
+class _Checked(dict):
+    """A trace dict or stacked batch whose checks have passed in this call:
+    `_trace_arrays` and `stack_traces` do not check it again. Made inside
+    an entry point's call and never handed back, so nothing is taken as
+    checked across calls."""
+
+
+def _checked(trace: dict) -> _Checked:
+    return _Checked(traffic.validate_trace(trace))
+
+
 def _trace_arrays(trace: dict, device) -> tuple:
     """(ext, mem, intra, ext_frac, t_mask, dest) as float32 tensors on
     `device` — the one place trace dtypes are fixed (numpy float64 would
-    otherwise ride through as float64). dest is None unless present."""
-    traffic.validate_trace(trace)
+    otherwise ride through as float64). dest is None unless present. The
+    trace is checked here unless this call has checked it (`_Checked`)."""
+    if not isinstance(trace, _Checked):
+        traffic.validate_trace(trace)
     mem = _as_f32(trace["mem_load"], device)
     t_mask = trace.get("t_mask")
     t_mask = torch.ones_like(mem) if t_mask is None \
@@ -817,51 +834,90 @@ def _check_sweep_fields(fields, device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(a, device=device) for k, a in ov.items()}
 
 
+def _stacked_value_arrays(traces: List[dict], out: dict) -> tuple:
+    """The arrays whose values decide the checks of `traces` (which passed
+    `_meta_ok`), stacked into `out`: each key's float32 stack where every
+    trace's array is a tensor that the cast keeps the sign, NaN and
+    finiteness of (any dtype `_meta_ok` takes but float64), else the
+    traces' own arrays. (loads, destination matrices)."""
+    def arrays(k):
+        if all(isinstance(tr[k], torch.Tensor)
+               and tr[k].dtype != torch.float64 for tr in traces):
+            return [out[k]]
+        return [tr[k] for tr in traces]
+
+    loads = [x for k in traffic.TRACE_KEYS for x in arrays(k)]
+    return loads, arrays("dest") if "dest" in out else []
+
+
 def stack_traces(traces: List[dict], *, pad: bool = False) -> dict:
     """Stack N traces along a new leading batch axis.
 
     Mixed-length traces need `pad=True`: shorter ones zero-pad to the
     longest T under a `t_mask` [N, T]. A batch must be uniformly faulted or
     clean, and uniformly destination-aware or not.
+
+    Each trace's keys, dtypes and shapes are checked first; the values of
+    all of them at once, on the stacked arrays (one read from the card).
+    A fault in either is raised as `validate_trace(traces[i])` raises it,
+    for the first trace at fault, before any other error of the batch.
     """
     with backend.span("stack_traces", backend.LAYER_TABLES):
         if not traces:
             raise ValueError("stack_traces() needs at least one trace")
-        for i, tr in enumerate(traces):
-            traffic.validate_trace(tr, who=f"traces[{i}]")
-        chips = sorted({int(np.shape(tr["ext_load"])[-1]) for tr in traces})
-        if len(chips) != 1:
-            raise ValueError(
-                f"traces cover different chiplet counts {chips}; narrow them "
-                f"to one width first (traffic.slice_trace)")
-        lengths = [int(np.shape(tr["ext_load"])[0]) for tr in traces]
-        ragged = len(set(lengths)) > 1
-        if ragged and not pad:
-            raise ValueError(
-                f"traces have mixed lengths T={lengths}; pass pad=True to "
-                f"zero-pad them to T={max(lengths)} under a t_mask")
-        masked = pad or ragged or any("t_mask" in tr for tr in traces)
-        if masked:
-            traces = [traffic.pad_trace(tr, max(lengths)) for tr in traces]
-        n_faulted = sum(_has_faults(tr) for tr in traces)
-        if n_faulted not in (0, len(traces)):
-            raise ValueError(
-                f"{n_faulted}/{len(traces)} traces carry fault frames; a "
-                f"batch must be uniformly faulted or uniformly clean")
-        n_dest = sum(tr.get("dest") is not None for tr in traces)
-        if n_dest not in (0, len(traces)):
-            raise ValueError(
-                f"{n_dest}/{len(traces)} traces carry destination matrices; a "
-                f"batch must be uniformly destination-aware or not")
-        keys = ("ext_load", "mem_load", "int_load", "ext_frac") \
-            + (("t_mask",) if masked else ()) \
-            + (("dest",) if n_dest else ()) \
-            + (FAULT_KEYS if n_faulted else ())
-        dev = torch.as_tensor(traces[0]["ext_load"]).device
-        out = {k: torch.stack([_as_f32(tr[k], dev) for tr in traces])
-               for k in keys}
-        out["app"] = [tr.get("app", "?") for tr in traces]
+        whos = [f"traces[{i}]" for i in range(len(traces))]
+        checked = all(isinstance(tr, _Checked) for tr in traces)
+        if not checked and not all(map(_transform._meta_ok, traces)):
+            _transform._check_on_host(traces, whos)
+            checked = True
+        try:
+            out = _stack(traces, pad)
+        except Exception:
+            # A fault of a trace's values is raised before any error of
+            # the batch, as the checks of each trace came first.
+            if not checked:
+                _transform._check_on_host(traces, whos)
+            raise
+        if not checked and _transform._values_bad(
+                *_stacked_value_arrays(traces, out)):
+            _transform._check_on_host(traces, whos)
         return out
+
+
+def _stack(traces: List[dict], pad: bool) -> dict:
+    chips = sorted({int(np.shape(tr["ext_load"])[-1]) for tr in traces})
+    if len(chips) != 1:
+        raise ValueError(
+            f"traces cover different chiplet counts {chips}; narrow them "
+            f"to one width first (traffic.slice_trace)")
+    lengths = [int(np.shape(tr["ext_load"])[0]) for tr in traces]
+    ragged = len(set(lengths)) > 1
+    if ragged and not pad:
+        raise ValueError(
+            f"traces have mixed lengths T={lengths}; pass pad=True to "
+            f"zero-pad them to T={max(lengths)} under a t_mask")
+    masked = pad or ragged or any("t_mask" in tr for tr in traces)
+    if masked:
+        traces = [_transform._pad_checked(tr, max(lengths)) for tr in traces]
+    n_faulted = sum(_has_faults(tr) for tr in traces)
+    if n_faulted not in (0, len(traces)):
+        raise ValueError(
+            f"{n_faulted}/{len(traces)} traces carry fault frames; a "
+            f"batch must be uniformly faulted or uniformly clean")
+    n_dest = sum(tr.get("dest") is not None for tr in traces)
+    if n_dest not in (0, len(traces)):
+        raise ValueError(
+            f"{n_dest}/{len(traces)} traces carry destination matrices; a "
+            f"batch must be uniformly destination-aware or not")
+    keys = ("ext_load", "mem_load", "int_load", "ext_frac") \
+        + (("t_mask",) if masked else ()) \
+        + (("dest",) if n_dest else ()) \
+        + (FAULT_KEYS if n_faulted else ())
+    dev = torch.as_tensor(traces[0]["ext_load"]).device
+    out = {k: torch.stack([_as_f32(tr[k], dev) for tr in traces])
+           for k in keys}
+    out["app"] = [tr.get("app", "?") for tr in traces]
+    return out
 
 
 def epoch_inputs(traces, sim: SimConfig, *, device=None, faults=True,
@@ -881,9 +937,9 @@ def epoch_inputs(traces, sim: SimConfig, *, device=None, faults=True,
     with backend.span("epoch_inputs", backend.LAYER_TABLES):
         dev = backend.resolve_device(device)
         if isinstance(traces, (list, tuple)):
-            batch = stack_traces(list(traces), pad=True)
+            batch = _stacked(traces)
         elif np.ndim(traces["ext_load"]) == 2:
-            batch = stack_traces([traces])
+            batch = _Checked(stack_traces([traces]))
         else:
             batch = traces
         ext, mem, intra, ext_frac, t_mask, dest = _trace_arrays(batch, dev)
@@ -944,12 +1000,13 @@ def simulate(trace: dict, sim: SimConfig, *, device=None) -> dict:
     summary scalars. A trace carrying a complete fault frame (FAULT_KEYS)
     runs the fault path. Runs on the card unless `device="cpu"`."""
     with backend.span("simulate", backend.LAYER_ENTRY):
-        traffic.validate_trace(trace)
-        return _run(trace, sim, (), device=device)
+        return _run(_checked(trace), sim, (), device=device)
 
 
 def _stacked(traces) -> dict:
-    return stack_traces(list(traces), pad=True) \
+    """A list of traces stacked (ragged lengths padded) and checked in this
+    call; anything else as it is."""
+    return _Checked(stack_traces(list(traces), pad=True)) \
         if isinstance(traces, (list, tuple)) else traces
 
 
@@ -1835,9 +1892,9 @@ def sweep_workload(specs, sim: SimConfig, *, seed: int = 0, keys=None,
                 f"non-sweepable fields: {sorted(unknown)} (topology: "
                 f"{TOPOLOGY_SWEEPABLE_FIELDS}, runtime: {SWEEPABLE_FIELDS})")
         gen_cfg = sim.cfg
-    batch = stack_traces([traffic.generate(s, keys[i], gen_cfg, dest=dest,
-                                           device=dev)
-                          for i, s in enumerate(specs)], pad=True)
+    batch = _stacked([traffic.generate(s, keys[i], gen_cfg, dest=dest,
+                                       device=dev)
+                      for i, s in enumerate(specs)])
     if topo_grids:
         sim_p, state0, xs, kw, nreal = topology_inputs(
             batch, sim, device=dev, zipped=True, pad_chiplets=pad_chiplets,
@@ -1885,7 +1942,7 @@ def simulate_eager(trace: dict, sim: SimConfig, *, device=None) -> dict:
     reference's seed-parity baseline for engine benchmarks; not for
     sweeps). Like the reference's, it reads no fault frame. Runs on the
     card unless `device="cpu"`."""
-    traffic.validate_trace(trace)
+    trace = _checked(trace)
     dev = backend.resolve_device(device)
     state0, xs, _, kw = epoch_inputs(trace, sim, device=dev, faults=False)
     _, recs = _scan_trace(state0, xs, sim,

@@ -54,7 +54,20 @@ def validate_trace(trace, who: str = "trace") -> dict:
 
     Raises TypeError for non-dicts and ValueError for missing keys, NaN or
     negative loads, and malformed destination matrices.
+
+    Keys, dtypes and shapes need no values. The values of a tensor on the
+    card reduce there, and the reductions are read back together once
+    (`_values_bad`); only a fault, or an array the reductions do not take,
+    sends the trace to the host path, which raises the message.
     """
+    if not _meta_ok(trace) or _values_bad(
+            [trace[k] for k in TRACE_KEYS],
+            [] if trace.get("dest") is None else [trace["dest"]]):
+        _check_on_host([trace], [who])
+    return trace
+
+
+def _check_one_on_host(trace, who: str) -> None:
     if not isinstance(trace, dict):
         raise TypeError(
             f"{who} must be a trace dict with keys {TRACE_KEYS} "
@@ -92,7 +105,96 @@ def validate_trace(trace, who: str = "trace") -> dict:
             raise ValueError(
                 f"{who}['dest'] must be finite and non-negative (a "
                 f"row-stochastic destination distribution)")
-    return trace
+
+
+def _check_on_host(traces, whos) -> None:
+    """The host path of `validate_trace`: each trace's every array copied
+    to the host and scanned, in order, raising the first fault's message
+    (`whos[i]` names `traces[i]`). Counted as a fallback."""
+    backend.count_trace_check(fallback=True)
+    for trace, who in zip(traces, whos):
+        _check_one_on_host(trace, who)
+
+
+# The dtypes whose values `_values_bad` reduces as tensors; any other sends
+# the trace to the host path, which decides as numpy does.
+_REDUCIBLE = (torch.float32, torch.float64, torch.float16, torch.bfloat16,
+              torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64)
+
+
+def _size(x) -> int:
+    return x.numel() if isinstance(x, torch.Tensor) else int(np.size(x))
+
+
+def _reducible(x) -> bool:
+    if isinstance(x, torch.Tensor):
+        return x.dtype in _REDUCIBLE
+    return np.asarray(x).dtype.kind in "fiu"
+
+
+def _meta_ok(trace) -> bool:
+    """Whether `trace` passes every check of `validate_trace` that needs no
+    values: a dict with every key, real numeric (not bool) arrays, a `dest`
+    of the right shape."""
+    if not isinstance(trace, dict) \
+            or any(k not in trace for k in TRACE_KEYS) \
+            or not all(_reducible(trace[k]) for k in TRACE_KEYS) \
+            or np.ndim(trace["ext_load"]) == 0:
+        return False
+    d = trace.get("dest")
+    if d is None:
+        return True
+    shape = tuple(np.shape(d))
+    return _reducible(d) and len(shape) in (2, 3) and shape[-2] == shape[-1] \
+        == np.shape(trace["ext_load"])[-1]
+
+
+# The site of the one device-to-host read of a value check.
+CHECK_READ = "traffic.values_bad"
+
+
+def _read(values) -> list:
+    """`values` as Python numbers; those on the card are stacked and read
+    back once per device."""
+    out = list(values)
+    on_card = {}
+    for i, v in enumerate(values):
+        if isinstance(v, torch.Tensor) and v.is_cuda:
+            on_card.setdefault(v.device, []).append(i)
+        else:
+            out[i] = v.item()
+    for idx in on_card.values():
+        vals = [values[i] for i in idx]
+        if len({v.dtype for v in vals}) > 1:
+            vals = [v.to(torch.float64) for v in vals]
+        host = torch.stack(vals).cpu()
+        backend.count_host_read(CHECK_READ, host.nbytes)
+        for i, v in zip(idx, host.tolist()):
+            out[i] = v
+    return out
+
+
+def _values_bad(loads, dests=()) -> bool:
+    """Whether a load holds NaN or a negative value, or a destination
+    matrix a value that is not finite or is negative: each array reduced
+    to its minimum (NaN where any value is NaN) and, for a destination
+    matrix, its maximum, where it lives. Counted as one check. The arrays
+    are real numeric (`_meta_ok`)."""
+    backend.count_trace_check()
+    lows, highs = [], []
+    for x in loads:
+        if _size(x):
+            lows.append(torch.amin(x) if isinstance(x, torch.Tensor)
+                        else np.min(x))
+    for x in dests:
+        if _size(x):
+            lo, hi = torch.aminmax(x) if isinstance(x, torch.Tensor) \
+                else (np.min(x), np.max(x))
+            lows.append(lo)
+            highs.append(hi)
+    vals = _read(lows + highs)
+    return any(not (v >= 0) for v in vals[:len(lows)]) \
+        or any(v == np.inf for v in vals[len(lows):])
 
 
 def trace_length(trace: dict) -> int:
@@ -133,7 +235,11 @@ def pad_trace(trace: dict, n_intervals: int) -> dict:
     engine reduction; already-padded traces extend their existing mask, and
     any extra per-interval array (leading axis T) is padded along.
     """
-    validate_trace(trace)
+    return _pad_checked(validate_trace(trace), n_intervals)
+
+
+def _pad_checked(trace: dict, n_intervals: int) -> dict:
+    """`pad_trace` of a trace whose checks have passed in this call."""
     t = int(np.shape(trace["ext_load"])[0])
     if n_intervals < t:
         raise ValueError(f"cannot pad a {t}-interval trace down to "
