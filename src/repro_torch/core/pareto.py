@@ -1070,25 +1070,20 @@ def search_codesign(trace, sim, *, islands: int = None,
                     sim_p, rows_b,
                     {f: v[:, idx] for f, v in knob_grid.items()},
                     arrays_b, population, np.asarray(cs))
-                if len(idx) < islands:   # a block launches the whole design
-                    scoring.kwargs["kernel"] = S._launch_design(
-                        sim_p, scoring.xs,
-                        dict(scoring.kwargs, topo=scoring.topo), lanes)
+                design = S._pin_design(sim_p, scoring.xs, scoring.kwargs,
+                                       lanes, topo=scoring.topo)
                 scorings.append(scoring)
             weights_t = torch.as_tensor(weights, device=dev)
             slot = "eager"
             if _graph_gate(engine, dev, len(scorings), process_count()):
                 inputs = (key, temps, weights_t, rows, scorings)
-                sc = scorings[0]
                 gkey = _graph_key(
                     dev, sim_p, (sim.cfg, tuple(cs), g, tuple(rs)),
                     _tensors(inputs), generations=generations,
                     population=population, migrate_every=migrate_every,
                     archive=archive, islands=islands, w_axis=w_axis,
-                    restart_frac=hyper["restart_frac"],
-                    design=S._launch_design(
-                        sim_p, sc.xs, dict(sc.kwargs, topo=sc.topo),
-                        lanes), **statics)
+                    restart_frac=hyper["restart_frac"], design=design,
+                    **statics)
                 slot = _graph_slot(gkey)
             if slot == "eager":
                 draws = _draws(key, *draw_shape)

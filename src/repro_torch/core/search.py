@@ -354,19 +354,18 @@ def _run(trace, sim, keys: torch.Tensor, prepared: tuple, overrides, *,
     generation), the chains, and the one device-to-host copy. `keys` are
     the chains' [K, 2] keys, `prepared` what `_prepare_search` returns,
     `overrides` the [K] knob grids; `chains` the whole search's chain
-    count (when these are fewer, one block of a sharded search, each
-    generation launches the whole search's `epoch_step` design). The caller
-    counts the search's `search_dispatches`."""
+    count, default K (when K is fewer, one block of a sharded search, each
+    generation launches the whole search's `epoch_step` design:
+    `simulator._pin_design`). The caller counts the search's
+    `search_dispatches`."""
     default_p, parent_p, inject_default, blocked = prepared
     dev, n_k, cfg = keys.device, int(keys.shape[0]), sim.cfg
     lanes = {f: torch.as_tensor(v, device=dev).repeat_interleave(population)
              for f, v in (overrides or {}).items()}
     scoring = S.placement_scoring(trace, sim, n_k * population, device=dev,
                                   overrides=lanes)
-    if chains is not None and chains > n_k:
-        scoring.kwargs["kernel"] = S._launch_design(
-            sim, scoring.xs, dict(scoring.kwargs, topo=scoring.topo),
-            chains * population)
+    S._pin_design(sim, scoring.xs, scoring.kwargs,
+                  (chains or n_k) * population, topo=scoring.topo)
     hyper = _hyper(temperature, cooling, restart_frac)
     draws = _draws(keys, generations, population - 1, _mesh_coords(cfg, dev),
                    blocked, cfg.max_gateways_per_chiplet,

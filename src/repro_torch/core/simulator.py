@@ -61,7 +61,9 @@ import torch
 
 from repro_torch import backend
 from repro_torch.core import photonics, topology, traffic
-from repro_torch.core.traffic import transform as _transform
+from repro_torch.core.traffic.transform import (pad_checked,
+                                                renormalize_rows,
+                                                stack_checked)
 from repro_torch.core.constants import (NETWORK, PHOTONIC_POWER,
                                         PROWAVES_MAX_WAVELENGTHS,
                                         PROWAVES_MIN_WAVELENGTHS,
@@ -675,9 +677,7 @@ def _launch_design(sim: SimConfig, xs: tuple, kw: dict,
                    lanes: int) -> Optional[str]:
     """The `epoch_step` design one launch of `lanes` lanes of these inputs
     runs (`ops.variant`), None where the plain loop runs or the wrapper
-    refuses the width. A sharded run passes the whole grid's design to
-    every block, so each block's launch runs what the one-device call
-    would."""
+    refuses the width."""
     from repro_torch.kernels.epoch_step import ops
 
     c = int(xs[0].shape[-1])
@@ -686,6 +686,18 @@ def _launch_design(sim: SimConfig, xs: tuple, kw: dict,
     return ops.variant(c, bool(kw.get("faulted")),
                        kw.get("dest") is not None, lanes,
                        kw.get("topo") is not None)
+
+
+def _pin_design(sim: SimConfig, xs: tuple, kw: dict, lanes: int, *,
+                topo: Optional[dict] = None) -> Optional[str]:
+    """Return the `epoch_step` design of a run of `lanes` lanes, and pin a
+    smaller block of it to that design (`kw["kernel"]`, `kw` the block's
+    loop kwargs; `topo` where `kw` holds none), so each block of a split
+    run launches what the one-device call would, bit for bit."""
+    design = _launch_design(sim, xs, {"topo": topo, **kw}, lanes)
+    if int(kw["lane_trace"].shape[0]) < lanes:
+        kw["kernel"] = design
+    return design
 
 
 def _lane_total(x: torch.Tensor) -> torch.Tensor:
@@ -834,22 +846,6 @@ def _check_sweep_fields(fields, device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(a, device=device) for k, a in ov.items()}
 
 
-def _stacked_value_arrays(traces: List[dict], out: dict) -> tuple:
-    """The arrays whose values decide the checks of `traces` (which passed
-    `_meta_ok`), stacked into `out`: each key's float32 stack where every
-    trace's array is a tensor that the cast keeps the sign, NaN and
-    finiteness of (any dtype `_meta_ok` takes but float64), else the
-    traces' own arrays. (loads, destination matrices)."""
-    def arrays(k):
-        if all(isinstance(tr[k], torch.Tensor)
-               and tr[k].dtype != torch.float64 for tr in traces):
-            return [out[k]]
-        return [tr[k] for tr in traces]
-
-    loads = [x for k in traffic.TRACE_KEYS for x in arrays(k)]
-    return loads, arrays("dest") if "dest" in out else []
-
-
 def stack_traces(traces: List[dict], *, pad: bool = False) -> dict:
     """Stack N traces along a new leading batch axis.
 
@@ -857,31 +853,18 @@ def stack_traces(traces: List[dict], *, pad: bool = False) -> dict:
     longest T under a `t_mask` [N, T]. A batch must be uniformly faulted or
     clean, and uniformly destination-aware or not.
 
-    Each trace's keys, dtypes and shapes are checked first; the values of
-    all of them at once, on the stacked arrays (one read from the card).
-    A fault in either is raised as `validate_trace(traces[i])` raises it,
+    The traces are checked as `traffic.transform.stack_checked` checks a
+    batch: each trace's keys, dtypes and shapes first; the values of all
+    of them at once, on the stacked arrays (one read from the card). A
+    fault in either is raised as `validate_trace(traces[i])` raises it,
     for the first trace at fault, before any other error of the batch.
     """
     with backend.span("stack_traces", backend.LAYER_TABLES):
         if not traces:
             raise ValueError("stack_traces() needs at least one trace")
-        whos = [f"traces[{i}]" for i in range(len(traces))]
-        checked = all(isinstance(tr, _Checked) for tr in traces)
-        if not checked and not all(map(_transform._meta_ok, traces)):
-            _transform._check_on_host(traces, whos)
-            checked = True
-        try:
-            out = _stack(traces, pad)
-        except Exception:
-            # A fault of a trace's values is raised before any error of
-            # the batch, as the checks of each trace came first.
-            if not checked:
-                _transform._check_on_host(traces, whos)
-            raise
-        if not checked and _transform._values_bad(
-                *_stacked_value_arrays(traces, out)):
-            _transform._check_on_host(traces, whos)
-        return out
+        if all(isinstance(tr, _Checked) for tr in traces):
+            return _stack(traces, pad)
+        return stack_checked(traces, lambda trs: _stack(trs, pad))
 
 
 def _stack(traces: List[dict], pad: bool) -> dict:
@@ -898,7 +881,7 @@ def _stack(traces: List[dict], pad: bool) -> dict:
             f"zero-pad them to T={max(lengths)} under a t_mask")
     masked = pad or ragged or any("t_mask" in tr for tr in traces)
     if masked:
-        traces = [_transform._pad_checked(tr, max(lengths)) for tr in traces]
+        traces = [pad_checked(tr, max(lengths)) for tr in traces]
     n_faulted = sum(_has_faults(tr) for tr in traces)
     if n_faulted not in (0, len(traces)):
         raise ValueError(
@@ -974,14 +957,26 @@ def epoch_inputs(traces, sim: SimConfig, *, device=None, faults=True,
 def _run(traces, sim: SimConfig, shape, *, device, faults=True,
          zipped=False, **fields) -> dict:
     """Shared body of the unpadded entry points: N x K lanes (N zipped
-    lanes) as one block through `_run_blocks`; the lane axis of every
-    result is reshaped to `shape`."""
+    lanes) through `_run_lanes`; the lane axis of every result is reshaped
+    to `shape`."""
     state0, xs, tables, kw = epoch_inputs(traces, sim, device=device,
                                           faults=faults, zipped=zipped,
                                           **fields)
-    return _run_blocks(_one_block(kw["lane_trace"]), sim, state0, xs,
-                       tables, kw, sim.cfg.n_chiplets, lambda idx: idx,
-                       lambda m: shape)
+    return _run_lanes(sim, state0, xs, tables, kw, sim.cfg.n_chiplets,
+                      shape)
+
+
+def _run_lanes(sim: SimConfig, state0: SimState, xs: tuple, tables,
+               kw: dict, nreal, shape) -> dict:
+    """The body of every run of a set of lanes on one device: the interval
+    loop, then the mask-correct summaries (means over `nreal` chiplets),
+    every result's lane axis reshaped to `shape`. A split run
+    (`_run_blocks`) runs it once for each of its blocks."""
+    _, recs = _scan_trace(state0, xs, sim, tables, **kw)
+    with backend.span("summaries", backend.LAYER_ENTRY):
+        summary = _summary_from_sums(
+            _record_sums(recs, xs[4][kw["lane_trace"]]), nreal)
+    return _shaped(recs, summary, shape)
 
 
 def _shaped(recs: dict, summary: dict, shape) -> dict:
@@ -1094,18 +1089,16 @@ def sweep_faults(trace: dict, sim: SimConfig, frames, *, device=None,
             f"{int(next(iter(ov.values())).shape[0])} but there are {k} "
             f"fault frames — the axes zip lane-for-lane")
     knobs = default_knobs(sim, k, dev, ov)
-    tm = t_mask.expand(k, t)
     xs = ((ext * t_mask[:, None]).expand(k, *ext.shape),
           (mem * t_mask).expand(k, t), (intra * t_mask[:, None])
-          .expand(k, *intra.shape), ext_frac.expand(k, t), tm) + flt
-    _, recs = _scan_trace(
-        _initial_state(sim, knobs), xs, sim,
-        selection_tables_torch(sim.cfg, dev),
-        dest=None if dest is None else dest.expand(k, *dest.shape),
-        faulted=True, lane_trace=torch.arange(k, device=dev), knobs=knobs)
-    return {"records": recs,
-            "summary": _summary_from_sums(_record_sums(recs, tm),
-                                          sim.cfg.n_chiplets)}
+          .expand(k, *intra.shape), ext_frac.expand(k, t),
+          t_mask.expand(k, t)) + flt
+    kw = dict(dest=None if dest is None else dest.expand(k, *dest.shape),
+              faulted=True, lane_trace=torch.arange(k, device=dev),
+              knobs=knobs)
+    return _run_lanes(sim, _initial_state(sim, knobs), xs,
+                      selection_tables_torch(sim.cfg, dev), kw,
+                      sim.cfg.n_chiplets, (k,))
 
 
 # ---------------------------------------------------------------------------
@@ -1486,8 +1479,7 @@ def _topo_trace_arrays(trace_or_batch, c_max: int, device) -> tuple:
     if dest is not None:
         # Narrowed and re-normalized once here; each lane then masks it to
         # its own chiplet count (`_pair_destinations`).
-        from repro_torch.core.traffic.transform import _renormalize_rows
-        dest = _renormalize_rows(dest[..., :c_max, :c_max])
+        dest = renormalize_rows(dest[..., :c_max, :c_max])
     return (ext[..., :c_max], mem, intra[..., :c_max], ext_frac, t_mask,
             dest)
 
@@ -1584,14 +1576,13 @@ def topology_inputs(batch, sim: SimConfig, *, device=None, zipped=False,
 
 def _topo_run(batch, sim: SimConfig, shape, *, device, zipped=False,
               pad_chiplets=None, **grids) -> dict:
-    """Shared body of the padded entry points: the grid's lanes as one
-    block through `_run_blocks` (mean wavelengths over each lane's real
-    chiplets); every result's lane axis reshaped to `shape`."""
+    """Shared body of the padded entry points: the grid's lanes through
+    `_run_lanes` (mean wavelengths over each lane's real chiplets); every
+    result's lane axis reshaped to `shape`."""
     sim_p, state0, xs, kw, nreal = topology_inputs(
         batch, sim, device=device, zipped=zipped, pad_chiplets=pad_chiplets,
         **grids)
-    return _run_blocks(_one_block(kw["lane_trace"]), sim_p, state0, xs,
-                       None, kw, nreal, lambda idx: idx, lambda m: shape)
+    return _run_lanes(sim_p, state0, xs, None, kw, nreal, shape)
 
 
 def _topo_points(grids) -> int:
@@ -1671,27 +1662,14 @@ def _grid_sharding(k: int, devices, device, logical_axis: str = "sweep"):
                         across_processes=False), False
 
 
-def _one_block(lane_trace: torch.Tensor):
-    """Every lane of a run as one block on this process, on the lanes'
-    device."""
-    from repro_torch.core.distributed import GridSharding
-
-    return GridSharding(int(lane_trace.shape[0]),
-                        devices=[lane_trace.device], across_processes=False)
-
-
 def _block_inputs(state0: SimState, xs: tuple, tables, kw: dict, nreal,
                   lanes: np.ndarray, device, host: dict) -> tuple:
     """The loop inputs of lanes `lanes` (indices into the run's lane axis)
     on `device`: the carry and every per-lane input picked, the traces
     (and destination matrices) narrowed to those the lanes read and
-    renumbered, the rest moved. A block of every lane in order on the
-    inputs' own device takes them as they are. `host` caches the host
-    copies of the lane maps, filled on first use."""
+    renumbered, the rest moved. `host` caches the host copies of the lane
+    maps, filled on first use."""
     src = state0.ctl.g.device
-    b = int(kw["lane_trace"].shape[0])
-    if torch.device(device) == src and np.array_equal(lanes, np.arange(b)):
-        return state0, xs, tables, kw, nreal
     if not host:
         for k in ("lane_trace", "dest_index", "pair_trace"):
             if kw.get(k) is not None:
@@ -1746,32 +1724,25 @@ def _block_inputs(state0: SimState, xs: tuple, tables, kw: dict, nreal,
 
 
 def _run_blocks(gs, sim: SimConfig, state0: SimState, xs: tuple, tables,
-                kw: dict, nreal, lanes_of, shape_of, *,
-                axis: int = 0) -> dict:
-    """The body of every sweep: this process's blocks of a grid (`gs`, a
-    `GridSharding`; one block for a one-device run) through the interval
-    loop, then the mask-correct summaries (means over `nreal` chiplets),
-    gathered on every process. `lanes_of(idx)` gives the lanes [int64] of
-    grid indices `idx`, `shape_of(n)` a block's result shape. Every block
-    runs at the whole run's padded shapes and launches the whole run's
-    `epoch_step` design (`_launch_design`), so the gathered result equals
-    the one-block run's bit for bit."""
+                kw: dict, nreal, shape) -> dict:
+    """A split run of lanes shaped `shape` (trace-major, the grid `gs`, a
+    sharded `GridSharding`, on its last axis): this process's blocks of
+    the grid each through `_run_lanes`, gathered on every process. Every
+    block runs at the whole run's padded shapes and is pinned to its
+    `epoch_step` design (`_pin_design`), so the gathered result equals
+    the one-device run's bit for bit."""
+    *lead, k = shape
     n_lanes = int(kw["lane_trace"].shape[0])
-    design = _launch_design(sim, xs, kw, n_lanes)
     outs, host = [], {}
     for dev, idx in gs.local_blocks():
-        lanes = np.asarray(lanes_of(idx))
+        lanes = (np.arange(int(np.prod(lead)))[:, None] * k
+                 + idx[None, :]).reshape(-1)
         state_b, xs_b, tables_b, kw_b, nreal_b = _block_inputs(
             state0, xs, tables, kw, nreal, lanes, dev, host)
-        # A block of every lane launches what the wrapper itself chooses.
-        _, recs = _scan_trace(state_b, xs_b, sim, tables_b,
-                              kernel=design if lanes.size < n_lanes
-                              else None, **kw_b)
-        with backend.span("summaries", backend.LAYER_ENTRY):
-            summary = _summary_from_sums(
-                _record_sums(recs, xs_b[4][kw_b["lane_trace"]]), nreal_b)
-        outs.append(_shaped(recs, summary, shape_of(len(idx))))
-    return gs.gather(outs, axis=axis)
+        _pin_design(sim, xs_b, kw_b, n_lanes)
+        outs.append(_run_lanes(sim, state_b, xs_b, tables_b, kw_b, nreal_b,
+                               (*lead, len(idx))))
+    return gs.gather(outs, axis=len(lead))
 
 
 def shard_sweep(traces, sim: SimConfig, *, devices=None, device=None,
@@ -1787,24 +1758,23 @@ def shard_sweep(traces, sim: SimConfig, *, devices=None, device=None,
     design, so the result equals the one-device call bit for bit. The
     result carries `summary["pad_lanes"]` and a top-level `"sharding"`
     description. One device in one process runs `device` (default the
-    first of `devices`, else the card) as one block. A failure in the
-    sharded path raises; nothing falls back."""
+    first of `devices`, else the card) as one run of every lane. A failure
+    in the sharded path raises; nothing falls back."""
     batched = not (isinstance(traces, dict)
                    and _ndim(traces["ext_load"]) == 2)
     k = _topo_points(grids)
     with backend.span("sweep_topology", backend.LAYER_ENTRY):
-        gs, _ = _grid_sharding(k, devices, device)
+        gs, sharded = _grid_sharding(k, devices, device)
         batch = _stacked(traces) if batched else traces
         sim_p, state0, xs, kw, nreal = topology_inputs(
             batch, sim, device=gs.devices[0], **grids)
-        n = int(np.shape(batch["ext_load"])[0]) if batched else 1
-        return _sharding_note(_run_blocks(
-            gs, sim_p, state0, xs, None, kw, nreal,
-            lambda idx: (np.arange(n)[:, None] * k
-                         + idx[None, :]).reshape(-1),
-            lambda m: (n, m) if batched else (m,),
-            axis=1 if batched else 0),
-            gs.describe())
+        shape = (int(np.shape(batch["ext_load"])[0]), k) if batched \
+            else (k,)
+        if sharded:
+            out = _run_blocks(gs, sim_p, state0, xs, None, kw, nreal, shape)
+        else:
+            out = _run_lanes(sim_p, state0, xs, None, kw, nreal, shape)
+        return _sharding_note(out, gs.describe())
 
 
 # ---------------------------------------------------------------------------
@@ -1905,9 +1875,10 @@ def sweep_workload(specs, sim: SimConfig, *, seed: int = 0, keys=None,
         state0, xs, tables, kw = epoch_inputs(batch, sim, device=dev,
                                               faults=False, zipped=True,
                                               **grids)
-    out = _run_blocks(gs, sim_p, state0, xs, tables, kw, nreal,
-                      lambda idx: idx, lambda m: (m,))
-    return _sharding_note(out, gs.describe()) if sharded else out
+    if not sharded:
+        return _run_lanes(sim_p, state0, xs, tables, kw, nreal, (k,))
+    return _sharding_note(_run_blocks(gs, sim_p, state0, xs, tables, kw,
+                                      nreal, (k,)), gs.describe())
 
 
 # ---------------------------------------------------------------------------
@@ -1945,11 +1916,8 @@ def simulate_eager(trace: dict, sim: SimConfig, *, device=None) -> dict:
     trace = _checked(trace)
     dev = backend.resolve_device(device)
     state0, xs, _, kw = epoch_inputs(trace, sim, device=dev, faults=False)
-    _, recs = _scan_trace(state0, xs, sim,
-                          rebuild_selection_tables(sim.cfg, dev), **kw)
-    summary = _summary_from_sums(_record_sums(recs, xs[4][kw["lane_trace"]]),
-                                 sim.cfg.n_chiplets)
-    return _shaped(recs, summary, ())
+    return _run_lanes(sim, state0, xs, rebuild_selection_tables(sim.cfg, dev),
+                      kw, sim.cfg.n_chiplets, ())
 
 
 def clear_engine_caches() -> None:

@@ -40,7 +40,7 @@ def _is_array(v) -> bool:
     return isinstance(v, (torch.Tensor, np.ndarray)) and v.ndim >= 1
 
 
-def _renormalize_rows(dest) -> torch.Tensor:
+def renormalize_rows(dest) -> torch.Tensor:
     """Re-normalize a destination matrix's rows after masking/slicing; rows
     whose mass was entirely masked away go to all-zero."""
     dest = _t(dest).to(torch.float32)
@@ -60,9 +60,7 @@ def validate_trace(trace, who: str = "trace") -> dict:
     (`_values_bad`); only a fault, or an array the reductions do not take,
     sends the trace to the host path, which raises the message.
     """
-    if not _meta_ok(trace) or _values_bad(
-            [trace[k] for k in TRACE_KEYS],
-            [] if trace.get("dest") is None else [trace["dest"]]):
+    if not _meta_ok(trace) or _values_bad(*_value_arrays([trace], trace)):
         _check_on_host([trace], [who])
     return trace
 
@@ -197,6 +195,44 @@ def _values_bad(loads, dests=()) -> bool:
         or any(v == np.inf for v in vals[len(lows):])
 
 
+def _value_arrays(traces, out: dict) -> tuple:
+    """The arrays whose values decide the checks of `traces` (which passed
+    `_meta_ok`), stacked into `out` (one trace is its own stack): each
+    key's float32 stack where every trace's array is a tensor that the
+    cast keeps the sign, NaN and finiteness of (any dtype `_meta_ok` takes
+    but float64), else the traces' own arrays. (loads, destination
+    matrices)."""
+    def arrays(k):
+        if all(isinstance(tr[k], torch.Tensor)
+               and tr[k].dtype != torch.float64 for tr in traces):
+            return [out[k]]
+        return [tr[k] for tr in traces]
+
+    loads = [x for k in TRACE_KEYS for x in arrays(k)]
+    return loads, [] if out.get("dest") is None else arrays("dest")
+
+
+def stack_checked(traces: list, stack) -> dict:
+    """`stack(traces)`, a dict of each key's float32 stack, with every
+    trace checked as `validate_trace` checks it: the keys, dtypes and
+    shapes of each first; the values of all of them at once, on the
+    stacked arrays (one check, one read from the card). A fault in either
+    is raised as `validate_trace(traces[i])` raises it, for the first
+    trace at fault, before any error that `stack` raises."""
+    whos = [f"traces[{i}]" for i in range(len(traces))]
+    if not all(map(_meta_ok, traces)):
+        _check_on_host(traces, whos)
+        return stack(traces)
+    try:
+        out = stack(traces)
+    except Exception:
+        _check_on_host(traces, whos)
+        raise
+    if _values_bad(*_value_arrays(traces, out)):
+        _check_on_host(traces, whos)
+    return out
+
+
 def trace_length(trace: dict) -> int:
     """Valid interval count: sum of `t_mask` if present, else the T axis."""
     validate_trace(trace)
@@ -216,7 +252,7 @@ def slice_trace(trace: dict, n_chiplets: int) -> dict:
                ext_load=_t(trace["ext_load"])[..., :n_chiplets],
                int_load=_t(trace["int_load"])[..., :n_chiplets])
     if trace.get("dest") is not None:
-        out["dest"] = _renormalize_rows(
+        out["dest"] = renormalize_rows(
             _t(trace["dest"])[..., :n_chiplets, :n_chiplets])
     return out
 
@@ -235,11 +271,12 @@ def pad_trace(trace: dict, n_intervals: int) -> dict:
     engine reduction; already-padded traces extend their existing mask, and
     any extra per-interval array (leading axis T) is padded along.
     """
-    return _pad_checked(validate_trace(trace), n_intervals)
+    return pad_checked(validate_trace(trace), n_intervals)
 
 
-def _pad_checked(trace: dict, n_intervals: int) -> dict:
-    """`pad_trace` of a trace whose checks have passed in this call."""
+def pad_checked(trace: dict, n_intervals: int) -> dict:
+    """`pad_trace` of a trace whose keys, dtypes and shapes have passed
+    `validate_trace`'s checks in this call."""
     t = int(np.shape(trace["ext_load"])[0])
     if n_intervals < t:
         raise ValueError(f"cannot pad a {t}-interval trace down to "
@@ -323,7 +360,7 @@ def concat_traces(traces: list) -> dict:
                              for tr in traces])
         w = torch.where(total > 0.0, weights / torch.clamp_min(total, 1e-12),
                         torch.full_like(weights, 1.0 / len(traces)))
-        out["dest"] = _renormalize_rows(
+        out["dest"] = renormalize_rows(
             torch.sum(dests * w[:, None, None], dim=0))
 
     known = set(TRACE_KEYS) | set(_META_KEYS)

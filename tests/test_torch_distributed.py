@@ -286,6 +286,62 @@ def test_sharded_workload_blocks_hold_only_their_traces(monkeypatch):
     assert [s[0] for s in seen] == [2, 2]
 
 
+def _small_traces(c):
+    cfg = tsim.SimConfig().cfg.with_topology(n_chiplets=c)
+    return [ttr.generate(s, trandom.prng_key(i, device="cpu"), cfg,
+                         device="cpu") for i, s in enumerate(SPECS[:2])]
+
+
+# Each one-device entry point on small traces, and one split run.
+ONE_DEVICE_CALLS = {
+    "simulate": lambda tc: tsim.simulate(_small_traces(4)[0], tc,
+                                         device="cpu"),
+    "simulate_batch": lambda tc: tsim.simulate_batch(_small_traces(4), tc,
+                                                     device="cpu"),
+    "sweep": lambda tc: tsim.sweep(_small_traces(4)[0], tc, device="cpu",
+                                   l_m=[0.006, 0.02]),
+    "sweep_batch": lambda tc: tsim.sweep_batch(
+        _small_traces(4), tc, device="cpu", l_m=[0.006, 0.02]),
+    "sweep_topology": lambda tc: tsim.sweep_topology(
+        _small_traces(9)[0], tc, device="cpu", n_chiplets=[4, 9]),
+    "sweep_topology_batch": lambda tc: tsim.sweep_topology_batch(
+        _small_traces(9), tc, device="cpu", n_chiplets=[4, 9]),
+    "sweep_workload_runtime": lambda tc: tsim.sweep_workload(
+        SPECS, tc, device="cpu", l_m=[0.006, 0.02, 0.012]),
+    "sweep_workload_topology": lambda tc: tsim.sweep_workload(
+        SPECS, tc, dest=True, device="cpu", n_chiplets=[4, 9, 16]),
+    "shard_sweep_one_device": lambda tc: tsim.shard_sweep(
+        _small_traces(9), tc, devices=["cpu"], n_chiplets=[4, 9]),
+    "shard_sweep_two_devices": lambda tc: tsim.shard_sweep(
+        _small_traces(9), tc, devices=["cpu"] * 2, n_chiplets=[4, 9]),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(ONE_DEVICE_CALLS))
+def test_one_device_runs_call_the_interval_loop_directly(entry, monkeypatch):
+    """A one-device run is one run of its lanes: it builds no lane index
+    and takes no blocks and gathers none (here they raise); a split run
+    still runs through `GridSharding.local_blocks`."""
+    class Refused(Exception):
+        pass
+
+    def refuse(*args, **kwargs):
+        raise Refused
+
+    for name in ("padded_index", "local_blocks", "gather"):
+        monkeypatch.setattr(tdist.GridSharding, name, refuse)
+    _, tc = _sims()
+    if entry == "shard_sweep_two_devices":
+        with pytest.raises(Refused):
+            ONE_DEVICE_CALLS[entry](tc)
+        return
+    out = ONE_DEVICE_CALLS[entry](tc)
+    assert set(out["summary"]) >= set(tsim.SUMMARY_KEYS)
+    if entry == "shard_sweep_one_device":
+        assert out["sharding"] == {"grid_points": 2, "pad_lanes": 0,
+                                   "devices": 1, "processes": 1}
+
+
 def test_sharded_sweep_workload_runtime_grid():
     jc, tc = _sims()
     grid = dict(l_m=np.float32([0.006, 0.02, 0.012]))
