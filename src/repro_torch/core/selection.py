@@ -535,7 +535,11 @@ def _padded_tables_torch_cached(cfgs, pad_to, device: str) -> dict:
 
 
 def clear_padded_table_caches() -> None:
-    """Drop the memoized padded tables and their device views (so the next
-    padded sweep builds its tables anew, as a first call does)."""
+    """Drop the memoized padded tables, their device views and the padded
+    entry points' topology plans that hold them (so the next padded sweep
+    builds its tables anew, as a first call does)."""
+    from repro_torch.core.simulator import clear_topology_plans
+
     _build_selection_tables_padded_cached.cache_clear()
     _padded_tables_torch_cached.cache_clear()
+    clear_topology_plans()

@@ -52,6 +52,7 @@ place, so a caller may keep an old one to roll back to.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import enum
 from typing import Dict, List, Optional, Tuple
@@ -519,16 +520,19 @@ def make_step(sim: SimConfig, tables: dict, knobs: Dict[str, torch.Tensor],
 
 # Device placement and co-design searches run (`core/search.py`,
 # `core/pareto.py`): one per search, counted once its last generation is
-# launched, whatever the island count; and the co-design searches captured
-# as a CUDA graph and replayed (`pareto._SearchGraph`).
+# launched, whatever the island count; the co-design searches captured
+# as a CUDA graph and replayed (`pareto._SearchGraph`); and the padded
+# entry points' topology plans built and found memoized (`topology_inputs`).
 _STATS = {"search_dispatches": 0, "codesign_graph_captures": 0,
-          "codesign_graph_replays": 0}
+          "codesign_graph_replays": 0, "topology_plan_builds": 0,
+          "topology_plan_hits": 0}
 
 
 def engine_stats() -> dict:
     """Kernel launches and builds, plain-loop runs, table (unpadded and
     padded device views) and co-design topology builds, device searches,
-    co-design graph captures and replays, and copies of the host spans'
+    co-design graph captures and replays, topology plans built and hit
+    (`topology_inputs`), and copies of the host spans'
     and device-to-host reads' totals (`backend.span`,
     `backend.count_host_read`) and of the trace value checks' counts
     (`trace_checks`: `n` checks run, `fallbacks` sent to the host path,
@@ -549,6 +553,8 @@ def engine_stats() -> dict:
             "search_dispatches": _STATS["search_dispatches"],
             "codesign_graph_captures": _STATS["codesign_graph_captures"],
             "codesign_graph_replays": _STATS["codesign_graph_replays"],
+            "topology_plan_builds": _STATS["topology_plan_builds"],
+            "topology_plan_hits": _STATS["topology_plan_hits"],
             "spans": {k: dict(v)
                       for k, v in backend.COUNTERS["spans"].items()},
             "host_reads": {k: dict(v) for k, v in
@@ -1499,25 +1505,168 @@ def lane_topology(topo: dict, point: torch.Tensor, c_max: int) -> dict:
     return out
 
 
-def _pair_destinations(dest: torch.Tensor, lane_trace: np.ndarray,
-                       n_chip: np.ndarray, c_max: int):
-    """The destination matrix of each distinct (trace, chiplet count) pair
-    of the lanes: the trace's matrix with the padded chiplets' rows and
-    columns zeroed and the rows re-normalized. Returns (matrices [P, C, C],
-    each lane's pair index [B] int32, each pair's trace [P] int32)."""
+@dataclasses.dataclass(frozen=True)
+class _PairPlan:
+    """The host half of a padded run's destination pairs, one for each
+    distinct (trace, chiplet count) pair of its lanes: the pairs' traces
+    `pn` [P] and chiplet masks `mask` [P, C] (1.0 on the pair's chiplets),
+    each lane's pair `dest_index` [B] int32 and each pair's trace
+    `pair_trace` [P] int32. Nothing in it depends on the traces' values."""
+    pn: torch.Tensor
+    mask: torch.Tensor
+    dest_index: torch.Tensor
+    pair_trace: torch.Tensor
+
+
+def _pair_plan(lane_trace: np.ndarray, n_chip: np.ndarray, c_max: int,
+               device) -> _PairPlan:
+    """The `_PairPlan` of lanes reading traces `lane_trace` [B] at chiplet
+    counts `n_chip` [B], padded to `c_max` chiplets, on `device`."""
     keys = lane_trace.astype(np.int64) * (c_max + 1) + n_chip
     uniq, inv = np.unique(keys, return_inverse=True)
-    dev = dest.device
-    pn = torch.as_tensor(uniq // (c_max + 1), device=dev)
-    pc = torch.as_tensor(uniq % (c_max + 1), device=dev)
-    m = (torch.arange(c_max, device=dev)[None, :] < pc[:, None]).to(_F32)
-    d = dest[pn] * m[:, None, :] * m[:, :, None]
+    pn = torch.as_tensor(uniq // (c_max + 1), device=device)
+    pc = torch.as_tensor(uniq % (c_max + 1), device=device)
+    mask = (torch.arange(c_max, device=device)[None, :]
+            < pc[:, None]).to(_F32)
+    return _PairPlan(pn, mask,
+                     torch.as_tensor(inv.reshape(-1).astype(np.int32),
+                                     device=device),
+                     pn.to(_I32))
+
+
+def _pair_destinations(dest: torch.Tensor, plan: _PairPlan) -> tuple:
+    """The destination matrix of each pair of `plan`: its trace's matrix
+    `dest` [N, C, C] with the padded chiplets' rows and columns zeroed and
+    the rows re-normalized. Returns (matrices [P, C, C], each lane's pair
+    index [B] int32, each pair's trace [P] int32)."""
+    m = plan.mask
+    d = dest[plan.pn] * m[:, None, :] * m[:, :, None]
     row = torch.sum(d, dim=-1, keepdim=True)
     pairs = torch.where(row > 0.0, d / torch.clamp_min(row, 1e-12),
                         torch.zeros_like(d))
-    return (pairs,
-            torch.as_tensor(inv.reshape(-1).astype(np.int32), device=dev),
-            pn.to(_I32))
+    return pairs, plan.dest_index, plan.pair_trace
+
+
+@dataclasses.dataclass
+class _TopologyPlan:
+    """What `topology_inputs` builds from its non-trace inputs alone: the
+    prepared grid, the lane maps (`lane_np`, `point_np` on the host and as
+    tensors), the lanes' knob tensors and, built at the first batch with
+    destination matrices, the `_PairPlan`. Every call only reads it; no
+    tensor of it is handed back inside a result."""
+    grid: _TopologyGrid
+    lane_np: np.ndarray
+    point_np: np.ndarray
+    lane_trace: torch.Tensor
+    point: torch.Tensor
+    knobs: dict
+    pairs: Optional[_PairPlan] = None
+
+
+# The memoized topology plans, least recently used first; emptied by
+# `clear_engine_caches` and `selection.clear_padded_table_caches` (a plan
+# holds the padded tables' device views).
+_TOPOLOGY_PLANS: "collections.OrderedDict[tuple, _TopologyPlan]" = \
+    collections.OrderedDict()
+_TOPOLOGY_PLAN_SLOTS = 16
+
+
+def _trace_count(batch) -> Optional[int]:
+    """N of a padded entry point's `batch`, from shapes alone (1 for one
+    trace), or None where it has no trace shape."""
+    if isinstance(batch, (list, tuple)):
+        return len(batch)
+    if not isinstance(batch, dict):
+        return None
+    shape = np.shape(batch.get("ext_load"))
+    if len(shape) == 2:
+        return 1
+    return int(shape[0]) if len(shape) == 3 else None
+
+
+def _plan_key(sim: SimConfig, grids: dict, batch, zipped, pad_chiplets,
+              device) -> Optional[tuple]:
+    """The memo key of a topology plan: the config, each grid's values as
+    Python numbers (with their kind; placements normalized),
+    `pad_chiplets`, `zipped`, the trace count N and the device. None where
+    a grid is a tensor (keying it would read it back from the card) or an
+    input does not key: the plan is then built, or refused, as it would
+    be without the memo."""
+    if device.type == "cuda" and device.index is None:
+        # "cuda" names the current card, which may change between calls.
+        device = torch.device("cuda", torch.cuda.current_device())
+    parts = []
+    try:
+        n = _trace_count(batch)
+        if n is None:
+            return None
+        for name in sorted(grids):
+            v = grids[name]
+            if isinstance(v, torch.Tensor):
+                return None
+            if name == "gateway_positions":
+                if not isinstance(v, (list, tuple)):
+                    return None
+                parts.append((name, tuple(normalize_placement(p)
+                                          for p in v)))
+                continue
+            a = np.asarray(v)
+            if a.dtype.kind not in "biuf":
+                return None
+            parts.append((name, a.dtype.kind, a.shape,
+                          tuple(a.reshape(-1).tolist())))
+        key = (sim, tuple(parts),
+               None if pad_chiplets is None else int(pad_chiplets),
+               bool(zipped), n, str(device))
+        hash(key)
+    except (TypeError, ValueError):
+        return None
+    return key
+
+
+def _cached_plan(key: Optional[tuple]) -> Optional[_TopologyPlan]:
+    """The memoized plan of `key` (counted a hit), else None."""
+    if key is None:
+        return None
+    plan = _TOPOLOGY_PLANS.get(key)
+    if plan is not None:
+        _TOPOLOGY_PLANS.move_to_end(key)
+        _STATS["topology_plan_hits"] += 1
+    return plan
+
+
+def _build_plan(key: Optional[tuple], grid: _TopologyGrid, n: int, zipped,
+                device) -> _TopologyPlan:
+    """The lanes of N traces on `grid` (N * K trace-major lanes, or K
+    zipped), their knobs, as a plan (counted a build), memoized under
+    `key` unless it is None."""
+    k = int(grid.n_chiplets.shape[0])
+    if zipped:
+        if n != k:
+            raise ValueError(f"{n} traces for {k} grid points: zipped "
+                             f"lanes need one trace per point")
+        lane_np, point_np = np.arange(k), np.arange(k)
+    else:
+        lane_np = np.repeat(np.arange(n), k)
+        point_np = np.tile(np.arange(k), n)
+    knobs = default_knobs(grid.sim, len(lane_np), device,
+                          {f: torch.as_tensor(v[point_np], device=device)
+                           for f, v in grid.knobs.items()})
+    plan = _TopologyPlan(grid, lane_np, point_np,
+                         torch.as_tensor(lane_np, device=device),
+                         torch.as_tensor(point_np, device=device), knobs)
+    _STATS["topology_plan_builds"] += 1
+    if key is not None:
+        _TOPOLOGY_PLANS[key] = plan
+        while len(_TOPOLOGY_PLANS) > _TOPOLOGY_PLAN_SLOTS:
+            _TOPOLOGY_PLANS.popitem(last=False)
+    return plan
+
+
+def clear_topology_plans() -> None:
+    """Drop the memoized topology plans (the next padded call builds its
+    plan anew, as a first call does)."""
+    _TOPOLOGY_PLANS.clear()
 
 
 def topology_inputs(batch, sim: SimConfig, *, device=None, zipped=False,
@@ -1531,11 +1680,22 @@ def topology_inputs(batch, sim: SimConfig, *, device=None, zipped=False,
     each lane's real chiplet count (the wavelength summary's divisor).
     `pad_chiplets` pads the chiplet axis wider than the grid needs. Each
     stage is a span (`topology.prepare`, `.trace_arrays`, `.lanes`,
-    `.dest_pairs`, `.initial_state`)."""
+    `.dest_pairs`, `.initial_state`).
+
+    What depends only on the non-trace inputs (the grid, the lane maps,
+    the knobs, the destination pairs' plan) is memoized by `_plan_key`
+    (`engine_stats()["topology_plan_builds"]` / `["topology_plan_hits"]`);
+    on a hit the first stages time its lookup. `kwargs` shares the plan's
+    tensors: read them, write none. What reads the traces runs every call:
+    their checks, the loads, the pair matrices, each lane's topology
+    (`lane_topology`) and the initial state."""
     tables = backend.LAYER_TABLES
     dev = backend.resolve_device(device)
     with backend.span("topology.prepare", tables):
-        grid = _prepare_topology_sweep(sim, grids, dev, pad_chiplets)
+        key = _plan_key(sim, grids, batch, zipped, pad_chiplets, dev)
+        plan = _cached_plan(key)
+        grid = _prepare_topology_sweep(sim, grids, dev, pad_chiplets) \
+            if plan is None else plan.grid
     with backend.span("topology.trace_arrays", tables):
         ext, mem, intra, ext_frac, t_mask, dest = _topo_trace_arrays(
             _stacked(batch), grid.c_max, dev)
@@ -1545,32 +1705,25 @@ def topology_inputs(batch, sim: SimConfig, *, device=None, zipped=False,
                 t_mask[None]
             ext_frac = ext_frac.reshape(1)
             dest = None if dest is None else dest[None]
-        n, k = int(ext.shape[0]), int(grid.n_chiplets.shape[0])
-        if zipped:
-            if n != k:
-                raise ValueError(f"{n} traces for {k} grid points: zipped "
-                                 f"lanes need one trace per point")
-            lane_np, point_np = np.arange(k), np.arange(k)
-        else:
-            lane_np = np.repeat(np.arange(n), k)
-            point_np = np.tile(np.arange(k), n)
-        lane_trace = torch.as_tensor(lane_np, device=dev)
-        point = torch.as_tensor(point_np, device=dev)
-        knobs = default_knobs(grid.sim, len(lane_np), dev,
-                              {f: torch.as_tensor(v[point_np], device=dev)
-                               for f, v in grid.knobs.items()})
-        topo = lane_topology(grid.topo, point, grid.c_max)
+        n = int(ext.shape[0])
+        if plan is None:
+            plan = _build_plan(key, grid, n, zipped, dev)
+        topo = lane_topology(grid.topo, plan.point, grid.c_max)
         xs = (ext * t_mask[..., None], mem * t_mask,
               intra * t_mask[..., None],
               ext_frac.reshape(n, 1).expand_as(mem), t_mask)
-        kwargs = dict(lane_trace=lane_trace, knobs=knobs, topo=topo)
+        kwargs = dict(lane_trace=plan.lane_trace, knobs=dict(plan.knobs),
+                      topo=topo)
     with backend.span("topology.dest_pairs", tables):
         if dest is not None:
+            if plan.pairs is None:
+                plan.pairs = _pair_plan(plan.lane_np,
+                                        grid.n_chiplets[plan.point_np],
+                                        grid.c_max, dev)
             kwargs["dest"], kwargs["dest_index"], kwargs["pair_trace"] = \
-                _pair_destinations(dest, lane_np, grid.n_chiplets[point_np],
-                                   grid.c_max)
+                _pair_destinations(dest, plan.pairs)
     with backend.span("topology.initial_state", tables):
-        state0 = _initial_state(grid.sim, knobs, topo)
+        state0 = _initial_state(grid.sim, plan.knobs, topo)
     return grid.sim, state0, xs, kwargs, topo["nreal"]
 
 
@@ -1922,8 +2075,9 @@ def simulate_eager(trace: dict, sim: SimConfig, *, device=None) -> dict:
 
 def clear_engine_caches() -> None:
     """Drop every cache the port's engine holds: the search's and the
-    co-design's memoized device tables, the destination matrices and the
-    device views of the selection tables (padded and unpadded), so the
+    co-design's memoized device tables, the destination matrices, the
+    device views of the selection tables (padded and unpadded) and the
+    padded entry points' topology plans, so the
     next call builds and copies them anew, as a first call does. The
     design-time numpy tables stay memoized, as in the reference, so
     `engine_stats()["selection_table_builds"]` keeps counting."""
@@ -2123,8 +2277,8 @@ def codesign_scoring(sim: SimConfig, topo: dict, knobs: dict, arrays: tuple,
     kwargs = dict(lane_trace=lane_trace, knobs=lane_knobs)
     if dest is not None:
         kwargs["dest"], kwargs["dest_index"], kwargs["pair_trace"] = \
-            _pair_destinations(dest, lane_np,
-                               np.asarray(n_chiplets)[point_np], c_max)
+            _pair_destinations(dest, _pair_plan(
+                lane_np, np.asarray(n_chiplets)[point_np], c_max, dev))
     return CodesignScoring(sim, _initial_state(sim, lane_knobs, lane_topo),
                            xs, kwargs, lane_topo, xs[4][lane_trace], shape)
 
